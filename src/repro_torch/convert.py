@@ -1,0 +1,83 @@
+"""Carry state across from the JAX package.
+
+``jax.random`` cannot be reproduced in torch, so holding the port against
+the reference on the same index needs the reference's random state and
+derived arrays as plain numpy arrays:
+
+* :func:`encoder_state_from_arrays` takes the dict that the reference's
+  ``Encoder.arrays()`` returns (``filters`` and ``cws/{log_r, r, log_c,
+  beta}``);
+* :func:`index_from_arrays` adds the index arrays (``signatures``,
+  ``keys``, ``series`` and, when cached, the envelopes).
+
+Nothing here imports the reference: its arrays arrive as numpy.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.index import SSHIndex
+from repro_torch.encoders import IndexSpec, SSHEncoder
+from repro_torch.kernels import ops
+
+LEAVES = ("filters", "cws/log_r", "cws/r", "cws/log_c", "cws/beta")
+
+
+def encoder_state_from_arrays(arrays: Mapping[str, np.ndarray],
+                              device=None) -> dict:
+    """Encoder state dict of float32 tensors on ``device`` (CUDA unless
+    the caller asks for the CPU).  Refuses a leaf set other than the
+    ``"ssh"`` encoder's; shapes are checked against the spec by
+    ``SSHEncoder.load_state``."""
+    missing = sorted(set(LEAVES) - set(arrays))
+    unknown = sorted(set(arrays) - set(LEAVES))
+    if missing or unknown:
+        raise ValueError(f"encoder arrays: missing leaves {missing}, "
+                         f"unknown leaves {unknown}; expected {LEAVES}")
+    dev = ops.resolve_device(device)
+    return {k: torch.tensor(np.asarray(arrays[k], np.float32), device=dev)
+            for k in LEAVES}
+
+
+def _tensor(a, dtype, dev) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), device=dev).to(dtype)
+
+
+def index_from_arrays(spec: IndexSpec, encoder_arrays: Mapping[str,
+                                                              np.ndarray],
+                      signatures: np.ndarray, keys: np.ndarray,
+                      series: np.ndarray, *,
+                      env_upper: Optional[np.ndarray] = None,
+                      env_lower: Optional[np.ndarray] = None,
+                      env_radius: Optional[int] = None,
+                      build_backend: str = "cpu",
+                      device=None) -> SSHIndex:
+    """An ``SSHIndex`` on ``device`` from the reference's arrays.
+
+    ``keys`` may be the reference's uint32 band keys: they are stored as
+    the same 32-bit pattern in int32 (``repro/serving/batched.py:142-144``
+    casts them so).  ``build_backend`` records what encoded the
+    signatures.
+    """
+    dev = ops.resolve_device(device)
+    enc = SSHEncoder(spec).load_state(
+        encoder_state_from_arrays(encoder_arrays, dev))
+    keys = np.asarray(keys)
+    if keys.dtype == np.uint32:
+        keys = keys.view(np.int32)
+    sigs = _tensor(signatures, torch.int32, dev)
+    if tuple(sigs.shape[1:]) != (enc.num_hashes,):
+        raise ValueError(f"signatures have shape {tuple(sigs.shape)}, the "
+                         f"spec implies K={enc.num_hashes}")
+    idx = SSHIndex(encoder=enc, signatures=sigs,
+                   keys=_tensor(keys, torch.int32, dev),
+                   series=_tensor(series, torch.float32, dev),
+                   build_backend=build_backend)
+    if env_upper is not None:
+        idx.env_upper = _tensor(env_upper, torch.float32, dev)
+        idx.env_lower = _tensor(env_lower, torch.float32, dev)
+        idx.env_radius = env_radius
+    return idx

@@ -1,0 +1,189 @@
+"""Batched DTW re-rank (counterpart of ``repro.core.rerank``; the
+sequential ``rerank`` is not ported yet).
+
+For a (B, C) block of hash candidates: seed DTW over each row's first
+``topk`` candidates gives a per-row best-so-far; the staged LB cascade
+(LB_Kim -> LB_Keogh -> LB_Keogh2 from the index's cached envelopes)
+thins the block; LB_Improved thins the survivor pairs; the
+threshold-aware pair DTW (``dtw_wavefront_pairs``) scores the rest; a
+stable sort takes each row's top-k.  Per-row decisions are the
+reference's (``repro/core/rerank.py:355-508``).
+
+Unlike the reference, the pair bookkeeping stays on the device: the
+survivor pairs, their gathered rows and their thresholds are tensors on
+the index's device, and each DTW stage is one launch over all its pairs
+(values are lane-independent, so no fixed-size chunking is needed — the
+reference chunks only to bound XLA recompiles, and it copies the whole
+database to the host, which on the card would be gigabytes per batch).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.bench.timing import DISABLED, StageTimer
+from repro_torch.core import lower_bounds as lb
+from repro_torch.core.dtw import BIG
+from repro_torch.core.index import SSHIndex
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass
+class SearchStats:
+    """Re-rank pruning counters; the stage counters attribute each
+    pruned candidate to the first bound that fired, seeds exempt, so
+    ``n_in == pruned_kim + pruned_keogh + pruned_keogh2 +
+    pruned_improved + n_dtw``.  ``dtw_abandoned`` counts DTW pairs the
+    threshold abandoned.  ``backend`` names the route ("cuda" kernels or
+    "cpu" plain versions)."""
+    n_in: int = 0
+    pruned_kim: int = 0
+    pruned_keogh: int = 0
+    pruned_keogh2: int = 0
+    pruned_improved: int = 0
+    forced_kept: int = 0
+    n_dtw: int = 0
+    dtw_abandoned: int = 0
+    backend: str = "cuda"
+    stage_seconds: Optional[Dict[str, float]] = None
+    index_bytes: Optional[int] = None
+
+    @property
+    def lb_pruned(self) -> int:
+        return (self.pruned_kim + self.pruned_keogh + self.pruned_keogh2
+                + self.pruned_improved)
+
+    @property
+    def stage_us(self) -> Optional[Dict[str, float]]:
+        if self.stage_seconds is None:
+            return None
+        return {k: v * 1e6 for k, v in self.stage_seconds.items()}
+
+
+def dtw_pairs(q_rows: torch.Tensor, c_rows: torch.Tensor,
+              band: Optional[int],
+              threshold: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row-aligned pair DTW over all P pairs in one dispatch:
+    (P, m) x (P, m) -> (P,)."""
+    if q_rows.shape[0] == 0:
+        return torch.zeros(0, dtype=torch.float32, device=q_rows.device)
+    return ops.dtw_rerank_pairs(q_rows.contiguous(), c_rows.contiguous(),
+                                band, threshold)
+
+
+def rerank_batch(queries: torch.Tensor, ids: torch.Tensor,
+                 valid: torch.Tensor, index: SSHIndex, topk: int,
+                 band: Optional[int], *, use_lb_cascade: bool = True,
+                 seed_size: Optional[int] = None, early_abandon: bool = True,
+                 timer: StageTimer = DISABLED):
+    """Batched stage 2+3 over per-query candidate blocks.
+
+    queries (B, m); ids (B, C) int64 candidate ids; valid (B, C) bool, all
+    on the index's device.  Returns host arrays (out_ids (B, k) int64,
+    out_d (B, k) f32, n_final (B,) int64), n_union and the stats; filler
+    slots (fewer survivors than topk) carry id -1 / dist BIG.
+    """
+    dev = index.device
+    b, c = ids.shape
+    n_hash = valid.sum(1)                                      # (B,)
+    stats = SearchStats(backend=dev.type)
+    k_out = min(topk, c)
+    seed_k = min(max(seed_size or 0, topk), c)
+    cascade_on = use_lb_cascade and band is not None
+    thr_rows = None
+    counters = [valid.sum()]
+
+    if cascade_on:
+        with timer.stage("lb") as sync:
+            seed_ids = ids[:, :seed_k]
+            seed_d = dtw_pairs(queries.repeat_interleave(seed_k, 0),
+                               index.series[seed_ids.reshape(-1)],
+                               band).reshape(b, seed_k)
+            if seed_size is not None:
+                # a widened seed may overrun a row's valid candidates
+                col = torch.arange(seed_k, device=dev)[None, :]
+                seed_d = torch.where(col < n_hash[:, None], seed_d,
+                                     torch.inf)
+                best = torch.sort(seed_d, 1).values[:, min(topk, seed_k) - 1]
+            else:
+                best = seed_d.max(1).values                    # kth best
+            cand_series = index.series[ids]                    # (B, C, m)
+            env = ()
+            if index.env_radius == band and index.env_upper is not None:
+                env = (index.env_upper[ids], index.env_lower[ids])
+            k1, k2, k3 = lb.cascade_staged(queries, cand_series, band, best,
+                                           *env)
+            # the sequential path skips the cascade when n_hash <= topk
+            # and never drops the seeded set
+            forced = torch.zeros((b, c), dtype=torch.bool, device=dev)
+            forced[:, :seed_k] = True
+            forced[n_hash <= topk] = True
+            enter = valid & ~forced
+            pass123 = k1 & k2 & k3
+            counters += [(enter & ~k1).sum(), (enter & k1 & ~k2).sum(),
+                         (enter & k1 & k2 & ~k3).sum(),
+                         (valid & forced & ~pass123).sum()]
+            ok = valid & (forced | pass123)
+            # rows whose cascade never applied get +inf: exempt from both
+            # LB_Improved and early abandoning
+            thr_rows = torch.where(n_hash > topk, best,
+                                   torch.full_like(best, torch.inf))
+            sync(None)
+    else:
+        ok = valid.clone()
+
+    # flattened survivor pairs, row-major like the reference's np.nonzero
+    rows_idx, cols_idx = torch.nonzero(ok, as_tuple=True)
+    pair_ids = ids[rows_idx, cols_idx]
+    c_rows = index.series[pair_ids]                            # (P, m)
+    q_rows = queries[rows_idx]                                 # (P, m)
+
+    if cascade_on:
+        with timer.stage("lb_improved") as sync:
+            lbi = lb.lb_improved_pairs(q_rows, c_rows, band)
+            thr_pair = thr_rows[rows_idx]
+            forced_pair = forced[rows_idx, cols_idx]
+            keep = (lbi < thr_pair) | forced_pair
+            counters += [(~keep).sum(),
+                         (forced_pair & pass123[rows_idx, cols_idx]
+                          & ~(lbi < thr_pair)).sum()]
+            ok[rows_idx[~keep], cols_idx[~keep]] = False
+            rows_idx, cols_idx = rows_idx[keep], cols_idx[keep]
+            q_rows, c_rows = q_rows[keep], c_rows[keep]
+            sync(None)
+
+    with timer.stage("dtw") as sync:
+        thr_pairs = (thr_rows[rows_idx]
+                     if (cascade_on and early_abandon) else None)
+        pair_d = dtw_pairs(q_rows, c_rows, band, thr_pairs)    # (P,)
+        if thr_pairs is not None:
+            counters.append((pair_d >= BIG * 0.5).sum())
+        cand_d = torch.full((b, c), BIG, dtype=torch.float32, device=dev)
+        cand_d[rows_idx, cols_idx] = pair_d
+        # stable ascending sort: ties go to the lowest candidate slot, as
+        # lax.top_k(-d) breaks them
+        out_d, order = torch.sort(cand_d, dim=1, stable=True)
+        out_d, order = out_d[:, :k_out], order[:, :k_out]
+        out_ids = torch.where(out_d < BIG * 0.5, ids.gather(1, order), -1)
+        n_final = ok.sum(1)
+        n_union = torch.unique(pair_ids).numel()
+        host = [t.cpu() for t in (out_ids, out_d, n_final,
+                                  torch.stack(counters))]
+        sync(None)
+    out_ids, out_d, n_final, cnt = host
+    cnt = cnt.tolist()
+    stats.n_in = cnt[0]
+    if cascade_on:
+        (stats.pruned_kim, stats.pruned_keogh, stats.pruned_keogh2,
+         stats.forced_kept, stats.pruned_improved) = cnt[1:6]
+        stats.forced_kept += cnt[6]
+        if early_abandon:
+            stats.dtw_abandoned = cnt[7]
+    stats.n_dtw = int(pair_d.shape[0])
+    if timer.enabled:
+        stats.stage_seconds = dict(timer.timings)
+    return (out_ids.numpy().astype(np.int64), out_d.numpy(),
+            n_final.numpy().astype(np.int64), n_union, stats)

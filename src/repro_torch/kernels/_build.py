@@ -1,0 +1,133 @@
+"""Build the hand-written CUDA kernels and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles with
+``nvcc`` alone (no PyTorch headers) into ``build/repro_torch/<name>-<hash>.so``
+beside the source checkout, at first use.  The file name carries a hash
+of the source and the flags, so an edited kernel rebuilds and a stale
+library is never loaded.  ``build_all`` starts one ``nvcc`` per source
+at once.
+
+Every wrapper counts its launches in :data:`LAUNCHES` (one per kernel
+launch, nowhere else), which is how a run shows that the main path went
+through the kernels.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+#: <checkout>/build/repro_torch when running from src/ (listed in .gitignore)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+C_INT, C_PTR = ctypes.c_int, ctypes.c_void_p
+
+#: C signature of every exported function, per library
+SIGNATURES = {
+    "sketch_conv": {
+        "sketch_conv_launch": [C_PTR, C_PTR, C_PTR, C_INT, C_INT, C_INT,
+                               C_INT, C_INT, C_INT, C_PTR],
+        "sketch_conv_smem_bytes": [C_INT, C_INT, C_INT],
+    },
+    "collision_count": {
+        "collision_count_batch_launch": [C_PTR, C_PTR, C_PTR, C_INT, C_INT,
+                                         C_INT, C_PTR],
+        "collision_count_max_k": [],
+    },
+    "dtw_wavefront": {
+        "dtw_wavefront_pairs_launch": [C_PTR, C_PTR, C_PTR, C_PTR, C_INT,
+                                       C_INT, C_INT, C_PTR],
+        "dtw_pairs_max_radius": [],
+    },
+}
+
+#: launches per kernel since the last reset (see ``kernels.ops``)
+LAUNCHES: Dict[str, int] = collections.Counter()
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
+                       "kernels of repro_torch need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{tag[:12]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library exists; returns
+    (process or None, temp path, final path)."""
+    out = library_path(name)
+    if out.exists():
+        return None, None, out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, proc, tmp: Path, out: Path) -> None:
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)       # atomic: a reader never sees half a library
+
+
+def build_all() -> None:
+    """Compile every kernel library, one nvcc each, all at once."""
+    started = [(n, *_start(n)) for n in SIGNATURES]
+    for n, proc, tmp, out in started:
+        _finish(n, proc, tmp, out)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``name``, built first if needed."""
+    lib = _LIBS.get(name)        # every launch asks: no lock once loaded
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            _finish(name, *_start(name))
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = C_INT
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes, err.restype = [C_INT], ctypes.c_char_p
+            _LIBS[name] = lib
+        return lib
+
+
+def check(name: str, lib: ctypes.CDLL, code: int) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` from a launch."""
+    if code:
+        msg = getattr(lib, f"{name}_error_string")(code).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                           f"{code} ({msg})")

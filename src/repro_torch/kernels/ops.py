@@ -1,0 +1,106 @@
+"""Device dispatch for the kernels of the main path (counterpart of
+``repro.kernels.ops``).
+
+The tensor's device picks the route: a CUDA tensor launches the
+hand-written kernel (or raises), a CPU tensor takes the plain version in
+``kernels.ref``.  There is no fallback from one to the other.
+
+The ``backend`` knob of ``SearchConfig`` keeps the reference's values so
+configs read the same: ``"auto"`` and ``"pallas"`` both mean "the kernel
+on CUDA, the plain version on the CPU"; ``"jnp"`` names the plain version
+and is accepted only on the CPU (:func:`check_backend`).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.collision_count import \
+    collision_count_batch as _collision_kernel
+from repro_torch.kernels.dtw_wavefront import \
+    dtw_wavefront_pairs as _dtw_kernel
+from repro_torch.kernels.sketch_conv import sketch_conv as _sketch_kernel
+
+BACKENDS = ("auto", "pallas", "jnp")
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU.  Raises when CUDA is asked for (the default) and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"repro_torch runs on cuda or cpu, got {dev}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA unless device='cpu' is passed, and "
+            "torch.cuda.is_available() is False here")
+    return dev
+
+
+def check_backend(backend: str,
+                  device: Optional[torch.device] = None) -> None:
+    """Validate the ``backend`` knob, and for ``device`` when given."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, "
+                         f"got {backend!r}")
+    if backend == "jnp" and device is not None and device.type != "cpu":
+        raise ValueError("backend='jnp' names the plain versions, which "
+                         "run only with device='cpu'")
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per kernel since the last reset."""
+    return {name: _build.LAUNCHES[name] for name in _build.SIGNATURES}
+
+
+def reset_launch_counts() -> None:
+    _build.LAUNCHES.clear()
+
+
+def _route(t: torch.Tensor) -> bool:
+    """True for the kernel (CUDA), False for the plain version (CPU)."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no route for tensors on {t.device}")
+
+
+def sketch_conv(x: torch.Tensor, filters: torch.Tensor, step: int
+                ) -> torch.Tensor:
+    """Sliding-window projections (B, m) x (W, F) -> (B, N_B, F)."""
+    if _route(x):
+        return _sketch_kernel(x, filters, step)
+    return ref.sketch_conv_ref(x, filters, step)
+
+
+def sketch_bits(x: torch.Tensor, filters: torch.Tensor, step: int
+                ) -> torch.Tensor:
+    """Sign bits (projection >= 0) as uint8, (B, m) -> (B, N_B, F)."""
+    return (sketch_conv(x, filters, step) >= 0).to(torch.uint8)
+
+
+def collision_count_batch(query_keys: torch.Tensor, db_keys: torch.Tensor
+                          ) -> torch.Tensor:
+    """Batched signature agreement counts (B, K) x (N, K) -> (B, N)."""
+    if _route(db_keys):
+        return _collision_kernel(query_keys, db_keys)
+    return ref.collision_count_batch_ref(query_keys, db_keys)
+
+
+def dtw_rerank_pairs(queries: torch.Tensor, candidates: torch.Tensor,
+                     band: Optional[int],
+                     threshold: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Row-aligned pair DTW (P, m) x (P, m) -> (P,); ``band=None`` is
+    radius m - 1.  ``threshold`` (P,): exact where <= threshold, else
+    BIG."""
+    if _route(queries):
+        m = queries.shape[1]
+        return _dtw_kernel(queries, candidates,
+                           m - 1 if band is None else band, threshold)
+    return ref.dtw_pairs_ref(queries, candidates, band, threshold)

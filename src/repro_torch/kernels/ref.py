@@ -1,0 +1,52 @@
+"""Plain PyTorch versions of the three CUDA kernels (counterpart of
+``repro.kernels.ref``).
+
+Each ``<name>_ref`` is the oracle its kernel is held against on the card
+and the path ``kernels.ops`` takes for a tensor that lies on the CPU.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import dtw as _dtw
+from repro_torch.core.sketch import sketch_projections
+
+
+def sketch_conv_ref(x: torch.Tensor, filters: torch.Tensor, step: int
+                    ) -> torch.Tensor:
+    """Sliding-window projections. x (B, m), filters (W, F) -> (B, N_B, F).
+
+    ``x.unfold(-1, W, step) @ filters``: a matrix product, which sums the
+    taps in another order than the kernel's tap loop — compare within
+    float32 tolerance.
+    """
+    return sketch_projections(x, filters, step)
+
+
+def collision_count_batch_ref(query_keys: torch.Tensor,
+                              db_keys: torch.Tensor) -> torch.Tensor:
+    """queries (B, K), db (N, K) int32 -> (B, N) int32 match counts,
+    accumulated key by key as a (B, N) broadcast compare."""
+    b, n = query_keys.shape[0], db_keys.shape[0]
+    acc = torch.zeros((b, n), dtype=torch.int32, device=db_keys.device)
+    db_t = db_keys.t()
+    for k in range(db_keys.shape[1]):
+        acc += db_t[k][None, :] == query_keys[:, k][:, None]
+    return acc
+
+
+def dtw_pairs_ref(queries: torch.Tensor, candidates: torch.Tensor,
+                  band: Optional[int] = None,
+                  threshold: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row-aligned banded squared DTW: (P, m) x (P, m) -> (P,).
+
+    The reference routes narrow bands to its O(m·band) window DP and the
+    rest to the full DP (``repro/kernels/ref.py:30-73``); both compute the
+    same function, which the wavefront of ``core.dtw`` computes at radius
+    ``min(band, m - 1)`` (``None`` -> m - 1), with the same threshold
+    contract: exact where <= threshold, else BIG.
+    """
+    return _dtw.dtw_banded_pairs(queries, candidates, band,
+                                 threshold=threshold)

@@ -1,0 +1,104 @@
+"""The port stands alone: no JAX, nothing of ``repro``, CUDA by default.
+
+* importing every module of ``repro_torch`` in a fresh interpreter where
+  ``import jax`` fails must work;
+* no ``import`` under ``src/repro_torch/`` or in ``chip_smoke.py`` names
+  ``jax`` or the ``repro`` package (AST scan);
+* an entry point called without ``device="cpu"`` on a host without CUDA
+  raises instead of carrying on on the CPU.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert
+from repro_torch.configs.ssh_ecg import SMOKE
+from repro_torch.db import SearchConfig, TimeSeriesDB
+from repro_torch.encoders import SSHEncoder
+from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.torch_port
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_IMPORT_ALL = """
+import sys
+sys.modules["jax"] = None
+import importlib, pkgutil
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert "jax" not in [m for m in sys.modules if sys.modules[m] is not None]
+assert not [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+print(len(names), "modules")
+"""
+
+
+def test_import_without_jax_in_a_subprocess():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "modules" in out.stdout
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_or_reference_imports():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = {str(f.relative_to(ROOT)): root for f in files
+           for root in _imported_roots(f) if root in ("jax", "repro")}
+    assert not bad, bad
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    series = np.zeros((4, 64), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TimeSeriesDB.build(series, SMOKE)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SSHEncoder(SMOKE).materialize()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.encoder_state_from_arrays(
+            SSHEncoder(SMOKE).materialize("cpu").arrays())
+    with pytest.raises(RuntimeError):
+        ops.resolve_device("cuda")
+    assert ops.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_jnp_backend_only_on_cpu():
+    db = TimeSeriesDB.build(np.random.default_rng(0).normal(
+        size=(30, 64)).astype(np.float32), SMOKE,
+        SearchConfig(backend="jnp", top_c=16, band=4), device="cpu")
+    assert db.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="device='cpu'"):
+        ops.check_backend("jnp", torch.device("cuda"))
+
+
+def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: chip_smoke.py would run for real")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
