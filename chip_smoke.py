@@ -3,30 +3,51 @@
     python3 chip_smoke.py [--seed 0] [--n-series 1048576] [--length 512]
 
 1. Set-up: the card's name and power limit, the torch and CUDA versions,
-   and the build of the three CUDA kernels from ``src/repro_torch/csrc``.
-2. Main path: ``TimeSeriesDB.build`` at the full ``ssh-ecg`` config
-   (W=80, δ=3, n=15, K=40, L=20) over ``--n-series`` synthetic-ECG series
-   of length ``--length`` made from ``--seed`` (the windows of
-   ``make_benchmark_db``, each z-normalised as in the UCR suite: raw,
-   the baseline-dominated windows collapse onto a few signatures shared
-   by thousands of series, and a query's top-512 ties by lowest id can
-   then leave the query itself out), then ``search_batch`` on
-   4 batches of 64 queries (half database rows, whose top-1 must be
-   themselves, half warped copies) with ``SEARCH`` at the 5 % band,
-   topk 10, top_c 512, multiprobe 3.  Every kernel's launch count is set
-   to 0 just before and read just after; each must have grown.
-3. Kernels: each kernel against its plain PyTorch version on the card, on
-   the very tensors the main path handed it (recorded on one more batch):
-   integers exact, DTW bit-identical, the sketch within the float32 bound
-   of reordering an 80-term sum.  Times by CUDA events: the kernel, the
-   plain version, and one PyTorch call computing the same function where
-   there is one; the bound is the larger of bytes over 3.35 TB/s and
-   operations over the peak rate of their type (H100 SXM: f32 outside the
-   tensor cores 67 TFLOP/s, int32 33.5 Tops/s).  The sketch is checked
-   and timed at both of its shapes: a 4096-row build chunk (the ``ms``
-   of its entry) and the query encode, where a call is mostly host
-   dispatch.
-4. Cross-check: 8 queries through the plain CPU path on a CPU copy of the
+   and the build of the CUDA kernels from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, all at once).
+2. Data: ``--n-series`` synthetic-ECG series of length ``--length`` made
+   from ``--seed`` (the windows of ``make_benchmark_db``, each
+   z-normalised as in the UCR suite: raw, the baseline-dominated windows
+   collapse onto a few signatures shared by thousands of series, and a
+   query's top-512 ties by lowest id can then leave the query itself
+   out).  Queries: 4 batches of 64, half database rows (whose top-1 must
+   be themselves), half warped copies.
+3. Paths, each driven with every kernel's launch count set to 0 just
+   before and read just after; each kernel of the path must have grown:
+   a. batched: ``TimeSeriesDB.build`` at the full ``ssh-ecg`` config
+      (W=80, δ=3, n=15, K=40, L=20), then ``SEARCH`` at the 5 % band,
+      topk 10, top_c 512, multiprobe 3 on the 4 batches through
+      ``serving.batched.ssh_search_batch`` (the facade's call; its
+      ``BatchSearchResult`` carries the batch's counters and stage
+      times);
+   b. sequential: ``searcher="local"`` on the same index for 16 queries
+      of batch 0 (8 database rows, 8 warped copies): self-match at rank 1
+      for the rows, ids equal to the batched answers, distances within
+      rtol 1e-5 of them;
+   c. UCR baseline: ``ucr_search`` for 4 of those queries over the whole
+      database at the same band and topk, 2 of them held to
+      ``brute_force_topk`` (both exact); SSH precision@10 and NDCG@10
+      against the UCR answer and the UCR/SSH time ratio are logged;
+   d. streaming: an ``"ssh-cs"`` database (the same sketch and hash
+      settings, rows 4, width 4096, base_bits 4) built from the first
+      half of the series, the second half ingested through two
+      ``StreamIngestor`` shards with out-of-order ``seq``, merged and
+      folded in: the merged aggregate must equal the sum of the shards'
+      exactly, a 4096-row chunk re-encoded directly must give the stored
+      signatures, and 8 streamed rows must find themselves through both
+      searchers.
+4. Kernels: each of the six against its plain PyTorch version on the
+   card, on the very tensors its path handed it (recorded on one more
+   run of the path): integers and count-sketch tables exact, DTW
+   bit-identical, the sketch within the float32 bound of reordering an
+   80-term sum.  Times by CUDA events: the kernel, the plain version,
+   and one PyTorch call computing the same function where there is one;
+   the bound is the larger of bytes over 3.35 TB/s and operations over
+   the peak rate of their type (H100 SXM: f32 outside the tensor cores
+   67 TFLOP/s, int32 33.5 Tops/s).  The sketch is timed at a 4096-row
+   build chunk and at the query encode, the single-query DTW at the UCR
+   scan and at a sequential re-rank.
+5. Cross-check: 8 queries through the plain CPU path on a CPU copy of the
    index; ids equal, distances within rtol 1e-5.
 
 Prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
@@ -50,7 +71,10 @@ F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 # ALU plus IMAD on the FMA pipe), half the f32 rate, which counts an FMA
 # as two operations
 INT32_OPS_PER_S = 33.5e12
-BATCHES, BATCH_SIZE = 4, 64     # the main path: 4 batches of 64 queries
+BATCHES, BATCH_SIZE = 4, 64     # the batched path: 4 batches of 64 queries
+SEQ_ROWS, SEQ_WARPED = 8, 8     # the sequential path: queries of batch 0
+UCR_QUERIES, UCR_GOLD = 4, 2    # UCR scans, and how many brute force holds
+STREAM_SHARDS, STREAM_BLOCKS = 2, 8
 
 
 def log(*a):
@@ -86,7 +110,7 @@ def bound_ms(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
 
 class Recorder:
     """Pass-through around the ``kernels.ops`` entry points that keeps
-    the arguments of every call (the main path's own kernel inputs)."""
+    the arguments of every call (a path's own kernel inputs)."""
 
     def __init__(self, ops, names):
         self.ops, self.names, self.calls = ops, names, {n: [] for n in names}
@@ -108,6 +132,12 @@ class Recorder:
             setattr(self.ops, n, fn)
 
 
+def arg(call, i, name):
+    """Positional argument ``i`` or keyword ``name`` of a recorded call."""
+    args, kw = call
+    return args[i] if len(args) > i else kw.get(name)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -121,12 +151,15 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import ssh_ecg
     from repro_torch.core import dtw as core_dtw
+    from repro_torch.core import search
     from repro_torch.core.index import SSHIndex
     from repro_torch.data.timeseries import (extract_subsequences,
                                              synthetic_ecg, warp_series)
     from repro_torch.db import TimeSeriesDB
+    from repro_torch.encoders import IndexSpec
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.serving.batched import ssh_search_batch
+    from repro_torch.streaming import StreamIngestor
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -142,8 +175,27 @@ def main() -> int:
     _build.build_all()
     for name in _build.SIGNATURES:
         _build.load(name)
-    log(f"kernels built and loaded in {time.perf_counter() - t:.1f} s "
-        f"({', '.join(_build.SIGNATURES)})")
+    log(f"kernel libraries built and loaded in {time.perf_counter() - t:.1f}"
+        f" s ({', '.join(_build.SIGNATURES)}): kernels "
+        f"{', '.join(_build.KERNELS)}")
+
+    phases = {}
+
+    def counted(phase, kernels, fn):
+        """Run ``fn`` with every launch count at 0 before; require each
+        of ``kernels`` to have launched; keep the counts."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        phases[phase] = counts
+        missing = [k for k in kernels if counts[k] < 1]
+        log(f"phase {phase}: launches {counts}")
+        if missing:
+            raise AssertionError(f"phase {phase}: kernels {missing} never "
+                                 f"launched: {counts}")
+        return out
 
     # -- data ---------------------------------------------------------------
     n, m = args.n_series, args.length
@@ -168,63 +220,233 @@ def main() -> int:
                                 stretch=1.02, seed=int(rows[i]), noise=0.02)
         batches.append((rows, qs))
 
-    # -- main path (counted) ------------------------------------------------
     spec = ssh_ecg.CONFIG
     cfg = ssh_ecg.search_config(length=m)
     log(f"spec {spec.to_dict()}; search {cfg.to_dict()}")
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t = time.perf_counter()
-    db = TimeSeriesDB.build(series, spec, cfg)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t
-    log(f"build: {build_s:.2f} s ({n / build_s:.0f} series/s), index "
-        f"{db.index.nbytes() / 1e9:.2f} GB on {dev}, launches "
-        f"{ops.launch_counts()}")
-    per_batch = []
-    results = []
-    for bi, (rows, qs) in enumerate(batches):
-        before = ops.launch_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = db.search_batch(qs)
-        wall = time.perf_counter() - t
-        after = ops.launch_counts()
-        st = res[0].stats
-        per_batch.append({k: after[k] - before[k] for k in after})
-        results.append(res)
-        selfs = [int(r.ids[0]) == int(rows[i])
-                 for i, r in enumerate(res[:half])]
-        if not all(selfs):
-            raise AssertionError(
-                f"batch {bi}: self-match failed for rows "
-                f"{[int(rows[i]) for i, ok in enumerate(selfs) if not ok]}")
-        for r in res:
-            if not (len(r.ids) == cfg.topk and np.all(np.isfinite(r.dists))
-                    and np.all(np.diff(r.dists) >= 0)
-                    and np.all((r.ids >= 0) & (r.ids < n))):
-                raise AssertionError(f"batch {bi}: malformed result {r}")
-        log(f"batch {bi}: us_per_query {wall / bs * 1e6:.1f} stage_us "
-            f"{ {k: round(v, 1) for k, v in st.stage_us.items()} } "
-            f"(whole batch) n_in {st.n_in} lb_pruned {st.lb_pruned} n_dtw "
-            f"{st.n_dtw} abandoned {st.dtw_abandoned} launches "
-            f"{per_batch[-1]}")
-    counts = ops.launch_counts()
-    log(f"main path launches: {counts}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    if min(counts.values()) < 1:
-        raise AssertionError(f"a kernel never launched on the main path: "
-                             f"{counts}")
 
-    # -- kernel phase (inputs recorded from one more main-path batch) -------
-    names = ("sketch_conv", "collision_count_batch", "dtw_rerank_pairs")
-    with Recorder(ops, names) as rec:
-        db.search_batch(batches[0][1])
+    # -- a. batched path ------------------------------------------------------
+    def batched_path():
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        db = TimeSeriesDB.build(series, spec, cfg)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        log(f"build: {build_s:.2f} s ({n / build_s:.0f} series/s), index "
+            f"{db.index.nbytes() / 1e9:.2f} GB on {dev}, launches "
+            f"{ops.launch_counts()}")
+        results, walls = [], []
+        for bi, (rows, qs) in enumerate(batches):
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = ssh_search_batch(qs, db.index, config=db.config)
+            wall = time.perf_counter() - t
+            after = ops.launch_counts()
+            st = res.stats
+            per_q = [res.per_query(i) for i in range(res.n_queries)]
+            results.append(per_q)
+            walls.append(wall)
+            selfs = [int(r.ids[0]) == int(rows[i])
+                     for i, r in enumerate(per_q[:half])]
+            if not all(selfs):
+                raise AssertionError(
+                    f"batch {bi}: self-match failed for rows "
+                    f"{[int(rows[i]) for i, ok in enumerate(selfs) if not ok]}")
+            for r in per_q:
+                if not (len(r.ids) == cfg.topk and r.stats is None
+                        and np.all(np.isfinite(r.dists))
+                        and np.all(np.diff(r.dists) >= 0)
+                        and np.all((r.ids >= 0) & (r.ids < n))):
+                    raise AssertionError(f"batch {bi}: malformed result {r}")
+            log(f"batch {bi}: us_per_query {wall / bs * 1e6:.1f} stage_us "
+                f"{ {k: round(v, 1) for k, v in st.stage_us.items()} } "
+                f"(whole batch) n_in {st.n_in} lb_pruned {st.lb_pruned} "
+                f"n_dtw {st.n_dtw} abandoned {st.dtw_abandoned} launches "
+                f"{ {k: after[k] - before[k] for k in after} }")
+        log(f"batched path: peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        return db, results
+
+    db, results = counted("batched", ("sketch_conv", "collision_count_batch",
+                                       "dtw_wavefront_pairs"), batched_path)
+
+    # -- b. sequential path ---------------------------------------------------
+    rows0, qs0 = batches[0]
+    seq_pick = list(range(SEQ_ROWS)) + list(range(half, half + SEQ_WARPED))
+    db_local = TimeSeriesDB(db.index, cfg.replace(searcher="local"))
+
+    def sequential_path():
+        out, walls = [], []
+        for i in seq_pick:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out.append(db_local.search(qs0[i]))
+            walls.append(time.perf_counter() - t)
+        return out, walls
+
+    seq_res, seq_walls = counted(
+        "sequential", ("sketch_conv", "collision_count", "dtw_wavefront"),
+        sequential_path)
+    max_rel = 0.0
+    for j, i in enumerate(seq_pick):
+        got, want = seq_res[j], results[0][i]
+        if i < half and int(got.ids[0]) != int(rows0[i]):
+            raise AssertionError(f"sequential query {i}: top-1 {got.ids[0]} "
+                                 f"is not the database row {rows0[i]}")
+        if not np.array_equal(got.ids, want.ids):
+            raise AssertionError(f"sequential query {i}: ids {got.ids} != "
+                                 f"batched ids {want.ids}")
+        np.testing.assert_allclose(got.dists, want.dists, rtol=1e-5,
+                                   atol=1e-6)
+        max_rel = max(max_rel, float(np.max(
+            np.abs(got.dists - want.dists) / np.maximum(want.dists, 1e-30))))
+        if got.stats.n_dtw != got.n_candidates:
+            raise AssertionError(f"sequential query {i}: stats.n_dtw "
+                                 f"{got.stats.n_dtw} != n_candidates")
+    seq_us = float(np.mean(seq_walls[1:]) * 1e6)
+    stage_keys = seq_res[0].stats.stage_us.keys()
+    seq_stage = {k: round(float(np.mean([r.stats.stage_us[k]
+                                         for r in seq_res[1:]])), 1)
+                 for k in stage_keys}
+    log(f"sequential: {len(seq_pick)} queries ({SEQ_ROWS} database rows "
+        f"self-matched, {SEQ_WARPED} warped), ids equal to the batched "
+        f"answers, largest relative distance difference {max_rel:.3g}; "
+        f"us_per_query {seq_us:.1f} (mean of queries 2-{len(seq_pick)}; "
+        f"the first {seq_walls[0] * 1e6:.1f}) stage_us {seq_stage}; "
+        f"n_dtw per query {[r.stats.n_dtw for r in seq_res]}")
+
+    # -- c. UCR baseline ------------------------------------------------------
+    # positions in batch 0: database rows first, then warped copies
+    ucr_pick = (list(range(UCR_QUERIES // 2))
+                + list(range(half, half + UCR_QUERIES // 2)))
+    db_series = db.index.series
+
+    def ucr_path():
+        out, walls = [], []
+        for i in ucr_pick:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out.append(search.ucr_search(qs0[i], db_series, topk=cfg.topk,
+                                         band=cfg.band))
+            walls.append(time.perf_counter() - t)
+        return out, walls
+
+    ucr_res, ucr_walls = counted("ucr", ("dtw_wavefront",), ucr_path)
+    precs, ndcgs = [], []
+    for j, i in enumerate(ucr_pick):
+        u = ucr_res[j]
+        if i < half and int(u.ids[0]) != int(rows0[i]):
+            raise AssertionError(f"ucr query {i}: top-1 {u.ids[0]} is not "
+                                 f"the database row {rows0[i]}")
+        ssh_ids = seq_res[seq_pick.index(i)].ids
+        precs.append(search.precision_at_k(ssh_ids, u.ids, cfg.topk))
+        ndcgs.append(search.ndcg_at_k(ssh_ids, u.ids, cfg.topk))
+    t = time.perf_counter()
+    for i in (ucr_pick[0], ucr_pick[-1])[:UCR_GOLD]:
+        gold_ids, _ = search.brute_force_topk(qs0[i], db_series, cfg.topk,
+                                              cfg.band)
+        got = ucr_res[ucr_pick.index(i)].ids
+        if not np.array_equal(got, gold_ids):
+            raise AssertionError(f"ucr query {i}: ids {got} != brute force "
+                                 f"{gold_ids}")
+    gold_s = time.perf_counter() - t
+    ucr_us = float(np.mean(ucr_walls) * 1e6)
+    log(f"ucr: {len(ucr_pick)} queries over {n} series, survivors "
+        f"{[u.n_candidates for u in ucr_res]}, us_per_query {ucr_us:.1f} "
+        f"({[round(w * 1e6, 1) for w in ucr_walls]}); {UCR_GOLD} equal to "
+        f"brute force ({gold_s:.1f} s of plain DTW over the database); SSH "
+        f"precision@{cfg.topk} {precs} NDCG@{cfg.topk} "
+        f"{[round(x, 4) for x in ndcgs]} against UCR; UCR / sequential SSH "
+        f"time per query {ucr_us / seq_us:.1f}")
+
+    # -- d. streaming ingest --------------------------------------------------
+    spec_cs = IndexSpec(encoder="ssh-cs", params=dict(
+        spec.params, rows=4, width=4096, base_bits=4), seed=spec.seed)
+    n_base = n // 2
+    block = (n - n_base) // STREAM_BLOCKS
+
+    def streaming_path():
+        t = time.perf_counter()
+        db_cs = TimeSeriesDB.build(series[:n_base], spec_cs, cfg)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        enc = db_cs.index.encoder
+        agg0 = enc.aggregate_sketch().clone()
+        shards = [StreamIngestor(enc, shard=f"edge{s}")
+                  for s in range(STREAM_SHARDS)]
+        t = time.perf_counter()
+        # shard s takes blocks s, s + 2, ... and appends them last first
+        for s, sh in enumerate(shards):
+            for seq in reversed(range(s, STREAM_BLOCKS, STREAM_SHARDS)):
+                lo = n_base + seq * block
+                sh.append(series[lo:lo + block], seq=seq)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t
+        merged = StreamIngestor.merge_all(shards[::-1])
+        shard_sum = shards[0].sketch + shards[1].sketch
+        if not torch.equal(merged.sketch, shard_sum):
+            raise AssertionError("merged cs/agg is not the exact sum of the "
+                                 "shard aggregates")
+        t = time.perf_counter()
+        db_cs.apply_stream(merged)
+        torch.cuda.synchronize()
+        fold_s = time.perf_counter() - t
+        if not torch.equal(enc.aggregate_sketch(), agg0 + shard_sum):
+            raise AssertionError("folded cs/agg is not the exact sum")
+        n_cs = n_base + STREAM_BLOCKS * block
+        if len(db_cs) != n_cs:
+            raise AssertionError(f"folded database holds {len(db_cs)} rows, "
+                                 f"expected {n_cs}")
+        lo = n_base + 3 * block
+        again = enc.encode_batch(db_cs.index.series[lo:lo + 4096])
+        if not torch.equal(again, db_cs.index.signatures[lo:lo + 4096]):
+            raise AssertionError("a re-encoded chunk disagrees with the "
+                                 "signatures the ingestor stored")
+        if not torch.equal(db_cs.index.series[lo:lo + 4096].cpu(),
+                           torch.from_numpy(series[lo:lo + 4096])):
+            raise AssertionError("streamed rows are not in seq order")
+        picks = np.random.default_rng(args.seed + 2).choice(
+            np.arange(n_base, n_cs), size=8, replace=False)
+        db_cs_batched = TimeSeriesDB(db_cs.index, cfg)
+        db_cs_local = TimeSeriesDB(db_cs.index,
+                                   cfg.replace(searcher="local"))
+        for name, d in (("batched", db_cs_batched), ("local", db_cs_local)):
+            res = d.search_batch(series[picks])
+            bad = [int(p) for p, r in zip(picks, res)
+                   if int(r.ids[0]) != int(p)]
+            if bad:
+                raise AssertionError(f"streaming, {name} searcher: streamed "
+                                     f"rows {bad} do not find themselves")
+        log(f"streaming: ssh-cs build of {n_base} series {build_s:.2f} s, "
+            f"ingest of {n_cs - n_base} series through {STREAM_SHARDS} "
+            f"shards {ingest_s:.2f} s ({(n_cs - n_base) / ingest_s:.0f} "
+            f"series/s), fold {fold_s:.2f} s; cs/agg "
+            f"{tuple(enc.sketch_shape)} holds "
+            f"{int(enc.aggregate_sketch()[0].abs().sum())} |updates| at "
+            f"level 0; merged aggregate exact; re-encoded chunk equal; 8 "
+            f"streamed rows self-match through both searchers")
+        return db_cs
+
+    db_cs = counted("streaming", ("sketch_conv", "cs_tables",
+                                  "collision_count_batch",
+                                  "dtw_wavefront_pairs", "collision_count",
+                                  "dtw_wavefront"), streaming_path)
+
+    # -- 4. kernels, on inputs recorded from one more run of each path ------
+    with Recorder(ops, ("sketch_conv", "collision_count_batch",
+                        "dtw_rerank_pairs")) as rec_b:
+        ssh_search_batch(batches[0][1], db.index, config=db.config)
+    with Recorder(ops, ("collision_count", "dtw_rerank")) as rec_s:
+        db_local.search(qs0[half])
+    with Recorder(ops, ("dtw_rerank",)) as rec_u:
+        search.ucr_search(qs0[half], db_series, topk=cfg.topk, band=cfg.band)
+    with Recorder(ops, ("cs_tables",)) as rec_c:
+        db_cs.index.encoder.encode_batch(db_cs.index.series[:4096])
     entries = []
 
     # sketch_conv: a build chunk (the rows encode_chunked hands it) and the
     # query encode (B·O rows of the multiprobe slices)
-    (xq, filt, step), _ = rec.calls["sketch_conv"][0]
+    xq, filt, step = rec_b.calls["sketch_conv"][0][0]
     xb = db.index.series[:4096]
     w, f_ = filt.shape
 
@@ -258,24 +480,28 @@ def main() -> int:
         name="sketch_conv", route="cuda",
         source="src/repro_torch/csrc/sketch_conv.cu",
         replaces="src/repro/kernels/sketch_conv.py:48",
-        launches=counts["sketch_conv"], **sk["build"],
+        launches=phases["batched"]["sketch_conv"], **sk["build"],
+        launches_by_phase={p: c["sketch_conv"] for p, c in phases.items()},
         query_shape={k: sk["query"][k] for k in
                      ("shape", "ms", "plain_ms", "bound_ms", "library_ms",
                       "max_abs_err", "sign_flips")},
         tolerance="|err| <= 2*W*2^-24*sum|x*f|",
         library="F.conv1d(stride=step), cudnn.allow_tf32=False"))
 
+    def check_hash_range(qk, dbk):
+        if int(max(qk.max(), dbk.max())) >= 1 << 24 or int(qk.min()) < 0:
+            raise AssertionError("hash values outside [0, 2^24): the float "
+                                 "yardstick would not be exact")
+
     # collision_count_batch: the probe of B·O signature rows
-    (qk, dbk), _ = rec.calls["collision_count_batch"][0]
+    qk, dbk = rec_b.calls["collision_count_batch"][0][0]
     kern = ops.collision_count_batch(qk, dbk)
     plain = ref.collision_count_batch_ref(qk, dbk)
     if not torch.equal(kern, plain):
         raise AssertionError("collision_count_batch is not exact: "
                              f"{int((kern != plain).sum())} counts differ")
     k_ = qk.shape[1]
-    if int(max(qk.max(), dbk.max())) >= 1 << 24 or int(qk.min()) < 0:
-        raise AssertionError("hash values outside [0, 2^24): the float "
-                             "yardstick would not be exact")
+    check_hash_range(qk, dbk)
 
     def cdist_counts():
         return k_ - torch.cdist(qk.float(), dbk.float(), p=0)
@@ -288,7 +514,7 @@ def main() -> int:
         name="collision_count_batch", route="cuda",
         source="src/repro_torch/csrc/collision_count.cu",
         replaces="src/repro/kernels/collision_count.py:68",
-        launches=counts["collision_count"], max_abs_err=0.0,
+        launches=phases["batched"]["collision_count_batch"], max_abs_err=0.0,
         ms=cuda_time_ms(lambda: ops.collision_count_batch(qk, dbk)),
         plain_ms=cuda_time_ms(
             lambda: ref.collision_count_batch_ref(qk, dbk)),
@@ -296,10 +522,43 @@ def main() -> int:
         shape=f"queries {tuple(qk.shape)} db {tuple(dbk.shape)}",
         tolerance="exact", library="K - torch.cdist(q, db, p=0)"))
 
+    # collision_count: one probe row of a sequential query
+    cc_calls = rec_s.calls["collision_count"]
+    for (q1, dbk1), _ in cc_calls:
+        if not torch.equal(ops.collision_count(q1, dbk1),
+                           ref.collision_count_ref(q1, dbk1)):
+            raise AssertionError("collision_count is not exact")
+    q1, dbk1 = cc_calls[0][0]
+    check_hash_range(q1, dbk1)
+    k1 = q1.shape[0]
+
+    def cdist_one():
+        return k1 - torch.cdist(q1[None].float(), dbk1.float(), p=0)[0]
+    if not torch.equal(cdist_one().to(torch.int32),
+                       ref.collision_count_ref(q1, dbk1)):
+        raise AssertionError("cdist yardstick disagrees with the counts")
+    bms, bkind = bound_ms(4 * (q1.numel() + dbk1.numel() + dbk1.shape[0]),
+                          2 * dbk1.shape[0] * k1, INT32_OPS_PER_S)
+    entries.append(dict(
+        name="collision_count", route="cuda",
+        source="src/repro_torch/csrc/collision_count.cu",
+        replaces="src/repro/kernels/collision_count.py:42",
+        launches=phases["sequential"]["collision_count"],
+        launches_by_phase={p: c["collision_count"]
+                           for p, c in phases.items()},
+        max_abs_err=0.0,
+        ms=cuda_time_ms(lambda: ops.collision_count(q1, dbk1)),
+        plain_ms=cuda_time_ms(lambda: ref.collision_count_ref(q1, dbk1)),
+        bound_ms=bms, bound_by=bkind, library_ms=cuda_time_ms(cdist_one),
+        shape=f"query {tuple(q1.shape)} db {tuple(dbk1.shape)}; "
+              f"{len(cc_calls)} calls (one per probe row) checked",
+        tolerance="exact", library="K - torch.cdist(q[None], db, p=0)"))
+
     # dtw_wavefront_pairs: every call of the batch (seed DTW, survivors)
-    dtw_calls = rec.calls["dtw_rerank_pairs"]
-    for (q, c, band, *rest), kw in dtw_calls:
-        thr = rest[0] if rest else kw.get("threshold")
+    dtw_calls = rec_b.calls["dtw_rerank_pairs"]
+    for call in dtw_calls:
+        q, c, band = call[0][:3]
+        thr = arg(call, 3, "threshold")
         kern = ops.dtw_rerank_pairs(q, c, band, thr)
         plain = ref.dtw_pairs_ref(q, c, band, thr)
         if not torch.equal(kern, plain):
@@ -307,8 +566,8 @@ def main() -> int:
             raise AssertionError(
                 f"dtw_wavefront_pairs is not bit-identical on "
                 f"{int(diff.sum())} of {kern.numel()} pairs")
-    (q, c, band, *rest), kw = dtw_calls[-1]      # survivor DTW, threshold
-    thr = rest[0] if rest else kw.get("threshold")
+    q, c, band = dtw_calls[-1][0][:3]            # survivor DTW, threshold
+    thr = arg(dtw_calls[-1], 3, "threshold")
     _, cells = core_dtw.dtw_pairs_work(q, c, band, thr)
     p_, m_ = q.shape
     abandoned = int((ops.dtw_rerank_pairs(q, c, band, thr)
@@ -319,7 +578,7 @@ def main() -> int:
         name="dtw_wavefront_pairs", route="cuda",
         source="src/repro_torch/csrc/dtw_wavefront.cu",
         replaces="src/repro/kernels/dtw_wavefront.py:201",
-        launches=counts["dtw_wavefront"], max_abs_err=0.0,
+        launches=phases["batched"]["dtw_wavefront_pairs"], max_abs_err=0.0,
         ms=cuda_time_ms(lambda: ops.dtw_rerank_pairs(q, c, band, thr)),
         plain_ms=cuda_time_ms(lambda: ref.dtw_pairs_ref(q, c, band, thr),
                               min_iters=2),
@@ -328,16 +587,96 @@ def main() -> int:
               f"{thr is not None}; {abandoned} abandoned; "
               f"{int(cells.sum())} cells run",
         tolerance="bit-identical", calls_checked=len(dtw_calls)))
+
+    # dtw_wavefront: every call of a sequential query and of a UCR scan;
+    # timed at the UCR survivors (no threshold) and at the sequential
+    # survivors (with the threshold)
+    one_calls = rec_s.calls["dtw_rerank"] + rec_u.calls["dtw_rerank"]
+    for call in one_calls:
+        q, c, band = call[0][:3]
+        thr = arg(call, 3, "threshold")
+        if not torch.equal(ops.dtw_rerank(q, c, band, thr),
+                           ref.dtw_wavefront_ref(q, c, band, thr)):
+            raise AssertionError("dtw_wavefront is not bit-identical on a "
+                                 f"({c.shape[0]}, {c.shape[1]}) block")
+
+    def one_entry(call, min_plain_iters):
+        q, c, band = call[0][:3]
+        thr = arg(call, 3, "threshold")
+        cells = core_dtw.dtw_pairs_work(q.expand_as(c), c, band, thr)[1]
+        n_cells = int(cells.sum())
+        kern = ops.dtw_rerank(q, c, band, thr)
+        bms, bkind = bound_ms(4 * (q.numel() + c.numel() + 2 * c.shape[0]),
+                              6 * n_cells)
+        return dict(
+            ms=cuda_time_ms(lambda: ops.dtw_rerank(q, c, band, thr)),
+            plain_ms=cuda_time_ms(
+                lambda: ref.dtw_wavefront_ref(q, c, band, thr),
+                min_iters=min_plain_iters),
+            bound_ms=bms, bound_by=bkind,
+            shape=f"query ({q.shape[0]},) candidates {tuple(c.shape)} "
+                  f"radius {band} threshold {thr is not None}; "
+                  f"{int((kern >= core_dtw.BIG * 0.5).sum())} abandoned; "
+                  f"{n_cells} cells run")
+
+    ucr_big = one_entry(max(rec_u.calls["dtw_rerank"],
+                            key=lambda cl: cl[0][1].shape[0]), 1)
+    seq_surv = one_entry(rec_s.calls["dtw_rerank"][-1], 2)
+    entries.append(dict(
+        name="dtw_wavefront", route="cuda",
+        source="src/repro_torch/csrc/dtw_wavefront.cu",
+        replaces="src/repro/kernels/dtw_wavefront.py:151",
+        launches=phases["sequential"]["dtw_wavefront"]
+        + phases["ucr"]["dtw_wavefront"],
+        launches_by_phase={p: c["dtw_wavefront"] for p, c in phases.items()},
+        max_abs_err=0.0, **ucr_big, library_ms=None,
+        sequential_shape=seq_surv, tolerance="bit-identical",
+        calls_checked=len(one_calls)))
+
+    # cs_tables: the level-0 tables of one 4096-row build chunk
+    (bkt, sgn, width), _ = rec_c.calls["cs_tables"][0]
+    kern = ops.cs_tables(bkt, sgn, width)
+    plain = ref.cs_tables_ref(bkt, sgn, width)
+    if not torch.equal(kern, plain):
+        raise AssertionError(f"cs_tables is not bit-identical: "
+                             f"{int((kern != plain).sum())} bins differ")
+    b_, r_, s_ = bkt.shape
+    tgt = torch.where(bkt >= 0, bkt, width).to(torch.int64).reshape(
+        b_ * r_, s_)
+    sg2 = sgn.reshape(b_ * r_, s_)
+
+    def scatter_lib():
+        return torch.zeros((b_ * r_, width + 1), dtype=torch.float32,
+                           device=bkt.device).scatter_add_(1, tgt, sg2)
+    if not torch.equal(scatter_lib()[:, :width].reshape(b_, r_, width),
+                       plain):
+        raise AssertionError("scatter_add_ yardstick disagrees")
+    bms, bkind = bound_ms(4 * (2 * bkt.numel() + kern.numel()),
+                          int((bkt >= 0).sum()))
+    entries.append(dict(
+        name="cs_tables", route="cuda",
+        source="src/repro_torch/csrc/count_sketch.cu",
+        replaces="src/repro/kernels/count_sketch.py:51",
+        launches=phases["streaming"]["cs_tables"], max_abs_err=0.0,
+        ms=cuda_time_ms(lambda: ops.cs_tables(bkt, sgn, width)),
+        plain_ms=cuda_time_ms(lambda: ref.cs_tables_ref(bkt, sgn, width)),
+        bound_ms=bms, bound_by=bkind, library_ms=cuda_time_ms(scatter_lib),
+        shape=f"bucket {tuple(bkt.shape)} width {width}; "
+              f"{float((kern == 0).float().mean()):.4f} of the bins zero",
+        tolerance="bit-identical",
+        library="zeros(B*R, width + 1).scatter_add_(1, bucket, sign)"))
+
     for e in entries:
         log(f"kernel {e['name']}: kernel_ms {e['ms']:.4f} plain_ms "
             f"{e['plain_ms']:.4f} library_ms {e['library_ms']} bound_ms "
-            f"{e['bound_ms']:.4f} ({e['bound_by']}) max_err "
-            f"{e['max_abs_err']} [{e['shape']}]")
-        if "query_shape" in e:
-            log(f"kernel {e['name']} at the query shape: "
-                f"{e['query_shape']}")
+            f"{e['bound_ms']:.4f} ({e['bound_by']}) launches {e['launches']}"
+            f" max_err {e['max_abs_err']} [{e['shape']}]")
+        for extra in ("query_shape", "sequential_shape"):
+            if extra in e:
+                log(f"kernel {e['name']} at the {extra.split('_')[0]} shape: "
+                    f"{e[extra]}")
 
-    # -- cross-check on the CPU plain path ---------------------------------
+    # -- 5. cross-check on the CPU plain path -------------------------------
     cpu = torch.device("cpu")
     enc_cpu = type(db.index.encoder)(spec).load_state(
         {k: v.cpu() for k, v in db.index.encoder._require_state().items()})

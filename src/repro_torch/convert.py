@@ -6,7 +6,10 @@ derived arrays as plain numpy arrays:
 
 * :func:`encoder_state_from_arrays` takes the dict that the reference's
   ``Encoder.arrays()`` returns (``filters`` and ``cws/{log_r, r, log_c,
-  beta}``);
+  beta}``; for ``"ssh-cs"`` also the uint32 hash coefficients
+  ``cs/{bucket_a, bucket_b, sign_a, sign_b}``, carried as int64 of the
+  same values, and the aggregate ``cs/agg``, with the CWS fields at dim
+  rows·width);
 * :func:`index_from_arrays` adds the index arrays (``signatures``,
   ``keys``, ``series`` and, when cached, the envelopes).
 
@@ -20,26 +23,35 @@ import numpy as np
 import torch
 
 from repro_torch.core.index import SSHIndex
-from repro_torch.encoders import IndexSpec, SSHEncoder
+from repro_torch.encoders import IndexSpec, encoder_class
 from repro_torch.kernels import ops
 
 LEAVES = ("filters", "cws/log_r", "cws/r", "cws/log_c", "cws/beta")
 
 
+def _leaf_tensor(a, dev) -> torch.Tensor:
+    a = np.asarray(a)
+    dtype = np.int64 if np.issubdtype(a.dtype, np.integer) else np.float32
+    return torch.tensor(a.astype(dtype), device=dev)
+
+
 def encoder_state_from_arrays(arrays: Mapping[str, np.ndarray],
-                              device=None) -> dict:
-    """Encoder state dict of float32 tensors on ``device`` (CUDA unless
-    the caller asks for the CPU).  Refuses a leaf set other than the
-    ``"ssh"`` encoder's; shapes are checked against the spec by
-    ``SSHEncoder.load_state``."""
-    missing = sorted(set(LEAVES) - set(arrays))
-    unknown = sorted(set(arrays) - set(LEAVES))
+                              device=None, *,
+                              spec: Optional[IndexSpec] = None) -> dict:
+    """Encoder state dict on ``device`` (CUDA unless the caller asks for
+    the CPU): float leaves as float32, integer leaves (the ``"ssh-cs"``
+    hash coefficients) as int64.  Refuses a leaf set other than that of
+    ``spec``'s encoder (the ``"ssh"`` encoder's when no spec is given);
+    shapes are checked against the spec by ``load_state``."""
+    leaves = (LEAVES if spec is None else
+              tuple(encoder_class(spec.encoder)(spec).expected_shapes()))
+    missing = sorted(set(leaves) - set(arrays))
+    unknown = sorted(set(arrays) - set(leaves))
     if missing or unknown:
         raise ValueError(f"encoder arrays: missing leaves {missing}, "
-                         f"unknown leaves {unknown}; expected {LEAVES}")
+                         f"unknown leaves {unknown}; expected {leaves}")
     dev = ops.resolve_device(device)
-    return {k: torch.tensor(np.asarray(arrays[k], np.float32), device=dev)
-            for k in LEAVES}
+    return {k: _leaf_tensor(arrays[k], dev) for k in leaves}
 
 
 def _tensor(a, dtype, dev) -> torch.Tensor:
@@ -63,8 +75,8 @@ def index_from_arrays(spec: IndexSpec, encoder_arrays: Mapping[str,
     signatures.
     """
     dev = ops.resolve_device(device)
-    enc = SSHEncoder(spec).load_state(
-        encoder_state_from_arrays(encoder_arrays, dev))
+    enc = encoder_class(spec.encoder)(spec).load_state(
+        encoder_state_from_arrays(encoder_arrays, dev, spec=spec))
     keys = np.asarray(keys)
     if keys.dtype == np.uint32:
         keys = keys.view(np.int32)

@@ -106,3 +106,16 @@ def cascade_staged(query: torch.Tensor, candidates: torch.Tensor,
     lb3 = lb_keogh_env(q, cand_upper, cand_lower)
     best = best_so_far[:, None]
     return lb1 < best, lb2 < best, lb3 < best
+
+
+def cascade(query: torch.Tensor, candidates: torch.Tensor, radius: int,
+            best_so_far) -> torch.Tensor:
+    """UCR-suite survivor mask of one query against a block: query (m,),
+    candidates (C, m) -> (C,) bool.  A candidate survives iff every bound
+    (LB_Kim, LB_Keogh, LB_Keogh2) is below ``best_so_far``
+    (``repro/core/lower_bounds.py:133-147``)."""
+    u, l = envelope(query, radius)
+    lb1 = lb_kim(query, candidates)
+    lb2 = lb_keogh(u, l, candidates)
+    lb3 = lb_keogh2(query, candidates, radius)
+    return torch.maximum(torch.maximum(lb1, lb2), lb3) < best_so_far

@@ -100,16 +100,38 @@ def cws_hash_active(ids: torch.Tensor, params: CWSParams) -> torch.Tensor:
     D = 2^15 and S = 131, about 250x less work) and never forming the
     (B, D) histogram.
     """
-    b, s = ids.shape
-    d = params.dim
     srt = torch.sort(ids, dim=1).values
-    first = torch.ones_like(srt, dtype=torch.bool)
-    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
-    active = first & (srt < d)
-    idx = srt.clamp(max=d - 1)
     runs = (torch.searchsorted(srt, srt, right=True)
             - torch.searchsorted(srt, srt))                     # (B, S)
-    logw = _log_counts(runs, s)                                 # (B, S)
+    return _cws_sorted(srt, runs, srt < params.dim, params)
+
+
+def cws_hash_sparse(dims: torch.Tensor, counts: torch.Tensor,
+                    params: CWSParams) -> torch.Tensor:
+    """0-bit CWS of a weighted set given as (dimension, integer weight)
+    entries: ``dims`` (B, S) with dims >= D masked, ``counts`` (B, S)
+    the weight of each entry's dimension (an entry may repeat, always
+    with its dimension's weight; weights <= 0 are inactive, and none
+    exceeds S) -> (B, K) int32, equal to ``cws_hash`` of the dense
+    weights."""
+    srt, order = torch.sort(dims, dim=1)
+    counts = counts.gather(1, order)
+    return _cws_sorted(srt, counts, (srt < params.dim) & (counts > 0),
+                       params)
+
+
+def _cws_sorted(srt: torch.Tensor, counts: torch.Tensor,
+                valid: torch.Tensor, params: CWSParams) -> torch.Tensor:
+    """The argmin over the first entry of each run of ``srt`` (ascending
+    dims) that is ``valid``, with ``counts`` the integer weights, at most
+    S each (a weight counts entries of one row)."""
+    b, s = srt.shape
+    d = params.dim
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    active = first & valid
+    idx = srt.clamp(0, d - 1)
+    logw = _log_counts(counts.clamp(min=0), max(s, 1))          # (B, S)
     flat = idx.reshape(-1)
     fields = [f[:, flat].reshape(-1, b, s)
               for f in (params.r, params.log_c, params.beta)]  # (K, B, S)

@@ -1,7 +1,14 @@
-"""Batched DTW re-rank (counterpart of ``repro.core.rerank``; the
-sequential ``rerank`` is not ported yet).
+"""DTW re-rank, sequential and batched (counterpart of
+``repro.core.rerank``).
 
-For a (B, C) block of hash candidates: seed DTW over each row's first
+``rerank`` serves one query (the sequential searcher): seed DTW over the
+first ``topk`` (or ``seed_size``) hash candidates gives the best-so-far,
+the staged LB cascade and then LB_Improved thin the block, the
+threshold-aware DTW of the single-query kernel (``dtw_wavefront``) scores
+the survivors, and a stable sort takes the top-k.  Its decisions and
+counters are the reference's (``repro/core/rerank.py:267-351``).
+
+``rerank_batch``: for a (B, C) block of hash candidates, seed DTW over each row's first
 ``topk`` candidates gives a per-row best-so-far; the staged LB cascade
 (LB_Kim -> LB_Keogh -> LB_Keogh2 from the index's cached envelopes)
 thins the block; LB_Improved thins the survivor pairs; the
@@ -50,6 +57,7 @@ class SearchStats:
     backend: str = "cuda"
     stage_seconds: Optional[Dict[str, float]] = None
     index_bytes: Optional[int] = None
+    sig_cache_hit: int = 0            # no signature LRU yet: always 0
 
     @property
     def lb_pruned(self) -> int:
@@ -61,6 +69,118 @@ class SearchStats:
         if self.stage_seconds is None:
             return None
         return {k: v * 1e6 for k, v in self.stage_seconds.items()}
+
+
+def dtw_candidates(query: torch.Tensor, candidates: torch.Tensor,
+                   band: Optional[int], threshold=None) -> torch.Tensor:
+    """One query against a candidate block in one dispatch, (m,) x (C, m)
+    -> (C,); ``threshold`` (scalar or (C,)) is the early-abandon
+    contract."""
+    if candidates.shape[0] == 0:
+        return torch.zeros(0, dtype=torch.float32, device=candidates.device)
+    return ops.dtw_rerank(query.contiguous(), candidates.contiguous(), band,
+                          threshold)
+
+
+def _staged_keep(query: torch.Tensor, cands: torch.Tensor, band: int,
+                 best: torch.Tensor, cand_env):
+    """(keep_kim, keep_keogh, keep_keogh2), each (C,) bool, for one
+    query's candidate block."""
+    env = () if cand_env is None else (cand_env[0][None], cand_env[1][None])
+    masks = lb.cascade_staged(query[None], cands[None], band,
+                              best.reshape(1), *env)
+    return tuple(k[0] for k in masks)
+
+
+def _count_stages(k1: torch.Tensor, k2: torch.Tensor, k3: torch.Tensor,
+                  forced: torch.Tensor):
+    """Survivor mask plus the first-bound-fired counters as one tensor
+    (pruned_kim, pruned_keogh, pruned_keogh2, forced_kept), seeds
+    exempt: the forced rows are kept and counted in no stage."""
+    k1f, k2f, k3f = k1 | forced, k2 | forced, k3 | forced
+    keep = k1f & k2f & k3f
+    counts = torch.stack([(~k1f).sum(), (k1f & ~k2f).sum(),
+                          (k1f & k2f & ~k3f).sum(),
+                          (forced & ~(k1 & k2 & k3)).sum()])
+    return keep, counts
+
+
+def _gathered_env(index: SSHIndex, ids: torch.Tensor, band: int):
+    """Candidate envelope rows when the index caches them at ``band``,
+    else None (computed per block)."""
+    if (index.env_radius == band and index.env_upper is not None
+            and int(index.env_upper.shape[0]) == int(index.series.shape[0])):
+        return index.env_upper[ids], index.env_lower[ids]
+    return None
+
+
+def rerank(query: torch.Tensor, cand_ids: torch.Tensor, index: SSHIndex,
+           topk: int, band: Optional[int], *, use_lb_cascade: bool = True,
+           seed_size: Optional[int] = None, early_abandon: bool = True,
+           timer: StageTimer = DISABLED):
+    """Candidate ids (C,) int64 -> (ids (k,) int64, dists (k,) f32, stats)
+    as host arrays, best first; stage 2+3 of Alg. 2 for one query.
+
+    The threshold is the topk-th best seed DTW, always a valid upper
+    bound on the final k-th distance, so no pruned or abandoned
+    candidate can belong to the answer.
+    """
+    dev = index.device
+    cands = index.series[cand_ids]
+    n_hash = int(cand_ids.shape[0])
+    stats = SearchStats(n_in=n_hash, backend=dev.type)
+    thr = None
+    counters = None
+
+    if use_lb_cascade and band is not None and n_hash > topk:
+        with timer.stage("lb") as sync:
+            # the seed is clamped to >= topk: a smaller one would make the
+            # threshold bound a better-than-kth distance
+            s = min(max(seed_size or 0, topk), n_hash)
+            seed = dtw_candidates(query, cands[:s], band)
+            best = torch.sort(seed).values[min(topk, s) - 1]
+            env = _gathered_env(index, cand_ids, band)
+            k1, k2, k3 = _staged_keep(query, cands, band, best, env)
+            forced = torch.zeros(n_hash, dtype=torch.bool, device=dev)
+            forced[:s] = True                 # never drop the seeded set
+            keep, stage_counts = _count_stages(k1, k2, k3, forced)
+            cand_ids, cands = cand_ids[keep], cands[keep]
+            sync(None)
+        with timer.stage("lb_improved") as sync:
+            # Lemire's two-pass bound over the cascade survivors only
+            lbi = lb.lb_improved(query, cands, band)
+            forced_surv = forced[keep]
+            pass123_surv = (k1 & k2 & k3)[keep]
+            below = lbi < best
+            keep2 = below | forced_surv
+            counters = torch.cat([stage_counts, torch.stack([
+                (~keep2).sum(), (forced_surv & pass123_surv & ~below).sum()])])
+            cand_ids, cands = cand_ids[keep2], cands[keep2]
+            sync(None)
+        if early_abandon:
+            thr = best
+    stats.n_dtw = int(cands.shape[0])
+
+    with timer.stage("dtw") as sync:
+        d = dtw_candidates(query, cands, band, threshold=thr)
+        k = min(topk, int(cands.shape[0]))
+        # stable ascending sort: ties to the lowest candidate slot, as
+        # lax.top_k(-d) breaks them
+        order = torch.sort(d, stable=True).indices[:k]
+        extra = [] if counters is None else [counters]
+        if thr is not None:
+            extra.append((d >= BIG * 0.5).sum()[None])
+        host = [t.cpu() for t in (cand_ids[order], d[order], *extra)]
+        sync(None)
+    if counters is not None:
+        (stats.pruned_kim, stats.pruned_keogh, stats.pruned_keogh2,
+         stats.forced_kept, stats.pruned_improved, more) = host[2].tolist()
+        stats.forced_kept += more
+    if thr is not None:
+        stats.dtw_abandoned = int(host[-1][0])
+    if timer.enabled:
+        stats.stage_seconds = dict(timer.timings)
+    return host[0].numpy().astype(np.int64), host[1].numpy(), stats
 
 
 def dtw_pairs(q_rows: torch.Tensor, c_rows: torch.Tensor,

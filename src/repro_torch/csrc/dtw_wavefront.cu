@@ -1,14 +1,32 @@
-// Row-aligned banded squared DTW for the SSH re-rank stage.
+// Banded squared DTW for the SSH re-rank stage: two kernels over one
+// warp-per-pair device routine (dtw_warp).
 //
-// Replaces the TPU kernel
-// repro/kernels/dtw_wavefront.py::dtw_wavefront_pairs (_kernel,
-// _kernel_thr, _make_step: pairs on the 128 lanes, band offsets on
-// sublanes, one vector op per anti-diagonal, a whole-block exit test).
+// 1. dtw_pairs_kernel replaces the TPU kernel
+//    repro/kernels/dtw_wavefront.py::dtw_wavefront_pairs (_kernel,
+//    _kernel_thr, _make_step: pairs on the 128 lanes, band offsets on
+//    sublanes, one vector op per anti-diagonal, a whole-block exit test);
+//    the batched searcher's seed and survivor DTW.
 //
-//   queries (P, m) f32, candidates (P, m) f32, radius r, thr (P,) or none
-//     ->  out (P,) f32
-//   out[p] = banded (|i - j| <= r) squared DTW of the pair; with thr,
-//   the exact cost when it is <= thr[p] and BIG = 1e30 otherwise.
+//      queries (P, m) f32, candidates (P, m) f32, radius r, thr (P,) or
+//      none  ->  out (P,) f32
+//      out[p] = banded (|i - j| <= r) squared DTW of the pair; with thr,
+//      the exact cost when it is <= thr[p] and BIG = 1e30 otherwise.
+//
+// 2. dtw_one_kernel replaces repro/kernels/dtw_wavefront.py::dtw_wavefront
+//    (one query against a candidate block, the same lane layout); the
+//    sequential re-rank and the UCR-suite scan.
+//
+//      query (m,) f32, candidates (C, m) f32, radius r, thr scalar, (C,)
+//      or none  ->  out (C,) f32, the same contract per candidate.
+//
+//    It runs the same dtw_warp, so its values are bit-identical to the
+//    pairs kernel and to the plain wavefront.  The query is loaded into
+//    shared memory once per block and read by all ONE_WARPS warps, each
+//    of which owns one candidate row; a block holds 16 warps (the pairs
+//    kernel holds 4, each with its own query row), so a 512-long query
+//    costs 2 KB of a 34 KB block.  Bound and limit are the pairs
+//    kernel's, below; the UCR scan, at hundreds of thousands of
+//    candidates, is where the kernel's own rate shows.
 //
 // Bound on the H100: operations.  About 6 flops per DP cell (a subtract,
 // a multiply, an add and three mins) over P*m*(2r+1) cells, minus the
@@ -40,31 +58,18 @@
 
 namespace {
 
-constexpr int WARPS = 4;             // pairs per block
+constexpr int WARPS = 4;             // pairs per block (dtw_pairs_kernel)
+constexpr int ONE_WARPS = 16;        // candidates per block (dtw_one_kernel)
 constexpr float BIG = 1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
+// One warp's banded DTW of the rows qs, xs (both in shared memory).
+// Returns the result on every lane: the exact cost, or BIG when has_thr
+// and the pair was abandoned or ends above t.
 template <int S>
-__global__ void dtw_pairs_kernel(const float* __restrict__ q,
-                                 const float* __restrict__ x,
-                                 const float* __restrict__ thr,
-                                 float* __restrict__ out,
-                                 int P, int m, int r) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long p = static_cast<long long>(blockIdx.x) * WARPS + warp;
-  if (p >= P) return;                // warp-uniform
-
-  float* qs = smem + warp * 2 * m;
-  float* xs = qs + m;
-  for (int k = lane; k < m; k += 32) {
-    qs[k] = q[p * m + k];
-    xs[k] = x[p * m + k];
-  }
-  __syncwarp();
-
-  const bool has_thr = thr != nullptr;
-  const float t = has_thr ? thr[p] : 0.0f;
+__device__ __forceinline__ float dtw_warp(const float* qs, const float* xs,
+                                          int m, int r, bool has_thr,
+                                          float t, int lane) {
   const int bw = 2 * r + 2;
 
   float prev1[S], prev2[S];
@@ -128,10 +133,74 @@ __global__ void dtw_pairs_kernel(const float* __restrict__ q,
   for (int s = 0; s < S; ++s)
     if (s == slot) v = prev1[s];
   v = __shfl_sync(FULL, v, owner);
-  if (lane == 0) {
-    if (has_thr && (abandoned || v > t)) v = BIG;
-    out[p] = v;
+  if (has_thr && (abandoned || v > t)) v = BIG;
+  return v;
+}
+
+template <int S>
+__global__ void dtw_pairs_kernel(const float* __restrict__ q,
+                                 const float* __restrict__ x,
+                                 const float* __restrict__ thr,
+                                 float* __restrict__ out,
+                                 int P, int m, int r) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long p = static_cast<long long>(blockIdx.x) * WARPS + warp;
+  if (p >= P) return;                // warp-uniform
+
+  float* qs = smem + warp * 2 * m;
+  float* xs = qs + m;
+  for (int k = lane; k < m; k += 32) {
+    qs[k] = q[p * m + k];
+    xs[k] = x[p * m + k];
   }
+  __syncwarp();
+
+  const bool has_thr = thr != nullptr;
+  const float v = dtw_warp<S>(qs, xs, m, r, has_thr,
+                              has_thr ? thr[p] : 0.0f, lane);
+  if (lane == 0) out[p] = v;
+}
+
+// thr_stride 0: one scalar threshold for every candidate; 1: thr[c].
+template <int S>
+__global__ void dtw_one_kernel(const float* __restrict__ q,
+                               const float* __restrict__ x,
+                               const float* __restrict__ thr, int thr_stride,
+                               float* __restrict__ out, int C, int m, int r) {
+  extern __shared__ float smem[];
+  float* qs = smem;                                  // m
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int k = threadIdx.x; k < m; k += blockDim.x) qs[k] = q[k];
+  __syncthreads();                   // before any warp may leave
+
+  const long long c = static_cast<long long>(blockIdx.x) * ONE_WARPS + warp;
+  if (c >= C) return;                // warp-uniform
+  float* xs = smem + m + warp * m;
+  for (int k = lane; k < m; k += 32) xs[k] = x[c * m + k];
+  __syncwarp();
+
+  const bool has_thr = thr != nullptr;
+  const float v = dtw_warp<S>(qs, xs, m, r, has_thr,
+                              has_thr ? thr[c * thr_stride] : 0.0f, lane);
+  if (lane == 0) out[c] = v;
+}
+
+template <int S>
+int launch_one(const float* q, const float* x, const float* thr,
+               int thr_stride, float* out, int C, int m, int r,
+               cudaStream_t stream) {
+  const int smem = (ONE_WARPS + 1) * m * static_cast<int>(sizeof(float));
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        dtw_one_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const unsigned grid = static_cast<unsigned>((C + ONE_WARPS - 1) / ONE_WARPS);
+  dtw_one_kernel<S><<<grid, ONE_WARPS * 32, smem, stream>>>(
+      q, x, thr, thr_stride, out, C, m, r);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int S>
@@ -150,32 +219,75 @@ int launch(const float* q, const float* x, const float* thr, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Calls f.template operator()<S>() with S = band slots per lane for
+// radius r (1..8 exactly, then 16, 32, 64); cudaErrorInvalidValue when r
+// is too wide.
+template <typename F>
+int with_slots(int r, F f) {
+  const int need = (2 * r + 2 + 31) / 32;
+  switch (need) {
+    case 1: return f.template operator()<1>();
+    case 2: return f.template operator()<2>();
+    case 3: return f.template operator()<3>();
+    case 4: return f.template operator()<4>();
+    case 5: return f.template operator()<5>();
+    case 6: return f.template operator()<6>();
+    case 7: return f.template operator()<7>();
+    case 8: return f.template operator()<8>();
+    default: break;
+  }
+  if (need <= 16) return f.template operator()<16>();
+  if (need <= 32) return f.template operator()<32>();
+  if (need <= 64) return f.template operator()<64>();
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+struct PairsLaunch {
+  const float *q, *x, *thr;
+  float* out;
+  int P, m, r;
+  cudaStream_t st;
+  template <int S>
+  int operator()() const { return launch<S>(q, x, thr, out, P, m, r, st); }
+};
+
+struct OneLaunch {
+  const float *q, *x, *thr;
+  int thr_stride;
+  float* out;
+  int C, m, r;
+  cudaStream_t st;
+  template <int S>
+  int operator()() const {
+    return launch_one<S>(q, x, thr, thr_stride, out, C, m, r, st);
+  }
+};
+
 }  // namespace
 
-// Widest band the kernel takes: 2r + 2 slots over 32 lanes of 64 each.
+// Widest band the kernels take: 2r + 2 slots over 32 lanes of 64 each.
 extern "C" int dtw_pairs_max_radius() { return 32 * 64 / 2 - 1; }
 
 extern "C" int dtw_wavefront_pairs_launch(const float* q, const float* x,
                                           const float* thr, float* out,
                                           int P, int m, int r,
                                           void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int need = (2 * r + 2 + 31) / 32;   // band slots per lane
-  switch (need) {
-    case 1: return launch<1>(q, x, thr, out, P, m, r, st);
-    case 2: return launch<2>(q, x, thr, out, P, m, r, st);
-    case 3: return launch<3>(q, x, thr, out, P, m, r, st);
-    case 4: return launch<4>(q, x, thr, out, P, m, r, st);
-    case 5: return launch<5>(q, x, thr, out, P, m, r, st);
-    case 6: return launch<6>(q, x, thr, out, P, m, r, st);
-    case 7: return launch<7>(q, x, thr, out, P, m, r, st);
-    case 8: return launch<8>(q, x, thr, out, P, m, r, st);
-    default: break;
-  }
-  if (need <= 16) return launch<16>(q, x, thr, out, P, m, r, st);
-  if (need <= 32) return launch<32>(q, x, thr, out, P, m, r, st);
-  if (need <= 64) return launch<64>(q, x, thr, out, P, m, r, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_slots(r, PairsLaunch{q, x, thr, out, P, m, r,
+                                   static_cast<cudaStream_t>(stream)});
+}
+
+extern "C" int dtw_wavefront_launch(const float* q, const float* x,
+                                    const float* thr, int thr_stride,
+                                    float* out, int C, int m, int r,
+                                    void* stream) {
+  return with_slots(r, OneLaunch{q, x, thr, thr_stride, out, C, m, r,
+                                 static_cast<cudaStream_t>(stream)});
+}
+
+// Series length the single-query kernel takes: the query plus one row
+// per warp in shared memory.
+extern "C" int dtw_one_max_length() {
+  return 227 * 1024 / ((ONE_WARPS + 1) * static_cast<int>(sizeof(float)));
 }
 
 extern "C" const char* dtw_wavefront_error_string(int code) {

@@ -1,10 +1,10 @@
-"""SearchConfig — the search-time knobs the batched path reads
-(counterpart of ``repro.db.config``).
+"""SearchConfig — the search-time knobs (counterpart of
+``repro.db.config``).
 
 Field names, defaults and checks are the reference's, so a config reads
-the same in both packages.  The port serves the batched searcher only,
-so it has no ``searcher`` field; the reference's other searchers and its
-batcher/fleet/subsequence knobs are outside this package for now
+the same in both packages.  The port serves two of the reference's
+searchers, ``"batched"`` (the default) and ``"local"``; the others and
+the batcher/fleet/subsequence knobs are outside this package for now
 (ROADMAP).
 """
 from __future__ import annotations
@@ -13,6 +13,9 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 from repro_torch.kernels import ops
+
+#: searchers this package serves (``repro/db/registry.py:104-137``)
+SEARCHERS = ("batched", "local")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,7 +26,10 @@ class SearchConfig:
     the re-rank; ``rank_by_signature`` / ``multiprobe_offsets`` shape the
     probe; ``backend`` keeps the reference's values ("auto" and "pallas":
     CUDA kernels on the card, plain versions on the CPU; "jnp": plain
-    versions, CPU only); ``stage_timings`` records per-stage seconds."""
+    versions, CPU only); ``searcher`` routes the facade's queries
+    (``"batched"``: ``serving.batched.ssh_search_batch``; ``"local"``:
+    one ``core.search.ssh_search`` per query); ``stage_timings`` records
+    per-stage seconds."""
 
     topk: int = 10
     top_c: int = 256
@@ -34,6 +40,7 @@ class SearchConfig:
     seed_size: Optional[int] = None
     early_abandon: bool = True
     backend: str = "auto"
+    searcher: str = "batched"
     stage_timings: bool = True
 
     def validate(self) -> "SearchConfig":
@@ -56,6 +63,9 @@ class SearchConfig:
                 f"({self.topk}): the cascade threshold is the topk-th "
                 "best of the seeded set")
         ops.check_backend(self.backend)
+        if self.searcher not in SEARCHERS:
+            raise ValueError(f"repro_torch serves searchers {SEARCHERS}, "
+                             f"got {self.searcher!r}")
         return self
 
     def replace(self, **changes: Any) -> "SearchConfig":

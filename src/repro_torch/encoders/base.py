@@ -1,9 +1,9 @@
 """``IndexSpec`` — what an index *is* (counterpart of
 ``repro.encoders.base``): encoder name + stage params + seed.
 
-The port serves the ``"ssh"`` encoder only.  A spec round-trips through
-``to_dict``/``from_dict`` in the reference's format, so one spec names
-the same index in both packages.
+The port serves the ``"ssh"`` and ``"ssh-cs"`` encoders.  A spec
+round-trips through ``to_dict``/``from_dict`` in the reference's format,
+so one spec names the same index in both packages.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import warnings
 from typing import Any, Dict, Mapping
 
 #: encoders this package implements
-ENCODERS = ("ssh",)
+ENCODERS = ("ssh", "ssh-cs")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,8 +33,8 @@ class IndexSpec:
         if self.encoder not in ENCODERS:
             raise ValueError(f"repro_torch implements encoders {ENCODERS}, "
                              f"got {self.encoder!r}")
-        from repro_torch.encoders.pipeline import SSHEncoder
-        SSHEncoder.validate_params(self)
+        from repro_torch.encoders.registry import encoder_class
+        encoder_class(self.encoder).validate_params(self)
         return self
 
     def replace(self, **changes: Any) -> "IndexSpec":

@@ -76,20 +76,36 @@ class SSHEncoder:
                 self.window, self.num_filters, gen)}
             cws = minhash.make_cws(self.num_hashes, self.dim, gen)
             state.update({f"cws/{f}": getattr(cws, f) for f in cws._fields})
+            state.update(self._draw_extra_state(gen))
             self.load_state({k: v.to(dev) for k, v in state.items()})
         return self
+
+    def _draw_extra_state(self, gen: torch.Generator
+                          ) -> Dict[str, torch.Tensor]:
+        """State leaves beyond the filter bank and the CWS fields (none
+        for ``"ssh"``), drawn after them from the same generator."""
+        return {}
+
+    def extra_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """Shapes of the extra leaves (``pipeline.py:386-387``)."""
+        return {}
+
+    #: extra leaves that hold integers (kept as int64, not float32)
+    INT_LEAVES: Tuple[str, ...] = ()
 
     def expected_shapes(self) -> Dict[str, Tuple[int, ...]]:
         """Leaf names and shapes of the state (``pipeline.py:376-388``)."""
         shapes = {"filters": (self.window, self.num_filters)}
         shapes.update({f"cws/{f}": (self.num_hashes, self.dim)
                        for f in minhash.CWSParams._fields})
+        shapes.update(self.extra_shapes())
         return shapes
 
     def load_state(self, state: Mapping[str, torch.Tensor]
                    ) -> "SSHEncoder":
-        """Adopt a state dict of float32 tensors on one device; refuses
-        leaves or shapes that disagree with the spec."""
+        """Adopt a state dict of tensors on one device; refuses leaves or
+        shapes that disagree with the spec.  Float leaves are stored as
+        float32, the ``INT_LEAVES`` as int64."""
         want = self.expected_shapes()
         if set(state) != set(want):
             raise ValueError(
@@ -105,8 +121,10 @@ class SSHEncoder:
         devices = {t.device for t in state.values()}
         if len(devices) != 1:
             raise ValueError(f"encoder state spans devices {devices}")
-        self._state = {k: v.to(torch.float32).contiguous()
-                       for k, v in state.items()}
+        self._state = {
+            k: v.to(torch.int64 if k in self.INT_LEAVES
+                    else torch.float32).contiguous()
+            for k, v in state.items()}
         return self
 
     def _require_state(self) -> Dict[str, torch.Tensor]:
@@ -126,15 +144,30 @@ class SSHEncoder:
             **{f: st[f"cws/{f}"] for f in minhash.CWSParams._fields})
 
     # -- encoding ---------------------------------------------------------
+    @property
+    def device(self) -> torch.device:
+        return self._require_state()["filters"].device
+
+    def _shingle_ids(self, xs: torch.Tensor,
+                     valid_bits: Optional[torch.Tensor]) -> torch.Tensor:
+        """(R, m) series -> (R, F·S) int64 shingle ids; ``valid_bits``
+        (R,) masks each row to the shingles inside its first valid bits
+        (masked ids are the sentinel F·2^n)."""
+        st = self._require_state()
+        xs = xs.to(device=st["filters"].device, dtype=torch.float32)
+        bits = ops.sketch_bits(xs.contiguous(), st["filters"], self.step)
+        return shingle.shingle_ids(bits, self.ngram, valid_bits)
+
+    def _hash_shingles(self, ids: torch.Tensor) -> torch.Tensor:
+        """The weighted-set and hash stages: (R, S) ids -> (R, K) int32,
+        here CWS of the exact shingle histogram."""
+        return minhash.cws_hash_active(ids, self.cws)
+
     def _encode_rows(self, xs: torch.Tensor,
                      valid_bits: Optional[torch.Tensor]) -> torch.Tensor:
         """(R, m) -> (R, K) int32; ``valid_bits`` (R,) masks each row's
         histogram to the shingles inside its first valid bits."""
-        st = self._require_state()
-        xs = xs.to(device=st["filters"].device, dtype=torch.float32)
-        bits = ops.sketch_bits(xs.contiguous(), st["filters"], self.step)
-        ids = shingle.shingle_ids(bits, self.ngram, valid_bits)
-        return minhash.cws_hash_active(ids, self.cws)
+        return self._hash_shingles(self._shingle_ids(xs, valid_bits))
 
     def encode_batch(self, xs: torch.Tensor) -> torch.Tensor:
         """Series block (B, m) -> (B, K) int32."""

@@ -7,9 +7,11 @@ of the source and the flags, so an edited kernel rebuilds and a stale
 library is never loaded.  ``build_all`` starts one ``nvcc`` per source
 at once.
 
-Every wrapper counts its launches in :data:`LAUNCHES` (one per kernel
-launch, nowhere else), which is how a run shows that the main path went
-through the kernels.
+Every wrapper counts its launches in :data:`LAUNCHES` under its kernel's
+name (one per kernel launch, nowhere else; :data:`KERNELS` lists the
+names), which is how a run shows that a path went through the kernels.
+A library may hold more than one kernel, so the counts are per kernel,
+not per library.
 """
 from __future__ import annotations
 
@@ -41,14 +43,28 @@ SIGNATURES = {
     "collision_count": {
         "collision_count_batch_launch": [C_PTR, C_PTR, C_PTR, C_INT, C_INT,
                                          C_INT, C_PTR],
+        "collision_count_launch": [C_PTR, C_PTR, C_PTR, C_INT, C_INT,
+                                   C_PTR],
         "collision_count_max_k": [],
     },
     "dtw_wavefront": {
         "dtw_wavefront_pairs_launch": [C_PTR, C_PTR, C_PTR, C_PTR, C_INT,
                                        C_INT, C_INT, C_PTR],
+        "dtw_wavefront_launch": [C_PTR, C_PTR, C_PTR, C_INT, C_PTR, C_INT,
+                                 C_INT, C_INT, C_PTR],
         "dtw_pairs_max_radius": [],
+        "dtw_one_max_length": [],
+    },
+    "count_sketch": {
+        "cs_tables_launch": [C_PTR, C_PTR, C_PTR, C_INT, C_INT, C_INT,
+                             C_PTR],
+        "cs_tables_max_width": [],
     },
 }
+
+#: every kernel, by the name its launches are counted under
+KERNELS = ("sketch_conv", "collision_count_batch", "collision_count",
+           "dtw_wavefront_pairs", "dtw_wavefront", "cs_tables")
 
 #: launches per kernel since the last reset (see ``kernels.ops``)
 LAUNCHES: Dict[str, int] = collections.Counter()

@@ -1,4 +1,4 @@
-"""Device dispatch for the kernels of the main path (counterpart of
+"""Device dispatch for the port's kernels (counterpart of
 ``repro.kernels.ops``).
 
 The tensor's device picks the route: a CUDA tensor launches the
@@ -16,11 +16,11 @@ from typing import Dict, Optional, Union
 
 import torch
 
-from repro_torch.kernels import _build, ref
-from repro_torch.kernels.collision_count import \
-    collision_count_batch as _collision_kernel
-from repro_torch.kernels.dtw_wavefront import \
-    dtw_wavefront_pairs as _dtw_kernel
+from repro_torch.kernels import _build
+from repro_torch.kernels import collision_count as _cc
+from repro_torch.kernels import count_sketch as _cs
+from repro_torch.kernels import dtw_wavefront as _dtw
+from repro_torch.kernels import ref
 from repro_torch.kernels.sketch_conv import sketch_conv as _sketch_kernel
 
 BACKENDS = ("auto", "pallas", "jnp")
@@ -54,7 +54,7 @@ def check_backend(backend: str,
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {name: _build.LAUNCHES[name] for name in _build.SIGNATURES}
+    return {name: _build.LAUNCHES[name] for name in _build.KERNELS}
 
 
 def reset_launch_counts() -> None:
@@ -88,8 +88,28 @@ def collision_count_batch(query_keys: torch.Tensor, db_keys: torch.Tensor
                           ) -> torch.Tensor:
     """Batched signature agreement counts (B, K) x (N, K) -> (B, N)."""
     if _route(db_keys):
-        return _collision_kernel(query_keys, db_keys)
+        return _cc.collision_count_batch(query_keys, db_keys)
     return ref.collision_count_batch_ref(query_keys, db_keys)
+
+
+def collision_count(query_keys: torch.Tensor, db_keys: torch.Tensor
+                    ) -> torch.Tensor:
+    """One query's signature agreement counts (K,) x (N, K) -> (N,)."""
+    if _route(db_keys):
+        return _cc.collision_count(query_keys, db_keys)
+    return ref.collision_count_ref(query_keys, db_keys)
+
+
+def dtw_rerank(query: torch.Tensor, candidates: torch.Tensor,
+               band: Optional[int], threshold=None) -> torch.Tensor:
+    """One query against a candidate block (m,) x (C, m) -> (C,);
+    ``band=None`` is radius m - 1.  ``threshold`` (scalar or (C,)): exact
+    where <= threshold, else BIG."""
+    if _route(candidates):
+        m = candidates.shape[1]
+        return _dtw.dtw_wavefront(query, candidates,
+                                  m - 1 if band is None else band, threshold)
+    return ref.dtw_wavefront_ref(query, candidates, band, threshold)
 
 
 def dtw_rerank_pairs(queries: torch.Tensor, candidates: torch.Tensor,
@@ -101,6 +121,16 @@ def dtw_rerank_pairs(queries: torch.Tensor, candidates: torch.Tensor,
     BIG."""
     if _route(queries):
         m = queries.shape[1]
-        return _dtw_kernel(queries, candidates,
-                           m - 1 if band is None else band, threshold)
+        return _dtw.dtw_wavefront_pairs(queries, candidates,
+                                        m - 1 if band is None else band,
+                                        threshold)
     return ref.dtw_pairs_ref(queries, candidates, band, threshold)
+
+
+def cs_tables(bucket: torch.Tensor, sign: torch.Tensor, width: int
+              ) -> torch.Tensor:
+    """Signed count-sketch tables (B, R, S) -> (B, R, width); bucket -1
+    contributes nothing."""
+    if _route(bucket):
+        return _cs.cs_tables(bucket, sign, width)
+    return ref.cs_tables_ref(bucket, sign, width)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three CUDA kernels (counterpart of
+"""Plain PyTorch versions of the CUDA kernels (counterpart of
 ``repro.kernels.ref``).
 
 Each ``<name>_ref`` is the oracle its kernel is held against on the card
@@ -37,6 +37,12 @@ def collision_count_batch_ref(query_keys: torch.Tensor,
     return acc
 
 
+def collision_count_ref(query_keys: torch.Tensor, db_keys: torch.Tensor
+                        ) -> torch.Tensor:
+    """query (K,), db (N, K) int32 -> (N,) int32 per-row match counts."""
+    return (db_keys == query_keys[None, :]).sum(1, dtype=torch.int32)
+
+
 def dtw_pairs_ref(queries: torch.Tensor, candidates: torch.Tensor,
                   band: Optional[int] = None,
                   threshold: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -50,3 +56,34 @@ def dtw_pairs_ref(queries: torch.Tensor, candidates: torch.Tensor,
     """
     return _dtw.dtw_banded_pairs(queries, candidates, band,
                                  threshold=threshold)
+
+
+def dtw_wavefront_ref(query: torch.Tensor, candidates: torch.Tensor,
+                      band: Optional[int] = None,
+                      threshold=None) -> torch.Tensor:
+    """Banded squared DTW of one query against a block: query (m,),
+    candidates (C, m) -> (C,), with the threshold contract of
+    :func:`dtw_pairs_ref` (``threshold`` a scalar or (C,)).  The query
+    row is broadcast to every pair, so the values are those of the pair
+    wavefront, bit for bit."""
+    return _dtw.dtw_banded_pairs(query[None, :].expand_as(candidates),
+                                 candidates, band, threshold=threshold)
+
+
+def cs_tables_ref(bucket: torch.Tensor, sign: torch.Tensor, width: int
+                  ) -> torch.Tensor:
+    """Signed count-sketch tables: bucket (B, R, S) int32 (-1 invalid),
+    sign (B, R, S) f32 -> (B, R, width) f32.
+
+    A scatter-add into ``width + 1`` bins whose last bin collects every
+    bucket outside [0, width) and is sliced off
+    (``repro/kernels/ref.py:106-122``).  Sums of +-1 are exact integers,
+    so every order of the adds gives the same bits.
+    """
+    b, r, s = bucket.shape
+    tgt = torch.where((bucket >= 0) & (bucket < width), bucket, width)
+    tables = torch.zeros((b * r, width + 1), dtype=torch.float32,
+                         device=bucket.device)
+    tables.scatter_add_(1, tgt.reshape(b * r, s).to(torch.int64),
+                        sign.to(torch.float32).reshape(b * r, s))
+    return tables[:, :width].reshape(b, r, width)

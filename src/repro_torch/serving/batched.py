@@ -27,7 +27,7 @@ from repro_torch.core import minhash
 from repro_torch.core import rerank as rr
 from repro_torch.core.index import SSHIndex
 from repro_torch.core.rerank import SearchStats
-from repro_torch.core.search import SearchResult
+from repro_torch.core.search import SearchResult, top_c_by_count
 from repro_torch.db.config import SearchConfig
 from repro_torch.kernels import ops
 
@@ -47,7 +47,11 @@ class BatchSearchResult:
     stats: Optional[SearchStats] = None
 
     def per_query(self, b: int) -> SearchResult:
-        """Query ``b``'s slice, filler rows (id -1) trimmed."""
+        """Query ``b``'s slice, filler rows (id -1) trimmed.  Its ``stats``
+        stays None, as the reference's (``repro/serving/batched.py:
+        70-87``): the counters are the batch's, and the per-query
+        invariant ``stats.n_dtw == n_candidates`` would not hold for a
+        slice; read them from ``BatchSearchResult.stats``."""
         k = int(np.sum(self.ids[b] >= 0))
         return SearchResult(
             ids=self.ids[b][:k], dists=self.dists[b][:k],
@@ -56,19 +60,6 @@ class BatchSearchResult:
             pruned_by_hash_frac=float(self.pruned_by_hash_frac[b]),
             pruned_total_frac=float(self.pruned_total_frac[b]),
             wall_seconds=self.wall_seconds)
-
-
-def top_c_by_count(counts: torch.Tensor, top_c: int):
-    """Each row's ``top_c`` columns by count, highest first, ties to the
-    lowest column — ``lax.top_k``'s order.  ``torch.topk`` promises no
-    tie order on CUDA, so it ranks the unique composite key
-    count·2^32 + (N-1-column).  counts (B, N) int32 -> (ids int64,
-    counts int32), each (B, top_c)."""
-    n = counts.shape[1]
-    rev = n - 1 - torch.arange(n, device=counts.device)
-    key = (counts.to(torch.int64) << 32) | rev
-    top = torch.topk(key, top_c, dim=1, sorted=True).values
-    return n - 1 - (top & 0xFFFFFFFF), (top >> 32).to(torch.int32)
 
 
 def batch_probe(queries: torch.Tensor, index: SSHIndex, top_c: int,

@@ -173,12 +173,13 @@ def test_config_and_spec_read_like_the_reference():
     jcfg = dataclasses.asdict(JaxSearchConfig())
     for k, v in SearchConfig().to_dict().items():
         assert jcfg[k] == v, k
-    assert jcfg["searcher"] == "batched"     # the one searcher the port has
+    assert jcfg["searcher"] == "batched"     # the default in both
     assert ssh_ecg.search_config(length=512).band == 25
     with pytest.raises(ValueError):
         SearchConfig(top_c=5, topk=10).validate()
-    with pytest.raises(TypeError):
-        SearchConfig(searcher="engine")
+    SearchConfig(searcher="local").validate()
+    with pytest.raises(ValueError, match="serves searchers"):
+        SearchConfig(searcher="engine").validate()
     with pytest.raises(ValueError, match="backend must be one of"):
         SearchConfig(backend="cuda").validate()
     with pytest.raises(ValueError, match="device='cpu'"):

@@ -5,9 +5,10 @@ the ``cuda`` fixture, never at import).  On the card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Tolerances: collision counts exact; pair DTW bit-identical (the kernel
-repeats the plain version's rounding op for op); sketch projections
-within the float32 bound of reordering a W-term sum,
+Tolerances: collision counts exact; DTW bit-identical (the kernels
+repeat the plain version's rounding op for op); count-sketch tables
+bit-identical (sums of +-1 are exact in float32 in any order); sketch
+projections within the float32 bound of reordering a W-term sum,
 2·W·2^-24·Σ|x·f|.
 """
 import numpy as np
@@ -76,6 +77,55 @@ def test_dtw_kernel_bit_identical(cuda, band, with_thr):
     assert torch.equal(got, ref.dtw_pairs_ref(q, c, band, thr))
 
 
+@pytest.mark.parametrize("k,n", [(20, 1000), (40, 4097), (64, 300)])
+def test_single_query_collision_count_kernel_exact(cuda, k, n):
+    rng = np.random.default_rng(k + n)
+    db = torch.tensor(rng.integers(0, 3, size=(n, k)), dtype=torch.int32,
+                      device=cuda)
+    q = torch.tensor(rng.integers(0, 3, size=k), dtype=torch.int32,
+                     device=cuda)
+    got = ops.collision_count(q, db)
+    assert torch.equal(got, ref.collision_count_ref(q, db))
+    # a row of a larger block, as hash_probe hands it over
+    assert torch.equal(ops.collision_count(db[7], db[5:]),
+                       ref.collision_count_ref(db[7], db[5:]))
+
+
+@pytest.mark.parametrize("band", [6, 25, None])
+@pytest.mark.parametrize("thr_kind", ["none", "scalar", "per_candidate"])
+def test_single_query_dtw_kernel_bit_identical(cuda, band, thr_kind):
+    rng = np.random.default_rng(1 if band is None else band)
+    c, m = 203, 96
+    q = torch.tensor(rng.normal(size=m).cumsum(), dtype=torch.float32,
+                     device=cuda)
+    x = torch.tensor(rng.normal(size=(c, m)).cumsum(1), dtype=torch.float32,
+                     device=cuda)
+    exact = ref.dtw_wavefront_ref(q, x, band)
+    thr = None
+    if thr_kind == "scalar":
+        thr = exact.median()
+    elif thr_kind == "per_candidate":
+        thr = exact * torch.tensor(rng.uniform(0.5, 1.5, c),
+                                   dtype=torch.float32, device=cuda)
+    got = ops.dtw_rerank(q, x, band, thr)
+    assert torch.equal(got, ref.dtw_wavefront_ref(q, x, band, thr))
+    # the pair kernel on the broadcast query gives the same bits
+    assert torch.equal(ops.dtw_rerank(q, x, band),
+                       ops.dtw_rerank_pairs(q.expand(c, m).contiguous(), x,
+                                            band))
+
+
+@pytest.mark.parametrize("width,s", [(128, 300), (4096, 131)])
+def test_cs_tables_kernel_bit_identical(cuda, width, s):
+    rng = np.random.default_rng(width)
+    bkt = rng.integers(-1, width, size=(9, 4, s)).astype(np.int32)
+    sgn = np.where(bkt < 0, 0.0, rng.choice([-1.0, 1.0], bkt.shape))
+    bucket = torch.tensor(bkt, device=cuda)
+    sign = torch.tensor(sgn, dtype=torch.float32, device=cuda)
+    got = ops.cs_tables(bucket, sign, width)
+    assert torch.equal(got, ref.cs_tables_ref(bucket, sign, width))
+
+
 def test_kernel_wrappers_refuse_bad_inputs(cuda):
     x = torch.zeros((4, 64), dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError):
@@ -98,5 +148,52 @@ def test_batched_search_cuda_matches_cpu(cuda):
     for a, b in zip(gpu.search_batch(qs), cpu.search_batch(qs)):
         np.testing.assert_array_equal(a.ids, b.ids)
         np.testing.assert_array_equal(a.dists, b.dists)
-    assert min(ops.launch_counts().values()) >= 1
-    assert set(ops.launch_counts()) == set(_build.SIGNATURES)
+    counts = ops.launch_counts()
+    assert set(counts) == set(_build.KERNELS)
+    assert min(counts[k] for k in ("sketch_conv", "collision_count_batch",
+                                   "dtw_wavefront_pairs")) >= 1
+
+
+def test_sequential_search_and_ucr_cuda_match_cpu(cuda):
+    from repro_torch.core import search
+    series = make_benchmark_db("ecg", 600, 128, seed=12)
+    cfg = SearchConfig(topk=10, top_c=64, band=6, multiprobe_offsets=3,
+                       searcher="local")
+    gpu = TimeSeriesDB.build(series, SMOKE, cfg)
+    cpu = TimeSeriesDB.build(series, SMOKE, cfg, device="cpu")
+    ops.reset_launch_counts()
+    qs = series[[2, 99, 450]]
+    for a, b in zip(gpu.search_batch(qs), cpu.search_batch(qs)):
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_array_equal(a.dists, b.dists)
+    counts = ops.launch_counts()
+    assert counts["collision_count"] == 3 * len(qs)       # one per row
+    assert counts["dtw_wavefront"] >= 2 * len(qs)         # seed, survivors
+    ucr = search.ucr_search(qs[1], gpu.index.series, topk=10, band=6)
+    gold, _ = search.brute_force_topk(qs[1], series, 10, 6, device="cpu")
+    np.testing.assert_array_equal(ucr.ids, gold)
+
+
+def test_sshcs_encode_and_ingest_cuda_match_cpu(cuda):
+    from repro_torch.encoders import IndexSpec
+    spec = IndexSpec(encoder="ssh-cs", params=dict(
+        window=24, step=3, ngram=8, num_hashes=40, num_tables=20, width=1024))
+    series = make_benchmark_db("ecg", 500, 128, seed=13)
+    cfg = SearchConfig(topk=10, top_c=64, band=6, searcher="local")
+    ops.reset_launch_counts()
+    dbs = [TimeSeriesDB.build(series[:300], spec, cfg, device=d)
+           for d in ("cuda", "cpu")]
+    assert ops.launch_counts()["cs_tables"] >= 1
+    gpu, cpu = dbs
+    assert torch.equal(gpu.index.signatures.cpu(), cpu.index.signatures)
+    for db in dbs:
+        db.add_stream(series[400:500], seq=1)
+        db.add_stream(series[300:400], seq=0)
+        db.flush()
+    assert torch.equal(gpu.index.signatures.cpu(), cpu.index.signatures)
+    assert torch.equal(gpu.index.encoder.aggregate_sketch().cpu(),
+                       cpu.index.encoder.aggregate_sketch())
+    for a, b in zip(gpu.search_batch(series[[5, 350, 480]]),
+                    cpu.search_batch(series[[5, 350, 480]])):
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_array_equal(a.dists, b.dists)

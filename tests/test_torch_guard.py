@@ -40,6 +40,11 @@ for name in names:
     importlib.import_module(name)
 assert "jax" not in [m for m in sys.modules if sys.modules[m] is not None]
 assert not [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+for name in ("repro_torch.streaming.count_sketch",
+             "repro_torch.streaming.encoder", "repro_torch.streaming.ingest",
+             "repro_torch.encoders.registry", "repro_torch.kernels.count_sketch",
+             "repro_torch.core.search"):
+    assert name in names, name
 print(len(names), "modules")
 """
 
@@ -83,6 +88,29 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError):
         ops.resolve_device("cuda")
     assert ops.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_new_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.core import search
+    from repro_torch.encoders import IndexSpec, make_encoder
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    series = np.random.default_rng(1).normal(size=(40, 64)).astype(
+        np.float32)
+    spec_cs = IndexSpec(encoder="ssh-cs", params=dict(
+        window=16, step=2, ngram=6, num_hashes=8, num_tables=4, width=128))
+    for call in (lambda: make_encoder(spec_cs),
+                 lambda: TimeSeriesDB.build(series, spec_cs),
+                 lambda: search.ucr_search(series[0], series, band=4),
+                 lambda: search.brute_force_topk(series[0], series, 3)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    db = TimeSeriesDB.build(series, spec_cs, SearchConfig(
+        searcher="local", top_c=16, band=4), device="cpu")
+    db.add_stream(series[:5])
+    db.flush()
+    assert db.device == torch.device("cpu") and len(db) == 45
+    assert search.ucr_search(series[0], torch.from_numpy(series),
+                             band=4).ids[0] == 0
 
 
 def test_jnp_backend_only_on_cpu():

@@ -1,8 +1,9 @@
-"""The plain PyTorch versions of the port's three kernels against the JAX
+"""The plain PyTorch versions of the port's kernels against the JAX
 package, on the CPU, and the device dispatch around them.
 
 Inputs are made with numpy from a seed and handed to both packages.
-Tolerances: collision counts exact; sketch projections rtol 1e-5 with a
+Tolerances: collision counts and count-sketch tables exact (sums of +-1
+are exact integers in float32); sketch projections rtol 1e-5 with a
 1e-5 absolute floor (float32 reassociation of a W-term sum whose terms
 are O(1)); DTW rtol 1e-5, atol 1e-6 (the port's wavefront and the
 reference's cumsum/cummin window DP round the same sums in different
@@ -18,11 +19,17 @@ from repro.core.dtw import dtw as jdtw
 from repro.core.dtw import dtw_dp_reference
 from repro.kernels import ref as jref
 from repro.kernels.collision_count import \
+    collision_count as pallas_collision_count
+from repro.kernels.collision_count import \
     collision_count_batch as pallas_collision_count_batch
+from repro.kernels.count_sketch import cs_tables as pallas_cs_tables
 from repro_torch.core import dtw as tdtw
-from repro_torch.kernels import ops, ref
-from repro_torch.kernels.collision_count import collision_count_batch
-from repro_torch.kernels.dtw_wavefront import dtw_wavefront_pairs
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.collision_count import (collision_count,
+                                                 collision_count_batch)
+from repro_torch.kernels.count_sketch import cs_tables
+from repro_torch.kernels.dtw_wavefront import (dtw_wavefront,
+                                               dtw_wavefront_pairs)
 from repro_torch.kernels.sketch_conv import sketch_conv
 
 pytestmark = pytest.mark.torch_port
@@ -147,8 +154,7 @@ def test_ops_dispatch_takes_plain_versions_on_cpu():
     d = ops.dtw_rerank_pairs(x, x.flip(0), None)
     assert torch.equal(d, ref.dtw_pairs_ref(x, x.flip(0), None))
     # the plain versions launch nothing
-    assert ops.launch_counts() == {"sketch_conv": 0, "collision_count": 0,
-                                   "dtw_wavefront": 0}
+    assert ops.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -160,3 +166,108 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         collision_count_batch(k, k)
     with pytest.raises(ValueError, match="CUDA"):
         dtw_wavefront_pairs(x, x, 3)
+
+
+@pytest.mark.parametrize("n,k", [(130, 20), (257, 40), (64, 7)])
+def test_collision_count_ref_exact(n, k):
+    rng = np.random.default_rng(n + k)
+    db = rng.integers(0, 3, size=(n, k)).astype(np.int32)
+    q = rng.integers(0, 3, size=k).astype(np.int32)
+    got = ref.collision_count_ref(torch.from_numpy(q),
+                                  torch.from_numpy(db)).numpy()
+    want = np.asarray(jref.collision_count_ref(jnp.asarray(q),
+                                               jnp.asarray(db)))
+    np.testing.assert_array_equal(got, want)
+    # the reference's Pallas kernel runs in interpret mode
+    pallas = np.asarray(pallas_collision_count(jnp.asarray(q),
+                                               jnp.asarray(db),
+                                               interpret=True))
+    np.testing.assert_array_equal(got, pallas)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(
+        got, ref.collision_count_batch_ref(torch.from_numpy(q[None]),
+                                           torch.from_numpy(db))[0].numpy())
+
+
+@pytest.mark.parametrize("b,r,s,width", [(3, 4, 300, 256), (2, 4, 131, 128),
+                                         (1, 1, 17, 1024)])
+def test_cs_tables_ref_bit_identical(b, r, s, width):
+    rng = np.random.default_rng(width + s)
+    bkt = rng.integers(-1, width, (b, r, s)).astype(np.int32)
+    sgn = np.where(bkt < 0, 0.0,
+                   rng.choice([-1.0, 1.0], (b, r, s))).astype(np.float32)
+    got = ref.cs_tables_ref(torch.from_numpy(bkt), torch.from_numpy(sgn),
+                            width).numpy()
+    want = np.asarray(jref.cs_tables_ref(jnp.asarray(bkt), jnp.asarray(sgn),
+                                         width))
+    np.testing.assert_array_equal(got, want)
+    pallas = np.asarray(pallas_cs_tables(jnp.asarray(bkt), jnp.asarray(sgn),
+                                         width, interpret=True))
+    np.testing.assert_array_equal(got, pallas)
+    assert got.shape == (b, r, width) and got.dtype == np.float32
+
+
+@pytest.mark.parametrize("band", [2, 6, None])
+@pytest.mark.parametrize("thr_kind", ["none", "scalar", "per_candidate"])
+def test_dtw_wavefront_ref_matches_jax(band, thr_kind):
+    m = _LEN[band]
+    q, c = _pairs(40, m, seed=20 + (band or 0))
+    query = q[0]
+    exact = ref.dtw_wavefront_ref(torch.from_numpy(query),
+                                  torch.from_numpy(c), band).numpy()
+    thr = None
+    if thr_kind == "scalar":
+        # midway between two exact costs: no lane sits at its threshold
+        srt = np.sort(exact)
+        thr = np.float32((srt[19] + srt[20]) / 2)
+    elif thr_kind == "per_candidate":
+        factors = np.random.default_rng(2).choice([0.5, 0.9, 1.1, 2.0], 40)
+        thr = (exact * factors).astype(np.float32)
+    got = ref.dtw_wavefront_ref(
+        torch.from_numpy(query), torch.from_numpy(c), band,
+        None if thr is None else torch.as_tensor(thr)).numpy()
+    want = np.asarray(jref.dtw_wavefront_ref(
+        jnp.asarray(query), jnp.asarray(c), band=band,
+        threshold=None if thr is None else jnp.asarray(thr)))
+    np.testing.assert_array_equal(got >= BIG * 0.5, want >= BIG * 0.5)
+    kept = got < BIG * 0.5
+    np.testing.assert_allclose(got[kept], want[kept], rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got[kept], exact[kept])
+    if thr is not None:
+        np.testing.assert_array_equal(~kept, exact > thr)
+    dp = np.array([dtw_dp_reference(query, c[i], band) for i in range(8)])
+    np.testing.assert_allclose(exact[:8], dp, rtol=1e-6)   # float64 DP
+    # the same bits as the pair form on the broadcast query
+    pairs = ref.dtw_pairs_ref(torch.from_numpy(np.repeat(q[:1], 40, 0)),
+                              torch.from_numpy(c), band).numpy()
+    np.testing.assert_array_equal(exact, pairs)
+
+
+def test_new_ops_dispatch_takes_plain_versions_on_cpu():
+    rng = np.random.default_rng(8)
+    ops.reset_launch_counts()
+    db = torch.from_numpy(rng.integers(0, 2, (9, 5)).astype(np.int32))
+    assert torch.equal(ops.collision_count(db[0], db),
+                       ref.collision_count_ref(db[0], db))
+    x = torch.from_numpy(rng.normal(size=(6, 30)).astype(np.float32))
+    assert torch.equal(ops.dtw_rerank(x[0], x, 4),
+                       ref.dtw_wavefront_ref(x[0], x, 4))
+    assert torch.equal(ops.dtw_rerank(x[0], x, None, 1.0),
+                       ref.dtw_wavefront_ref(x[0], x, None, 1.0))
+    bkt = torch.tensor([[[0, 3, -1, 3, 9]]], dtype=torch.int32)
+    sgn = torch.tensor([[[1.0, -1.0, 0.0, -1.0, 1.0]]])
+    # bucket -1 and buckets past the width contribute nothing
+    assert ops.cs_tables(bkt, sgn, 4).tolist() == [[[1.0, 0.0, 0.0, -2.0]]]
+    assert ops.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
+
+
+def test_new_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.zeros((2, 40))
+    k = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        collision_count(k[0], k)
+    with pytest.raises(ValueError, match="CUDA"):
+        dtw_wavefront(x[0], x, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        cs_tables(torch.zeros((1, 2, 3), dtype=torch.int32),
+                  torch.zeros((1, 2, 3)), 8)

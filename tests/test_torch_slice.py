@@ -20,7 +20,7 @@ from repro.serving.batched import ssh_search_batch as jax_search_batch
 from repro_torch import convert
 from repro_torch.configs.ssh_ecg import SMOKE
 from repro_torch.db import SearchConfig, TimeSeriesDB
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.serving.batched import ssh_search_batch
 
 pytestmark = pytest.mark.torch_port
@@ -93,10 +93,32 @@ def test_facade_matches_jax_facade(jax_db, index, queries):
         np.testing.assert_array_equal(g.ids, w.ids)
         np.testing.assert_allclose(g.dists, w.dists, rtol=1e-5, atol=1e-6)
         assert g.n_candidates == w.n_candidates
+        assert g.stats is None and w.stats is None     # batch counters
     one = db.search(queries[5])
     np.testing.assert_array_equal(one.ids, got[5].ids)
-    assert ops.launch_counts() == {"sketch_conv": 0, "collision_count": 0,
-                                   "dtw_wavefront": 0}
+    assert ops.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
+
+
+@pytest.mark.parametrize("searcher", ["batched", "local"])
+def test_facade_stats_match_jax_facade(jax_db, index, queries, searcher):
+    """Per-query ``stats``: None on the batched searcher, as the
+    reference leaves them; this query's counters on the local one."""
+    jdb = jax_db.with_config(jax_db.config.replace(searcher=searcher))
+    db = TimeSeriesDB(index, SearchConfig(searcher=searcher, **KNOBS))
+    want = jdb.search_batch(jnp.asarray(queries))
+    got = db.search_batch(queries)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.ids, w.ids)
+        assert g.n_candidates == w.n_candidates
+        if searcher == "batched":
+            assert g.stats is None and w.stats is None
+            continue
+        for name in COUNTERS:
+            assert getattr(g.stats, name) == getattr(w.stats, name), name
+        assert g.stats.n_dtw == g.n_candidates
+        assert g.stats.sig_cache_hit == 0
+        assert g.stats.index_bytes == index.nbytes()
+        assert set(g.stats.stage_seconds) == set(w.stats.stage_seconds)
 
 
 def test_own_encode_agrees_with_jax_signatures(jax_db, index, series,
