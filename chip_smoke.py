@@ -1,6 +1,7 @@
 """End-to-end check of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--n-series 1048576] [--length 512]
+                          [--lm-prompt 32768]
 
 1. Set-up: the card's name and power limit, the torch and CUDA versions,
    and the build of the CUDA kernels from ``src/repro_torch/csrc`` (one
@@ -49,6 +50,27 @@
    scan and at a sequential re-rank.
 5. Cross-check: 8 queries through the plain CPU path on a CPU copy of the
    index; ids equal, distances within rtol 1e-5.
+6. LM serving (the SSH state freed first, so its peak memory is its own):
+   granite-3-2b CONFIG at full width in bf16, random weights from a
+   ``torch.Generator`` seeded by ``--seed``; three more counted paths,
+   each with 40 ``flash_attention`` launches (one a layer):
+   e1. ``lm``: one prefill of 1 x ``--lm-prompt`` tokens (the
+       prefill_32k cell's 32,768 tokens, its batch cut from 32 to 1),
+       timed once: tokens/s, seconds, peak memory;
+   e2. ``lm_batch``: one prefill of 8 x 2048;
+   e3. ``lm_serve``: ``serve_lm`` at batch 8, prompts of 128 tokens
+       stepped through ``decode_step``, 32 greedy tokens, one prefill of
+       the prompts; gate: the prefill's last-position logits equal the
+       decode logits after token 128 within 10 % of max |logit| in bf16
+       and, on a float32 copy of the weights, within 1e-4; the argmax
+       equal where the top-2 margin exceeds the tolerance.
+   Then the kernel against its plain version on layer 0's own q, k, v
+   (all heads at 8 x 2048, heads 0-1 at the long prefill) within one bf16
+   ulp plus float32 reordering; its time at both shapes, the plain
+   version's at 8 x 2048, ``scaled_dot_product_attention`` on the same
+   inputs (KV heads expanded) as the library yardstick; the bound is
+   4·D flops per unmasked (query, key) pair at 989 TFLOP/s (bf16 tensor
+   cores) or the q, k, v and o bytes at 3.35 TB/s, the larger.
 
 Prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Imports nothing of JAX.
@@ -56,6 +78,8 @@ Any failure raises and exits non-zero.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -75,6 +99,18 @@ BATCHES, BATCH_SIZE = 4, 64     # the batched path: 4 batches of 64 queries
 SEQ_ROWS, SEQ_WARPED = 8, 8     # the sequential path: queries of batch 0
 UCR_QUERIES, UCR_GOLD = 4, 2    # UCR scans, and how many brute force holds
 STREAM_SHARDS, STREAM_BLOCKS = 2, 8
+BF16_TC_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+PREFILL_32K_BATCH = 32          # the prefill_32k cell's batch (cut to 1)
+LM_BATCH, LM_BATCH_LEN = 8, 2048                   # the batch prefill
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 128, 32  # the serve loop
+# prefill against stepped decode, as max |diff| / max |logit|.  In
+# float32 the two paths differ by reordering only: 1e-4.  In bf16 each
+# path lands about 4 % of max |logit| off the float32 result (the run
+# logs both), because the two round to bf16 at other places (batched
+# against one-row products, float32 against bf16 softmax weights) and 40
+# residual layers of random weights carry the differences on: twice
+# that, 10 %.  A wrong mask moves the logits by their own size.
+GATE_REL_TOL = {"bfloat16": 0.10, "float32": 1e-4}
 
 
 def log(*a):
@@ -108,13 +144,19 @@ def bound_ms(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
                                  else "operations")
 
 
+class _Enough(Exception):
+    """Raised by a Recorder once it holds ``stop_after`` calls."""
+
+
 class Recorder:
     """Pass-through around the ``kernels.ops`` entry points that keeps
-    the arguments of every call (a path's own kernel inputs)."""
+    the arguments of every call (a path's own kernel inputs).  With
+    ``stop_after=n`` the n-th call is recorded and the run stopped there
+    instead of computed (the context swallows the stop)."""
 
-    def __init__(self, ops, names):
+    def __init__(self, ops, names, stop_after=None):
         self.ops, self.names, self.calls = ops, names, {n: [] for n in names}
-        self.saved = {}
+        self.saved, self.stop_after = {}, stop_after
 
     def __enter__(self):
         for n in self.names:
@@ -123,13 +165,16 @@ class Recorder:
 
             def spy(*args, _fn=fn, _n=n, **kw):
                 self.calls[_n].append((args, kw))
+                if len(self.calls[_n]) == self.stop_after:
+                    raise _Enough
                 return _fn(*args, **kw)
             setattr(self.ops, n, spy)
         return self
 
-    def __exit__(self, *exc):
+    def __exit__(self, exc_type, *exc):
         for n, fn in self.saved.items():
             setattr(self.ops, n, fn)
+        return exc_type is _Enough
 
 
 def arg(call, i, name):
@@ -138,17 +183,10 @@ def arg(call, i, name):
     return args[i] if len(args) > i else kw.get(name)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--n-series", type=int, default=1 << 20)
-    ap.add_argument("--length", type=int, default=512)
-    args = ap.parse_args()
-
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
-                         "this script runs only on a CUDA GPU")
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+def ssh_paths(args, counted, phases) -> list:
+    """Paths a-d and the six SSH kernels (steps 2-5 of the docstring);
+    returns their kernel entries.  Every tensor of the SSH state is freed
+    when this returns."""
     from repro_torch.configs import ssh_ecg
     from repro_torch.core import dtw as core_dtw
     from repro_torch.core import search
@@ -157,46 +195,11 @@ def main() -> int:
                                              synthetic_ecg, warp_series)
     from repro_torch.db import TimeSeriesDB
     from repro_torch.encoders import IndexSpec
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.serving.batched import ssh_search_batch
     from repro_torch.streaming import StreamIngestor
 
-    t_start = time.perf_counter()
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"card: {smi}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}; tf32 off for matmul and cuDNN")
-    t = time.perf_counter()
-    _build.build_all()
-    for name in _build.SIGNATURES:
-        _build.load(name)
-    log(f"kernel libraries built and loaded in {time.perf_counter() - t:.1f}"
-        f" s ({', '.join(_build.SIGNATURES)}): kernels "
-        f"{', '.join(_build.KERNELS)}")
-
-    phases = {}
-
-    def counted(phase, kernels, fn):
-        """Run ``fn`` with every launch count at 0 before; require each
-        of ``kernels`` to have launched; keep the counts."""
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        counts = ops.launch_counts()
-        phases[phase] = counts
-        missing = [k for k in kernels if counts[k] < 1]
-        log(f"phase {phase}: launches {counts}")
-        if missing:
-            raise AssertionError(f"phase {phase}: kernels {missing} never "
-                                 f"launched: {counts}")
-        return out
-
     # -- data ---------------------------------------------------------------
     n, m = args.n_series, args.length
     t = time.perf_counter()
@@ -666,16 +669,6 @@ def main() -> int:
         tolerance="bit-identical",
         library="zeros(B*R, width + 1).scatter_add_(1, bucket, sign)"))
 
-    for e in entries:
-        log(f"kernel {e['name']}: kernel_ms {e['ms']:.4f} plain_ms "
-            f"{e['plain_ms']:.4f} library_ms {e['library_ms']} bound_ms "
-            f"{e['bound_ms']:.4f} ({e['bound_by']}) launches {e['launches']}"
-            f" max_err {e['max_abs_err']} [{e['shape']}]")
-        for extra in ("query_shape", "sequential_shape"):
-            if extra in e:
-                log(f"kernel {e['name']} at the {extra.split('_')[0]} shape: "
-                    f"{e[extra]}")
-
     # -- 5. cross-check on the CPU plain path -------------------------------
     cpu = torch.device("cpu")
     enc_cpu = type(db.index.encoder)(spec).load_state(
@@ -701,6 +694,321 @@ def main() -> int:
                                    atol=1e-6)
     log(f"cross-check: 8 queries on the plain CPU path ({cpu_s:.1f} s on "
         f"{cpu}) match the CUDA path: ids equal, distances within rtol 1e-5")
+    return entries
+
+
+def causal_pairs(s, t):
+    """Unmasked (query i, key j) pairs under the causal mask j <= i, for
+    S queries over T keys: the work the kernel must do."""
+    m = min(s, t)
+    return m * (m + 1) // 2 + (s - m) * t
+
+
+def device_profile(fn):
+    """Run ``fn`` once under ``torch.profiler``; returns the device time
+    of every kernel, memcpy and memset it ran (ms), how many there were,
+    and the ms of ``flash_attention`` kernels among them.  The profiler
+    slows the host, so a busy share divides this device time by an
+    unprofiled wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(
+        device_ms=sum(e.self_device_time_total for e in dev) / 1e3,
+        device_ops=sum(e.count for e in dev),
+        flash_ms=sum(e.self_device_time_total for e in dev
+                     if "flash_attention_kernel" in e.key) / 1e3)
+
+
+def flash_bound(q, k, causal=True):
+    """(bound_ms, bound_by) of one flash launch: 4·D flops per unmasked
+    (query, key) pair of every head at the bf16 tensor-core rate, and
+    q, k, v, o read or written once."""
+    b, h, s, d = q.shape
+    t = k.shape[2]
+    pairs = causal_pairs(s, t) if causal else s * t
+    n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return bound_ms(n_bytes, 4 * b * h * d * pairs, BF16_TC_OPS_PER_S)
+
+
+def lm_path(args, counted, phases) -> dict:
+    """Path e: granite-3-2b LM serving at full width (step 6 of the
+    docstring); returns the flash_attention kernel entry."""
+    from repro_torch.configs import granite_3_2b
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import error_bound
+    from repro_torch.launch.serve import (check_prefill_against_decode,
+                                          serve_lm)
+    from repro_torch.models import transformer as T
+
+    dev = torch.device("cuda")
+    cfg = granite_3_2b.CONFIG
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = T.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    torch.cuda.synchronize()
+    n_params = cfg.param_count()
+    log(f"lm: {cfg.name} CONFIG at full width ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV "
+        f"heads, head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+        f"{n_params} parameters, {torch.cuda.memory_allocated() / 1e9:.2f} "
+        f"GB in {cfg.dtype}), random weights from seed {args.seed} drawn "
+        f"on the card in {time.perf_counter() - t:.1f} s")
+    rng = np.random.default_rng(args.seed + 3)
+
+    def tokens(b, s):
+        return torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)),
+                               device=dev)
+
+    def timed_prefill(toks):
+        """One prefill, timed once; (last logits, s, peak GB)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = T.prefill(params, toks, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if out.shape != (toks.shape[0], 1, cfg.vocab) or not bool(
+                torch.isfinite(out).all()):
+            raise AssertionError(f"prefill logits {tuple(out.shape)} are "
+                                 f"malformed or not finite")
+        return out, wall, torch.cuda.max_memory_allocated() / 1e9
+
+    def expect_launches(phase, n):
+        got = phases[phase]["flash_attention"]
+        if got != n:
+            raise AssertionError(f"phase {phase}: {got} flash_attention "
+                                 f"launches, expected {n} (one a layer)")
+
+    T.prefill(params, tokens(1, 64), cfg)        # first-use set-up
+    # -- e1. long prefill --------------------------------------------------
+    long_len = args.lm_prompt
+    log(f"lm: long prefill of 1 x {long_len} tokens: the prefill_32k "
+        f"cell's shape with its batch cut from {PREFILL_32K_BATCH} to 1"
+        + ("" if long_len == 32768 else f" and its length cut from 32768 "
+           f"to {long_len}") + " to fit one run's time; timed once")
+    toks_long = tokens(1, long_len)
+    _, long_s, long_peak = counted("lm", ("flash_attention",),
+                                   lambda: timed_prefill(toks_long))
+    expect_launches("lm", cfg.n_layers)
+    log(f"lm prefill 1 x {long_len}: {long_s:.3f} s, "
+        f"{long_len / long_s:.1f} tokens/s, peak memory {long_peak:.2f} GB")
+
+    # -- e2. batch prefill -------------------------------------------------
+    toks_batch = tokens(LM_BATCH, LM_BATCH_LEN)
+    _, batch_s, batch_peak = counted("lm_batch", ("flash_attention",),
+                                     lambda: timed_prefill(toks_batch))
+    expect_launches("lm_batch", cfg.n_layers)
+    log(f"lm prefill {LM_BATCH} x {LM_BATCH_LEN}: {batch_s:.3f} s, "
+        f"{LM_BATCH * LM_BATCH_LEN / batch_s:.1f} tokens/s, peak memory "
+        f"{batch_peak:.2f} GB")
+
+    # -- e3. serve: stepped decode, greedy generation, one prefill ---------
+    prompts = rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))
+    torch.cuda.reset_peak_memory_stats()
+    res = counted("lm_serve", ("flash_attention",),
+                  lambda: serve_lm(cfg, params, prompts, gen_len=SERVE_GEN,
+                                   device=dev))
+    expect_launches("lm_serve", cfg.n_layers)
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"lm serve {SERVE_BATCH} prompts of {SERVE_PROMPT} tokens, "
+        f"{SERVE_GEN} generated: {res.decode_ms_per_step:.3f} ms per "
+        f"generating decode step, {res.generated_tokens_per_s:.1f} "
+        f"generated tokens/s; prompt stepping {res.prompt_s:.3f} s "
+        f"({res.prompt_s * 1e3 / SERVE_PROMPT:.3f} ms a step, the first "
+        f"included); prefill of the same prompts {res.prefill_s:.4f} s; "
+        f"peak memory {serve_peak:.2f} GB; sample "
+        f"{res.generated[0, :8].tolist()}")
+    gate = check_prefill_against_decode(res, GATE_REL_TOL[cfg.dtype])
+    # the same prompts through a float32 copy of the weights (the f32
+    # kernel): there the two masks must agree to reordering
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = {k: (v.float() if k != "layers" else
+                    {n: w.float() for n, w in v.items()})
+                for k, v in params.items()}
+    res32 = serve_lm(cfg32, params32, prompts, gen_len=0, device=dev)
+    del params32
+    gate32 = check_prefill_against_decode(res32, GATE_REL_TOL["float32"])
+    off = {name: float((a.float() - b).abs().max())
+               / gate32["max_abs_logit"]
+           for name, a, b in (
+               ("prefill", res.prefill_logits, res32.prefill_logits),
+               ("decode", res.prompt_logits, res32.prompt_logits))}
+    log(f"lm gate: prefill against stepped decode after token "
+        f"{SERVE_PROMPT}, bf16: {gate}; float32 copy of the weights: "
+        f"{gate32}; max |bf16 - float32| / max |logit| of each path: "
+        f"{ {k: round(v, 4) for k, v in off.items()} }")
+
+    # -- device busy share: a batch prefill and 8 decode steps -------------
+    prof_prefill = device_profile(lambda: T.prefill(params, toks_batch, cfg))
+    cache = T.init_cache(cfg, SERVE_BATCH, SERVE_PROMPT + 8, dev)
+    step_toks = torch.as_tensor(prompts, device=dev)
+
+    def decode_8():
+        nonlocal cache
+        for i in range(8):
+            _, cache = T.decode_step(params, cache, step_toks[:, i:i + 1],
+                                     cfg)
+    decode_8()                                    # steady state first
+    cache["length"].zero_()
+    prof_decode = device_profile(decode_8)
+    log(f"lm device time: prefill {LM_BATCH} x {LM_BATCH_LEN} "
+        f"{prof_prefill['device_ms']:.1f} ms on the device in "
+        f"{prof_prefill['device_ops']} operations, flash_attention "
+        f"{prof_prefill['flash_ms']:.1f} ms of it, busy "
+        f"{prof_prefill['device_ms'] / (batch_s * 1e3):.3f} of the "
+        f"unprofiled {batch_s * 1e3:.1f} ms; decode at batch {SERVE_BATCH} "
+        f"{prof_decode['device_ms'] / 8:.3f} ms on the device a step in "
+        f"{prof_decode['device_ops'] / 8:.0f} operations, busy "
+        f"{prof_decode['device_ms'] / 8 / res.decode_ms_per_step:.3f} of "
+        f"the unprofiled {res.decode_ms_per_step:.3f} ms a step")
+
+    # -- kernel against its plain version, on layer 0's own inputs ---------
+    with Recorder(ops, ("flash_attention",), stop_after=1) as rec:
+        T.prefill(params, toks_batch, cfg)
+    with Recorder(ops, ("flash_attention",), stop_after=1) as rec_long:
+        T.prefill(params, toks_long, cfg)
+    qb, kb, vb = rec.calls["flash_attention"][0][0][:3]
+    ql, kl, vl = rec_long.calls["flash_attention"][0][0][:3]
+    checks = {}
+    # all heads at 8 x 2048; heads 0-1 (both read KV head 0) of the long
+    # prefill: all 32 at 32,768 would need 137 GB of float32 logits
+    for tag, (q, k, v) in (("batch", (qb, kb, vb)),
+                           ("long_2_heads", (ql[:, :2], kl[:, :1],
+                                             vl[:, :1]))):
+        kern = ops.flash_attention(q, k, v, causal=True)
+        plain = ref.flash_attention_ref(q, k, v, causal=True)
+        err = (kern.float() - plain.float()).abs()
+        bound = error_bound(kern, plain, v)
+        if not bool((err <= bound).all()):
+            raise AssertionError(
+                f"flash_attention ({tag}) disagrees with its plain version "
+                f"beyond one bf16 ulp plus float32 reordering: max err "
+                f"{float(err.max())}, worst err/bound "
+                f"{float((err / bound).max())}")
+        checks[tag] = dict(max_abs_err=float(err.max()),
+                           worst_err_over_bound=float((err / bound).max()),
+                           shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} "
+                                 f"{str(q.dtype)[6:]} causal")
+        del kern, plain, err, bound
+    log(f"lm kernel checks against the plain version: {checks}")
+
+    def sdpa_at(q, k, v):
+        g = q.shape[1] // k.shape[1]
+        ke, ve = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, ke, ve, is_causal=True)
+
+    lib_b = sdpa_at(qb, kb, vb)
+    lib_err = float((lib_b().float() - ref.flash_attention_ref(
+        qb, kb, vb, causal=True).float()).abs().max())
+    bms, bkind = flash_bound(qb, kb)
+    lbms, lbkind = flash_bound(ql, kl)
+    long_entry = dict(
+        ms=cuda_time_ms(lambda: ops.flash_attention(ql, kl, vl)),
+        bound_ms=lbms, bound_by=lbkind,
+        library_ms=cuda_time_ms(sdpa_at(ql, kl, vl)),
+        plain_ms=None,
+        plain_note=f"not timed at all {ql.shape[1]} heads: "
+                   f"{ql.shape[1] * ql.shape[2] ** 2 * 4 / 1e9:.0f} GB of "
+                   f"float32 logits",
+        shape=f"q {tuple(ql.shape)} k/v {tuple(kl.shape)} bf16 causal "
+              f"(layer 0 of the 1 x {long_len} prefill)",
+        check_2_heads=checks["long_2_heads"])
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:67",
+        launches=phases["lm"]["flash_attention"],
+        launches_by_phase={p: c["flash_attention"]
+                           for p, c in phases.items()},
+        max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+        ms=cuda_time_ms(lambda: ops.flash_attention(qb, kb, vb)),
+        plain_ms=cuda_time_ms(lambda: ref.flash_attention_ref(
+            qb, kb, vb, causal=True), min_iters=2),
+        bound_ms=bms, bound_by=bkind, library_ms=cuda_time_ms(lib_b),
+        library_max_abs_err=lib_err,
+        shape=f"q {tuple(qb.shape)} k/v {tuple(kb.shape)} bf16 causal "
+              f"(layer 0 of the {LM_BATCH} x {LM_BATCH_LEN} prefill)",
+        long_shape=long_entry,
+        tolerance="|err| <= one bf16 ulp at max(|kernel|, |plain|) + "
+                  "2^-13 * max|v| (float32 reordering)",
+        library="F.scaled_dot_product_attention(is_causal=True), KV heads "
+                "expanded by repeat_interleave outside the timing")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-series", type=int, default=1 << 20)
+    ap.add_argument("--length", type=int, default=512)
+    ap.add_argument("--lm-prompt", type=int, default=32768,
+                    help="tokens of the long LM prefill")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this script runs only on a CUDA GPU")
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import _build, ops
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"card: {smi}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}; tf32 off for matmul and cuDNN")
+    t = time.perf_counter()
+    _build.build_all()
+    for name in _build.SIGNATURES:
+        _build.load(name)
+    log(f"kernel libraries built and loaded in {time.perf_counter() - t:.1f}"
+        f" s ({', '.join(_build.SIGNATURES)}): kernels "
+        f"{', '.join(_build.KERNELS)}")
+
+    phases = {}
+
+    def counted(phase, kernels, fn):
+        """Run ``fn`` with every launch count at 0 before; require each
+        of ``kernels`` to have launched; keep the counts."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        phases[phase] = counts
+        missing = [k for k in kernels if counts[k] < 1]
+        log(f"phase {phase}: launches {counts}")
+        if missing:
+            raise AssertionError(f"phase {phase}: kernels {missing} never "
+                                 f"launched: {counts}")
+        return out
+
+    entries = ssh_paths(args, counted, phases)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"SSH state freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"still allocated")
+    entries.append(lm_path(args, counted, phases))
+
+    for e in entries:
+        log(f"kernel {e['name']}: kernel_ms {e['ms']:.4f} plain_ms "
+            f"{e['plain_ms']:.4f} library_ms {e['library_ms']} bound_ms "
+            f"{e['bound_ms']:.4f} ({e['bound_by']}) launches {e['launches']}"
+            f" max_err {e['max_abs_err']} [{e['shape']}]")
+        for extra in ("query_shape", "sequential_shape", "long_shape"):
+            if extra in e:
+                log(f"kernel {e['name']} at the {extra.split('_')[0]} shape: "
+                    f"{e[extra]}")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"{smi}")

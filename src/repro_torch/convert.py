@@ -11,7 +11,9 @@ derived arrays as plain numpy arrays:
   same values, and the aggregate ``cs/agg``, with the CWS fields at dim
   rows·width);
 * :func:`index_from_arrays` adds the index arrays (``signatures``,
-  ``keys``, ``series`` and, when cached, the envelopes).
+  ``keys``, ``series`` and, when cached, the envelopes);
+* :func:`lm_params_from_arrays` takes an LM's parameter pytree
+  (``repro.models.transformer.init_params``) as numpy arrays.
 
 Nothing here imports the reference: its arrays arrive as numpy.
 """
@@ -25,6 +27,7 @@ import torch
 from repro_torch.core.index import SSHIndex
 from repro_torch.encoders import IndexSpec, encoder_class
 from repro_torch.kernels import ops
+from repro_torch.models import transformer
 
 LEAVES = ("filters", "cws/log_r", "cws/r", "cws/log_c", "cws/beta")
 
@@ -93,3 +96,38 @@ def index_from_arrays(spec: IndexSpec, encoder_arrays: Mapping[str,
         idx.env_lower = _tensor(env_lower, torch.float32, dev)
         idx.env_radius = env_radius
     return idx
+
+
+def _lm_leaf(a, dev) -> torch.Tensor:
+    """float32 as it is; ``ml_dtypes.bfloat16`` through float32 to
+    ``torch.bfloat16`` (exact both ways)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32), device=dev).to(
+            torch.bfloat16)
+    if a.dtype != np.float32:
+        raise TypeError(f"LM parameters are float32 or bfloat16, got "
+                        f"{a.dtype}")
+    return torch.tensor(a, device=dev)
+
+
+def lm_params_from_arrays(arrays: Mapping, cfg, device=None) -> dict:
+    """The port's LM parameter dict on ``device`` (CUDA unless the caller
+    asks for the CPU) from the reference's parameter pytree with numpy
+    leaves (``{"embed", "head", "ln_f", "layers": {...}}``).  The layouts
+    are the same; names, shapes and the dtype are checked against
+    ``cfg`` (a ``repro_torch`` ``LMConfig``)."""
+    dev = ops.resolve_device(device)
+    shapes = transformer.param_shapes(cfg)
+    flat = transformer.flatten(arrays)
+    if set(flat) != set(shapes):
+        raise ValueError(f"LM arrays: missing {sorted(set(shapes) - set(flat))}"
+                         f", unknown {sorted(set(flat) - set(shapes))}")
+    out = {}
+    for path, shape in shapes.items():
+        t = _lm_leaf(flat[path], dev)
+        if tuple(t.shape) != shape or t.dtype != cfg.torch_dtype:
+            raise ValueError(f"LM array {path}: {tuple(t.shape)} {t.dtype}, "
+                             f"the config implies {shape} {cfg.torch_dtype}")
+        out[path] = t
+    return transformer.unflatten(out)

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 C_INT, C_PTR = ctypes.c_int, ctypes.c_void_p
+C_I64, C_FLOAT = ctypes.c_longlong, ctypes.c_float
 
 #: C signature of every exported function, per library
 SIGNATURES = {
@@ -60,11 +61,18 @@ SIGNATURES = {
                              C_PTR],
         "cs_tables_max_width": [],
     },
+    "flash_attention": {
+        "flash_attention_launch": [C_PTR, C_PTR, C_PTR, C_PTR, C_INT, C_INT,
+                                   C_INT, C_INT, C_INT, C_INT, C_INT,
+                                   *[C_I64] * 12, C_FLOAT, C_INT, C_PTR],
+        "flash_attention_max_head_dim": [],
+    },
 }
 
 #: every kernel, by the name its launches are counted under
 KERNELS = ("sketch_conv", "collision_count_batch", "collision_count",
-           "dtw_wavefront_pairs", "dtw_wavefront", "cs_tables")
+           "dtw_wavefront_pairs", "dtw_wavefront", "cs_tables",
+           "flash_attention")
 
 #: launches per kernel since the last reset (see ``kernels.ops``)
 LAUNCHES: Dict[str, int] = collections.Counter()

@@ -20,6 +20,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import collision_count as _cc
 from repro_torch.kernels import count_sketch as _cs
 from repro_torch.kernels import dtw_wavefront as _dtw
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels.sketch_conv import sketch_conv as _sketch_kernel
 
@@ -134,3 +135,14 @@ def cs_tables(bucket: torch.Tensor, sign: torch.Tensor, width: int
     if _route(bucket):
         return _cs.cs_tables(bucket, sign, width)
     return ref.cs_tables_ref(bucket, sign, width)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: Optional[float] = None
+                    ) -> torch.Tensor:
+    """Fused attention q (B, H, S, D), k/v (B, Hk, T, D) -> (B, H, S, D);
+    query head h reads KV head h // (H / Hk); under ``causal`` query i
+    sees keys 0..i."""
+    if _route(q):
+        return _fa.flash_attention(q, k, v, causal, scale)
+    return ref.flash_attention_ref(q, k, v, causal, scale)

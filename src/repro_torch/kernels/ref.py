@@ -87,3 +87,34 @@ def cs_tables_ref(bucket: torch.Tensor, sign: torch.Tensor, width: int
     tables.scatter_add_(1, tgt.reshape(b * r, s).to(torch.int64),
                         sign.to(torch.float32).reshape(b * r, s))
     return tables[:, :width].reshape(b, r, width)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = False, scale: Optional[float] = None
+                        ) -> torch.Tensor:
+    """Plain softmax attention: q (B, H, S, D), k/v (B, Hk, T, D) with
+    H % Hk == 0 -> (B, H, S, D) in q's type.
+
+    The reference's oracle (``repro/kernels/ref.py:126-136``) with the
+    KV heads repeated (head h reads KV head h // (H / Hk)), computed in
+    float32 throughout and rounded to q's type once, as the kernel does:
+    the (B, H, S, T) float32 logits are materialised.  Under ``causal``
+    query i sees keys 0..i, as the TPU kernel has it; that is the
+    reference's mask when S == T (it aligns the queries to the end of the
+    keys when S < T).
+    """
+    h, s, d = q.shape[1:]
+    hk, t = k.shape[1], k.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    if h != hk:
+        kf = kf.repeat_interleave(h // hk, dim=1)
+        vf = vf.repeat_interleave(h // hk, dim=1)
+    logits = torch.einsum("bhsd,bhtd->bhst", qf, kf)
+    logits.mul_(d ** -0.5 if scale is None else scale)
+    if causal:
+        above = torch.ones((s, t), dtype=torch.bool,
+                           device=q.device).triu_(1)
+        logits.masked_fill_(above, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    del logits
+    return torch.einsum("bhst,bhtd->bhsd", probs, vf).to(q.dtype)

@@ -9,7 +9,9 @@ Tolerances: collision counts exact; DTW bit-identical (the kernels
 repeat the plain version's rounding op for op); count-sketch tables
 bit-identical (sums of +-1 are exact in float32 in any order); sketch
 projections within the float32 bound of reordering a W-term sum,
-2·W·2^-24·Σ|x·f|.
+2·W·2^-24·Σ|x·f|; flash attention within one unit in the last place of
+the output type plus float32 reordering (``flash_attention.error_bound``:
+both compute in float32 and round once).
 """
 import numpy as np
 import pytest
@@ -197,3 +199,115 @@ def test_sshcs_encode_and_ingest_cuda_match_cpu(cuda):
                     cpu.search_batch(series[[5, 350, 480]])):
         np.testing.assert_array_equal(a.ids, b.ids)
         np.testing.assert_array_equal(a.dists, b.dists)
+
+
+def _flash_inputs(cuda, b, h, hk, s, t, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=sh), dtype=torch.float32,
+                         device=cuda).to(dtype)
+            for sh in ((b, h, s, d), (b, hk, t, d), (b, hk, t, d))]
+
+
+def _check_flash(q, k, v, causal):
+    """Kernel against its plain version: one unit in the last place of
+    the output type plus float32 reordering (``error_bound``)."""
+    from repro_torch.kernels.flash_attention import error_bound
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.shape == want.shape and got.dtype == q.dtype
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= error_bound(got, want, v)).all()), float(err.max())
+    return got
+
+
+@pytest.mark.parametrize("d", [16, 64, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_head_dims(cuda, d, dtype):
+    _check_flash(*_flash_inputs(cuda, 2, 4, 2, 150, 150, d, dtype, d),
+                 causal=True)
+
+
+@pytest.mark.parametrize("s,t,causal", [
+    (130, 130, True), (37, 200, True), (200, 37, True), (1, 1, True),
+    (64, 128, False), (77, 131, False), (5, 300, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_ragged_and_masks(cuda, s, t, causal, dtype):
+    """Ragged S and T, S < T and S > T under causal (query i sees keys
+    0..i), and no mask."""
+    _check_flash(*_flash_inputs(cuda, 1, 3, 3, s, t, 64, dtype, s + t),
+                 causal=causal)
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_flash_kernel_gqa(cuda, g):
+    q, k, v = _flash_inputs(cuda, 2, 8, 8 // g, 100, 100, 64,
+                            torch.bfloat16, g)
+    got = _check_flash(q, k, v, causal=True)
+    rep = ops.flash_attention(q, k.repeat_interleave(g, 1),
+                              v.repeat_interleave(g, 1))
+    assert torch.equal(got, rep)          # the head map, not a copy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_strided_views(cuda, dtype):
+    """(B, S, H, D) tensors as transpose(1, 2) views, a head slice, and
+    the output laid out as (B, S, H, D)."""
+    rng = np.random.default_rng(9)
+    x = [torch.tensor(rng.normal(size=sh), dtype=torch.float32,
+                      device=cuda).to(dtype)
+         for sh in ((2, 90, 8, 64), (2, 90, 2, 64), (2, 90, 2, 64))]
+    q, k, v = (t.transpose(1, 2) for t in x)
+    got = _check_flash(q, k, v, causal=True)
+    assert got.transpose(1, 2).is_contiguous()
+    part = _check_flash(q[:, 2:6], k[:, :1], v[:, :1], causal=True)
+    assert torch.equal(part, ops.flash_attention(
+        q[:, 2:6].contiguous(), k[:, :1].contiguous(),
+        v[:, :1].contiguous()))
+
+
+def test_flash_wrapper_refuses_bad_inputs(cuda):
+    q, k, v = _flash_inputs(cuda, 1, 2, 2, 16, 16, 160, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="D <= 128"):
+        ops.flash_attention(q, k, v)
+    q, k, v = _flash_inputs(cuda, 1, 2, 2, 16, 16, 32, torch.float32, 0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.flash_attention(q, k.cpu(), v)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k.bfloat16(), v)
+    strided = torch.zeros((1, 2, 16, 64), device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(strided, k, v)
+    with pytest.raises(ValueError, match="multiple of Hk"):
+        ops.flash_attention(q, k[:, :1].expand(1, 3, 16, 32),
+                            v[:, :1].expand(1, 3, 16, 32))
+
+
+def test_lm_prefill_and_decode_cuda_match_cpu(cuda):
+    """The SMOKE model in float32 on the card and on the CPU: prefill and
+    decode logits within float32 reordering; 2 kernel launches (one a
+    layer) per prefill, none per decode step."""
+    import dataclasses
+    from repro_torch.configs.granite_3_2b import SMOKE as LM_SMOKE
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(LM_SMOKE, dtype="float32")
+    params = transformer.init_params(cfg, device="cpu")
+    gpu = {k: (v.to(cuda) if k != "layers" else
+               {n: t.to(cuda) for n, t in v.items()})
+           for k, v in params.items()}
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab, (3, 70))
+    ops.reset_launch_counts()
+    on_gpu = serve.serve_lm(cfg, gpu, prompts, gen_len=4, device=cuda)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    on_cpu = serve.serve_lm(cfg, params, prompts, gen_len=4, device="cpu")
+    for a, b in ((on_gpu.prefill_logits, on_cpu.prefill_logits),
+                 (on_gpu.prompt_logits, on_cpu.prompt_logits)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+    serve.check_prefill_against_decode(on_gpu, 1e-5)
+    with pytest.raises(ValueError, match="generator"):
+        transformer.init_params(cfg, torch.Generator(), cuda)

@@ -43,7 +43,9 @@ assert not [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
 for name in ("repro_torch.streaming.count_sketch",
              "repro_torch.streaming.encoder", "repro_torch.streaming.ingest",
              "repro_torch.encoders.registry", "repro_torch.kernels.count_sketch",
-             "repro_torch.core.search"):
+             "repro_torch.core.search", "repro_torch.kernels.flash_attention",
+             "repro_torch.models.layers", "repro_torch.models.transformer",
+             "repro_torch.configs.granite_3_2b", "repro_torch.launch.serve"):
     assert name in names, name
 print(len(names), "modules")
 """
@@ -73,6 +75,43 @@ def test_no_jax_or_reference_imports():
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f) if root in ("jax", "repro")}
     assert not bad, bad
+
+
+def test_no_library_attention_or_compile_in_the_port():
+    """The port's attention is its own kernel: no PyTorch fused attention
+    (``scaled_dot_product_attention`` is only chip_smoke.py's yardstick)
+    and no ``torch.compile`` anywhere under src/repro_torch."""
+    banned = {"scaled_dot_product_attention", "compile",
+              "flash_attention_forward", "_scaled_dot_product_attention"}
+    found = {}
+    for f in sorted(PORT.rglob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
+            name = (node.attr if isinstance(node, ast.Attribute) else
+                    node.id if isinstance(node, ast.Name) else None)
+            if name in banned:
+                found.setdefault(str(f.relative_to(ROOT)), set()).add(name)
+    assert not found, found
+
+
+def test_lm_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.configs.granite_3_2b import SMOKE as LM_SMOKE
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = transformer.init_params(LM_SMOKE, device="cpu")
+    arrays = {k: (v.float().numpy() if k != "layers" else
+                  {n: t.float().numpy() for n, t in v.items()})
+              for k, v in params.items()}
+    for call in (lambda: transformer.init_params(LM_SMOKE),
+                 lambda: transformer.init_cache(LM_SMOKE, 1, 4),
+                 lambda: serve.serve_lm(LM_SMOKE, gen_len=1),
+                 lambda: serve.main(["--arch", "granite-3-2b", "--smoke"]),
+                 lambda: convert.lm_params_from_arrays(arrays, LM_SMOKE)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    res = serve.serve_lm(LM_SMOKE, params, batch=1, prompt_len=3, gen_len=1,
+                         device="cpu")
+    assert res.generated.device == torch.device("cpu")
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
