@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles with
 beside the source checkout, at first use.  The file name carries a hash
 of the source and the flags, so an edited kernel rebuilds and a stale
 library is never loaded.  ``build_all`` starts one ``nvcc`` per source
-at once.
+at once.  What ``nvcc`` printed is kept beside the library
+(:func:`build_log`): for ``flash_attention`` that is ``ptxas``'s count of
+registers, shared memory and spills of every kernel.
 
 Every wrapper counts its launches in :data:`LAUNCHES` under its kernel's
 name (one per kernel launch, nowhere else; :data:`KERNELS` lists the
@@ -30,6 +32,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: more flags for one library: ptxas's resource report of the flash kernels
+EXTRA_FLAGS = {"flash_attention": ("-Xptxas", "-v")}
 
 C_INT, C_PTR = ctypes.c_int, ctypes.c_void_p
 C_I64, C_FLOAT = ctypes.c_longlong, ctypes.c_float
@@ -62,17 +66,22 @@ SIGNATURES = {
         "cs_tables_max_width": [],
     },
     "flash_attention": {
-        "flash_attention_launch": [C_PTR, C_PTR, C_PTR, C_PTR, C_INT, C_INT,
-                                   C_INT, C_INT, C_INT, C_INT, C_INT,
-                                   *[C_I64] * 12, C_FLOAT, C_INT, C_PTR],
+        "flash_attention_tc_launch": [C_PTR, C_PTR, C_PTR, C_PTR, C_INT,
+                                      C_INT, C_INT, C_INT, C_INT, C_INT,
+                                      *[C_I64] * 12, C_FLOAT, C_INT, C_PTR],
+        "flash_attention_simt_launch": [C_PTR, C_PTR, C_PTR, C_PTR, C_INT,
+                                        C_INT, C_INT, C_INT, C_INT, C_INT,
+                                        C_INT, *[C_I64] * 12, C_FLOAT, C_INT,
+                                        C_PTR],
         "flash_attention_max_head_dim": [],
+        "flash_attention_tc_smem_bytes": [C_INT],
     },
 }
 
 #: every kernel, by the name its launches are counted under
 KERNELS = ("sketch_conv", "collision_count_batch", "collision_count",
            "dtw_wavefront_pairs", "dtw_wavefront", "cs_tables",
-           "flash_attention")
+           "flash_attention", "flash_attention_simt")
 
 #: launches per kernel since the last reset (see ``kernels.ops``)
 LAUNCHES: Dict[str, int] = collections.Counter()
@@ -93,10 +102,19 @@ def _nvcc() -> str:
                        "kernels of repro_torch need the CUDA toolkit")
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    tag = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{tag[:12]}.so"
+
+
+def build_log(name: str) -> str:
+    """What nvcc printed when it built ``name``'s current library."""
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def _start(name: str):
@@ -107,7 +125,7 @@ def _start(name: str):
         return None, None, out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -120,6 +138,7 @@ def _finish(name: str, proc, tmp: Path, out: Path) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)       # atomic: a reader never sees half a library
 
 

@@ -6,12 +6,14 @@ and the path ``kernels.ops`` takes for a tensor that lies on the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core import dtw as _dtw
 from repro_torch.core.sketch import sketch_projections
+from repro_torch.kernels.flash_attention import REORDER
 
 
 def sketch_conv_ref(x: torch.Tensor, filters: torch.Tensor, step: int
@@ -118,3 +120,67 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     del logits
     return torch.einsum("bhst,bhtd->bhsd", probs, vf).to(q.dtype)
+
+
+class TcRef(NamedTuple):
+    """What :func:`flash_attention_tc_ref` returns."""
+    out: torch.Tensor      # (B, H, S, D) in q's type
+    abs_out: torch.Tensor  # sum_j w_j |v_j| under the softmax weights w
+    spread: torch.Tensor   # how far the kernel's rounded weights may move
+
+
+def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, causal: bool = False,
+                           scale: Optional[float] = None) -> TcRef:
+    """The tensor-core kernel's arithmetic, step for step, in plain torch
+    (same arguments as :func:`flash_attention_ref`).
+
+    Key tiles as wide as the kernel's (128 keys at D <= 64, else 64:
+    ``Cfg<DP>::BN`` in ``csrc/flash_attention.cu``), a running max in
+    log2 units, p = exp2(x - m) rounded to v's type before P.V (bf16, as
+    the reference rounds its weights, ``repro/kernels/ref.py:136``),
+    float32 accumulation, l summed from the unrounded p and 1/l applied
+    once at the end.  Float32 inputs give the unrounded recurrence.
+
+    Besides the output it returns, per output element and in float32,
+    what :func:`flash_attention.error_bound` holds the kernel to against
+    it: ``abs_out``, the same weights applied to |v|; and ``spread``.
+    The kernel computes its p in another order, within ``REORDER`` of
+    these (relative), so where a p lies that near a rounding boundary its
+    bf16 value may be the next one.  Rounding is monotone, so it lies
+    between the roundings of p (1 - REORDER) and p (1 + REORDER);
+    ``spread`` sums that width times |v_j| / l.
+    """
+    b, h, s, d = q.shape
+    t, dev = k.shape[2], q.device
+    bn = 128 if d <= 64 else 64
+    g = h // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(g, 1)
+    vf = v.float().repeat_interleave(g, 1)
+    va = vf.abs()
+    c = (d ** -0.5 if scale is None else scale) * math.log2(math.e)
+    m = torch.full((b, h, s, 1), -math.inf, device=dev)
+    l = torch.zeros((b, h, s, 1), device=dev)
+    acc, mag, spread = (torch.zeros((b, h, s, d), device=dev)
+                        for _ in range(3))
+    rows = torch.arange(s, device=dev)[:, None]
+    for k0 in range(0, t, bn):
+        x = torch.einsum("bhsd,bhtd->bhst", qf, kf[:, :, k0:k0 + bn]) * c
+        if causal:
+            cols = torch.arange(k0, min(k0 + bn, t), device=dev)[None, :]
+            x.masked_fill_(cols > rows, -math.inf)
+        mx = torch.maximum(m, x.amax(-1, keepdim=True))
+        mu = torch.where(mx == -math.inf, 0.0, mx)
+        corr = torch.exp2(m - mu)
+        p = torch.exp2(x - mu)
+        l = l * corr + p.sum(-1, keepdim=True)
+        vt, at = vf[:, :, k0:k0 + bn], va[:, :, k0:k0 + bn]
+        acc = acc * corr + p.to(v.dtype).float() @ vt
+        mag = mag * corr + p @ at
+        width = ((p * (1 + REORDER)).to(v.dtype).float()
+                 - (p * (1 - REORDER)).to(v.dtype).float())
+        spread = spread * corr + width @ at
+        m = mx
+    l = l.clamp_min(1e-30)
+    return TcRef((acc / l).to(q.dtype), mag / l, spread / l)

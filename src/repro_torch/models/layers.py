@@ -1,13 +1,15 @@
 """Shared layers of the LM (counterpart of ``repro.models.layers``).
 
 The prefill's attention, :func:`chunked_attention`, goes through
-``kernels.ops.flash_attention``: the hand-written CUDA kernel on a CUDA
-tensor, its plain version on the CPU.  The reference computes the same
-function chunk by chunk in jnp; it rounds the softmax weights to the
-model dtype before the product with V, where the kernel keeps them in
-float32, so the two agree to float32 reordering in float32 and to bf16
-rounding in bf16.  :func:`decode_attention` (one query token against the
-cache) is plain PyTorch, as the reference's is plain jnp.
+``kernels.ops.flash_attention``: the hand-written CUDA kernels on a CUDA
+tensor (bf16 on the tensor cores, float32 on the CUDA cores), the plain
+version on the CPU.  The reference computes the same function chunk by
+chunk in jnp; it rounds the softmax weights to the model dtype before
+the product with V, as the tensor-core kernel does, where the plain
+version and the float32 kernel keep them in float32, so the two agree
+to float32 reordering in float32 and to bf16 rounding in bf16.
+:func:`decode_attention` (one query token against the cache) is plain
+PyTorch, as the reference's is plain jnp.
 """
 from __future__ import annotations
 
@@ -64,7 +66,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (B, S, H, D); k, v (B, T, Hk, D); H % Hk == 0 -> (B, S, H, D) in
     v's type.  ``q_chunk`` and ``kv_chunk`` are the reference's tiling
-    knobs; the kernel tiles by 64 queries and 64 keys whatever they say,
+    knobs; the kernels tile by their own block sizes whatever they say,
     which changes the sums' order and nothing else.  The reference's
     ``kv_valid`` (no caller in either package) is not ported; causal
     attention needs S == T (the reference's S < T alignment has no

@@ -11,7 +11,14 @@ bit-identical (sums of +-1 are exact in float32 in any order); sketch
 projections within the float32 bound of reordering a W-term sum,
 2·W·2^-24·Σ|x·f|; flash attention within one unit in the last place of
 the output type plus float32 reordering (``flash_attention.error_bound``:
-both compute in float32 and round once).
+both compute in float32 and round once); the tensor-core kernel, which
+rounds the softmax weights to bf16 before P·V, per element: against the
+plain version with (2^-13 + 2^-8) · sum_j w_j |v_j|, and against the
+emulation of its own rounding (``ref.flash_attention_tc_ref``) with
+2^-13 · sum_j w_j |v_j| plus the emulation's ``spread``.
+Both flash kernels run every case: through the model's call (the rule
+picks the kernel; the test asserts which count moved) and through the
+CUDA-core kernel's own entry point.
 """
 import numpy as np
 import pytest
@@ -208,51 +215,89 @@ def _flash_inputs(cuda, b, h, hk, s, t, d, dtype, seed):
             for sh in ((b, h, s, d), (b, hk, t, d), (b, hk, t, d))]
 
 
-def _check_flash(q, k, v, causal):
+#: the two ways into the kernels: ``flash_attention`` is the model's call
+#: (bf16 to the tensor-core kernel by the rule, float32 to the CUDA-core
+#: one), ``flash_attention_simt`` the CUDA-core kernel whatever the inputs
+ROUTES = ["flash_attention", "flash_attention_simt"]
+
+
+def _entry(route):
+    from repro_torch.kernels import flash_attention as fa
+    return ops.flash_attention if route == "flash_attention" \
+        else fa.flash_attention_simt
+
+
+def _check_flash(q, k, v, causal, route="flash_attention", kernel=None,
+                 scale=None):
     """Kernel against its plain version: one unit in the last place of
-    the output type plus float32 reordering (``error_bound``)."""
-    from repro_torch.kernels.flash_attention import error_bound
+    the output type plus float32 reordering (``error_bound``); exactly
+    one launch, counted under ``kernel`` (by default the one the route
+    should pick).  The tensor-core kernel is held per element, to the
+    plain version with its bf16 weights allowed for, and to the
+    emulation of its own rounding (``ref.flash_attention_tc_ref``)
+    within the tight bound."""
+    from repro_torch.kernels.flash_attention import (error_bound,
+                                                     takes_tensor_cores)
+    if kernel is None:
+        kernel = ("flash_attention" if route == "flash_attention"
+                  and takes_tensor_cores(q, k, v, scale)
+                  else "flash_attention_simt")
     ops.reset_launch_counts()
-    got = ops.flash_attention(q, k, v, causal=causal)
+    got = _entry(route)(q, k, v, causal=causal, scale=scale)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["flash_attention"] == 1
-    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    counts = ops.launch_counts()
+    assert counts[kernel] == 1
+    assert counts["flash_attention"] + counts["flash_attention_simt"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
     assert got.shape == want.shape and got.dtype == q.dtype
     err = (got.float() - want.float()).abs()
-    assert bool((err <= error_bound(got, want, v)).all()), float(err.max())
+    if kernel == "flash_attention_simt":
+        bound = error_bound(got, want, v)
+        assert bool((err <= bound).all()), float(err.max())
+        return got
+    emu = ref.flash_attention_tc_ref(q, k, v, causal=causal, scale=scale)
+    bound = error_bound(got, want, v, emu.abs_out)
+    assert bool((err <= bound).all()), float((err / bound).max())
+    err = (got.float() - emu.out.float()).abs()
+    bound = error_bound(got, emu.out, v, emu.abs_out, emu.spread)
+    assert bool((err <= bound).all()), float((err / bound).max())
     return got
 
 
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("d", [16, 64, 96, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_head_dims(cuda, d, dtype):
+def test_flash_kernel_head_dims(cuda, d, dtype, route):
     _check_flash(*_flash_inputs(cuda, 2, 4, 2, 150, 150, d, dtype, d),
-                 causal=True)
+                 causal=True, route=route)
 
 
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("s,t,causal", [
     (130, 130, True), (37, 200, True), (200, 37, True), (1, 1, True),
     (64, 128, False), (77, 131, False), (5, 300, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_ragged_and_masks(cuda, s, t, causal, dtype):
+def test_flash_kernel_ragged_and_masks(cuda, s, t, causal, dtype, route):
     """Ragged S and T, S < T and S > T under causal (query i sees keys
     0..i), and no mask."""
     _check_flash(*_flash_inputs(cuda, 1, 3, 3, s, t, 64, dtype, s + t),
-                 causal=causal)
+                 causal=causal, route=route)
 
 
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("g", [1, 4, 8])
-def test_flash_kernel_gqa(cuda, g):
+def test_flash_kernel_gqa(cuda, g, route):
     q, k, v = _flash_inputs(cuda, 2, 8, 8 // g, 100, 100, 64,
                             torch.bfloat16, g)
-    got = _check_flash(q, k, v, causal=True)
-    rep = ops.flash_attention(q, k.repeat_interleave(g, 1),
-                              v.repeat_interleave(g, 1))
+    got = _check_flash(q, k, v, causal=True, route=route)
+    rep = _entry(route)(q, k.repeat_interleave(g, 1),
+                        v.repeat_interleave(g, 1))
     assert torch.equal(got, rep)          # the head map, not a copy
 
 
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_strided_views(cuda, dtype):
+def test_flash_kernel_strided_views(cuda, dtype, route):
     """(B, S, H, D) tensors as transpose(1, 2) views, a head slice, and
     the output laid out as (B, S, H, D)."""
     rng = np.random.default_rng(9)
@@ -260,37 +305,76 @@ def test_flash_kernel_strided_views(cuda, dtype):
                       device=cuda).to(dtype)
          for sh in ((2, 90, 8, 64), (2, 90, 2, 64), (2, 90, 2, 64))]
     q, k, v = (t.transpose(1, 2) for t in x)
-    got = _check_flash(q, k, v, causal=True)
+    got = _check_flash(q, k, v, causal=True, route=route)
     assert got.transpose(1, 2).is_contiguous()
-    part = _check_flash(q[:, 2:6], k[:, :1], v[:, :1], causal=True)
-    assert torch.equal(part, ops.flash_attention(
+    part = _check_flash(q[:, 2:6], k[:, :1], v[:, :1], causal=True,
+                        route=route)
+    assert torch.equal(part, _entry(route)(
         q[:, 2:6].contiguous(), k[:, :1].contiguous(),
         v[:, :1].contiguous()))
 
 
-def test_flash_wrapper_refuses_bad_inputs(cuda):
+@pytest.mark.parametrize("route", ROUTES)
+def test_flash_kernel_long_gqa_4096(cuda, route):
+    """The model's head layout (H 32, Hk 8, D 64) at S = T = 4096: 32 query
+    tiles of the tensor-core kernel, 64 key tiles on the diagonal one."""
+    _check_flash(*_flash_inputs(cuda, 1, 32, 8, 4096, 4096, 64,
+                                torch.bfloat16, 40), causal=True,
+                 route=route)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("scale", [0.05, 0.0, -0.3])
+def test_flash_kernel_scales(cuda, scale, route):
+    """A scale that is not positive takes the CUDA-core kernel by the
+    rule (the tensor-core kernel folds the scale into the exponent after
+    the row max), and the count says so; 0 gives uniform weights over the
+    unmasked keys."""
+    _check_flash(*_flash_inputs(cuda, 1, 4, 2, 300, 300, 64, torch.bfloat16,
+                                21), causal=True, route=route, scale=scale)
+
+
+def test_flash_kernel_misaligned_bf16_takes_cuda_cores(cuda):
+    """A bf16 view whose base is 2 bytes off a 16-byte boundary cannot be
+    described to TMA: the rule sends it to the CUDA-core kernel, and the
+    count says so."""
+    from repro_torch.kernels.flash_attention import takes_tensor_cores
+    rng = np.random.default_rng(12)
+    flat = torch.tensor(rng.normal(size=3 * 2 * 70 * 64 + 1),
+                        dtype=torch.float32, device=cuda).bfloat16()
+    q, k, v = flat[1:].view(3, 2, 70, 64).unbind(0)
+    q, k, v = q[None], k[None], v[None]
+    assert q.data_ptr() % 16 and not takes_tensor_cores(q, k, v)
+    _check_flash(q, k, v, causal=True, route="flash_attention",
+                 kernel="flash_attention_simt")
+    assert takes_tensor_cores(q.clone(), k.clone(), v.clone())
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_flash_wrapper_refuses_bad_inputs(cuda, route):
+    call = _entry(route)
     q, k, v = _flash_inputs(cuda, 1, 2, 2, 16, 16, 160, torch.bfloat16, 0)
     with pytest.raises(ValueError, match="D <= 128"):
-        ops.flash_attention(q, k, v)
+        call(q, k, v)
     q, k, v = _flash_inputs(cuda, 1, 2, 2, 16, 16, 32, torch.float32, 0)
     with pytest.raises(ValueError, match="one CUDA device"):
-        ops.flash_attention(q, k.cpu(), v)
+        call(q, k.cpu(), v)
     with pytest.raises(TypeError):
-        ops.flash_attention(q.half(), k.half(), v.half())
+        call(q.half(), k.half(), v.half())
     with pytest.raises(TypeError):
-        ops.flash_attention(q, k.bfloat16(), v)
-    strided = torch.zeros((1, 2, 16, 64), device=cuda)[..., ::2]
-    with pytest.raises(ValueError, match="contiguous"):
-        ops.flash_attention(strided, k, v)
+        call(q, k.bfloat16(), v)
+    for dt in (torch.float32, torch.bfloat16):
+        strided = torch.zeros((1, 2, 16, 64), device=cuda, dtype=dt)[..., ::2]
+        with pytest.raises(ValueError, match="contiguous"):
+            call(strided, k.to(dt), v.to(dt))
     with pytest.raises(ValueError, match="multiple of Hk"):
-        ops.flash_attention(q, k[:, :1].expand(1, 3, 16, 32),
-                            v[:, :1].expand(1, 3, 16, 32))
+        call(q, k[:, :1].expand(1, 3, 16, 32), v[:, :1].expand(1, 3, 16, 32))
 
 
 def test_lm_prefill_and_decode_cuda_match_cpu(cuda):
     """The SMOKE model in float32 on the card and on the CPU: prefill and
-    decode logits within float32 reordering; 2 kernel launches (one a
-    layer) per prefill, none per decode step."""
+    decode logits within float32 reordering; 2 launches of the CUDA-core
+    kernel (one a layer) per prefill, none per decode step."""
     import dataclasses
     from repro_torch.configs.granite_3_2b import SMOKE as LM_SMOKE
     from repro_torch.launch import serve
@@ -303,7 +387,9 @@ def test_lm_prefill_and_decode_cuda_match_cpu(cuda):
     prompts = np.random.default_rng(2).integers(0, cfg.vocab, (3, 70))
     ops.reset_launch_counts()
     on_gpu = serve.serve_lm(cfg, gpu, prompts, gen_len=4, device=cuda)
-    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    counts = ops.launch_counts()         # float32: the CUDA-core kernel
+    assert counts["flash_attention_simt"] == cfg.n_layers
+    assert counts["flash_attention"] == 0
     on_cpu = serve.serve_lm(cfg, params, prompts, gen_len=4, device="cpu")
     for a, b in ((on_gpu.prefill_logits, on_cpu.prefill_logits),
                  (on_gpu.prompt_logits, on_cpu.prompt_logits)):
