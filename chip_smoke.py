@@ -45,9 +45,18 @@
    and one PyTorch call computing the same function where there is one;
    the bound is the larger of bytes over 3.35 TB/s and operations over
    the peak rate of their type (H100 SXM: f32 outside the tensor cores
-   67 TFLOP/s, int32 33.5 Tops/s).  The sketch is timed at a 4096-row
-   build chunk and at the query encode, the single-query DTW at the UCR
-   scan and at a sequential re-rank.
+   67 TFLOP/s, int32 33.5 Tops/s; the DTW cell's 6 operations, none of
+   which fuses, 33.5e12 a second).  The sketch is timed at a 4096-row
+   build chunk and at the query encode.  The DTW kernels: ptxas's
+   registers and spills of every DTW kernel (a spill fails the run) and
+   the SASS instructions a DP cell of each schedule
+   (``repro_torch.bench.dtw_schedules.cell_costs``); every recorded call
+   through the schedule rule (``kernels.dtw_wavefront.dtw_schedule``, its
+   choice printed per call) and through each schedule that takes its
+   radius ("rows", "diagonals"), bit-identical to the plain version;
+   both schedules timed in turns, with cells run, Gcells/s and the share
+   of the bound, at the batched survivors, the UCR scan and a sequential
+   re-rank; launches per schedule per path.
 5. Cross-check: 8 queries through the plain CPU path on a CPU copy of the
    index; ids equal, distances within rtol 1e-5.
 6. LM serving (the SSH state freed first, so its peak memory is its own):
@@ -112,6 +121,10 @@ F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 # ALU plus IMAD on the FMA pipe), half the f32 rate, which counts an FMA
 # as two operations
 INT32_OPS_PER_S = 33.5e12
+# float32 operations that do not fuse (the DTW cell's subtract, multiply,
+# add and mins): one per FP32 lane per clock, 132 SMs x 128 lanes x 1.98
+# GHz; F32_OPS_PER_S counts an FMA as two
+F32_NONFUSED_OPS_PER_S = 33.5e12
 BATCHES, BATCH_SIZE = 4, 64     # the batched path: 4 batches of 64 queries
 SEQ_ROWS, SEQ_WARPED = 8, 8     # the sequential path: queries of batch 0
 UCR_QUERIES, UCR_GOLD = 4, 2    # UCR scans, and how many brute force holds
@@ -212,7 +225,8 @@ def ssh_paths(args, counted, phases) -> list:
                                              synthetic_ecg, warp_series)
     from repro_torch.db import TimeSeriesDB
     from repro_torch.encoders import IndexSpec
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import dtw_wavefront as kd
     from repro_torch.serving.batched import ssh_search_batch
     from repro_torch.streaming import StreamIngestor
 
@@ -574,74 +588,89 @@ def ssh_paths(args, counted, phases) -> list:
               f"{len(cc_calls)} calls (one per probe row) checked",
         tolerance="exact", library="K - torch.cdist(q[None], db, p=0)"))
 
-    # dtw_wavefront_pairs: every call of the batch (seed DTW, survivors)
-    dtw_calls = rec_b.calls["dtw_rerank_pairs"]
-    for call in dtw_calls:
+    # DTW: every recorded call through the rule and through each schedule
+    # that takes its radius, bit for bit against the plain version; timed
+    # (both schedules in turns) at the batched survivors, the UCR scan and
+    # a sequential re-rank
+    dtw_report = dtw_build_report(_build)
+
+    def dtw_call(kernel, call):
+        """(q, c, r, thr, plain) of a recorded call, after checking it
+        through the rule and each schedule; the rule's schedule too."""
         q, c, band = call[0][:3]
         thr = arg(call, 3, "threshold")
-        kern = ops.dtw_rerank_pairs(q, c, band, thr)
-        plain = ref.dtw_pairs_ref(q, c, band, thr)
-        if not torch.equal(kern, plain):
-            diff = (kern != plain)
-            raise AssertionError(
-                f"dtw_wavefront_pairs is not bit-identical on "
-                f"{int(diff.sum())} of {kern.numel()} pairs")
-    q, c, band = dtw_calls[-1][0][:3]            # survivor DTW, threshold
-    thr = arg(dtw_calls[-1], 3, "threshold")
-    _, cells = core_dtw.dtw_pairs_work(q, c, band, thr)
-    p_, m_ = q.shape
-    abandoned = int((ops.dtw_rerank_pairs(q, c, band, thr)
-                     >= core_dtw.BIG * 0.5).sum())
-    bms, bkind = bound_ms(4 * (2 * q.numel() + 2 * p_),
-                          6 * int(cells.sum()))
+        n_, m_ = c.shape
+        r = core_dtw.radius(band, m_)
+        pairs = kernel == "dtw_wavefront_pairs"
+        plain = (ref.dtw_pairs_ref(q, c, band, thr) if pairs
+                 else ref.dtw_wavefront_ref(q, c, band, thr))
+        fn = kd.dtw_wavefront_pairs if pairs else kd.dtw_wavefront
+        for sched in (None, *dtw_schedules_for(r)):
+            got = fn(q, c, r, thr, schedule=sched)
+            if not torch.equal(got, plain):
+                raise AssertionError(
+                    f"{kernel} ({sched or 'rule'}) is not bit-identical on "
+                    f"{int((got != plain).sum())} of {n_} pairs "
+                    f"({n_}, {m_}) radius {r}")
+        return q, c, r, thr, plain, kd.dtw_schedule(n_, m_, r)
+
+    def dtw_shape(kernel, call, min_plain_iters):
+        """Times, bound, rate and schedules of one recorded call."""
+        q, c, r, thr, plain, rule = dtw_call(kernel, call)
+        pairs = kernel == "dtw_wavefront_pairs"
+        fn = kd.dtw_wavefront_pairs if pairs else kd.dtw_wavefront
+        cells = int(core_dtw.dtw_pairs_work(
+            q if pairs else q.expand_as(c), c, r, thr)[1].sum())
+        bms, bkind = bound_ms(4 * (q.numel() + c.numel() + 2 * c.shape[0]),
+                              6 * cells, F32_NONFUSED_OPS_PER_S)
+        per_sched = {s: float(np.mean(v)) for s, v in in_turns(
+            {s: (lambda s=s: fn(q, c, r, thr, schedule=s))
+             for s in dtw_schedules_for(r)}).items()}
+        ms = per_sched[rule]
+        plain_fn = ((lambda: ref.dtw_pairs_ref(q, c, r, thr)) if pairs
+                    else (lambda: ref.dtw_wavefront_ref(q, c, r, thr)))
+        return dict(
+            ms=ms, plain_ms=cuda_time_ms(plain_fn, min_iters=min_plain_iters),
+            bound_ms=bms, bound_by=bkind, schedule=rule,
+            schedule_ms=per_sched, cells=cells,
+            gcells_per_s=cells / ms / 1e6, share_of_bound=bms / ms,
+            shape=f"{'pairs' if pairs else 'query'} {tuple(q.shape)} "
+                  f"candidates {tuple(c.shape)} radius {r} threshold "
+                  f"{thr is not None}; "
+                  f"{int((plain >= core_dtw.BIG * 0.5).sum())} abandoned; "
+                  f"{cells} cells run")
+
+    def dtw_calls_log(kernel, calls):
+        """The rule's schedule of every recorded call, in order."""
+        return [f"({c[0][1].shape[0]}, {c[0][1].shape[1]}) r "
+                f"{core_dtw.radius(c[0][2], c[0][1].shape[1])} thr "
+                f"{arg(c, 3, 'threshold') is not None}: "
+                f"{dtw_call(kernel, c)[5]}" for c in calls]
+
+    bound_note = ("6 operations a DP cell (a subtract, a multiply, an add "
+                  "and three mins; none fuses) at 33.5e12 non-fused f32 "
+                  "operations a second (132 SMs x 128 lanes x 1.98 GHz); "
+                  "cells as the plain wavefront counts them "
+                  "(core.dtw.dtw_pairs_work)")
+    dtw_calls = rec_b.calls["dtw_rerank_pairs"]
+    pairs_calls = dtw_calls_log("dtw_wavefront_pairs", dtw_calls)
+    survivors = dtw_shape("dtw_wavefront_pairs", dtw_calls[-1], 2)
     entries.append(dict(
         name="dtw_wavefront_pairs", route="cuda",
         source="src/repro_torch/csrc/dtw_wavefront.cu",
         replaces="src/repro/kernels/dtw_wavefront.py:201",
         launches=phases["batched"]["dtw_wavefront_pairs"], max_abs_err=0.0,
-        ms=cuda_time_ms(lambda: ops.dtw_rerank_pairs(q, c, band, thr)),
-        plain_ms=cuda_time_ms(lambda: ref.dtw_pairs_ref(q, c, band, thr),
-                              min_iters=2),
-        bound_ms=bms, bound_by=bkind, library_ms=None,
-        shape=f"pairs {tuple(q.shape)} radius {band} threshold "
-              f"{thr is not None}; {abandoned} abandoned; "
-              f"{int(cells.sum())} cells run",
-        tolerance="bit-identical", calls_checked=len(dtw_calls)))
+        library_ms=None, **survivors,
+        launches_by_schedule={s: phases["batched"][
+            f"dtw_wavefront_pairs:{s}"] for s in kd.SCHEDULES},
+        calls_checked=pairs_calls, tolerance="bit-identical",
+        bound_note=bound_note, sass=dtw_report["sass"]))
 
-    # dtw_wavefront: every call of a sequential query and of a UCR scan;
-    # timed at the UCR survivors (no threshold) and at the sequential
-    # survivors (with the threshold)
     one_calls = rec_s.calls["dtw_rerank"] + rec_u.calls["dtw_rerank"]
-    for call in one_calls:
-        q, c, band = call[0][:3]
-        thr = arg(call, 3, "threshold")
-        if not torch.equal(ops.dtw_rerank(q, c, band, thr),
-                           ref.dtw_wavefront_ref(q, c, band, thr)):
-            raise AssertionError("dtw_wavefront is not bit-identical on a "
-                                 f"({c.shape[0]}, {c.shape[1]}) block")
-
-    def one_entry(call, min_plain_iters):
-        q, c, band = call[0][:3]
-        thr = arg(call, 3, "threshold")
-        cells = core_dtw.dtw_pairs_work(q.expand_as(c), c, band, thr)[1]
-        n_cells = int(cells.sum())
-        kern = ops.dtw_rerank(q, c, band, thr)
-        bms, bkind = bound_ms(4 * (q.numel() + c.numel() + 2 * c.shape[0]),
-                              6 * n_cells)
-        return dict(
-            ms=cuda_time_ms(lambda: ops.dtw_rerank(q, c, band, thr)),
-            plain_ms=cuda_time_ms(
-                lambda: ref.dtw_wavefront_ref(q, c, band, thr),
-                min_iters=min_plain_iters),
-            bound_ms=bms, bound_by=bkind,
-            shape=f"query ({q.shape[0]},) candidates {tuple(c.shape)} "
-                  f"radius {band} threshold {thr is not None}; "
-                  f"{int((kern >= core_dtw.BIG * 0.5).sum())} abandoned; "
-                  f"{n_cells} cells run")
-
-    ucr_big = one_entry(max(rec_u.calls["dtw_rerank"],
-                            key=lambda cl: cl[0][1].shape[0]), 1)
-    seq_surv = one_entry(rec_s.calls["dtw_rerank"][-1], 2)
+    one_log = dtw_calls_log("dtw_wavefront", one_calls)
+    ucr_big = dtw_shape("dtw_wavefront", max(
+        rec_u.calls["dtw_rerank"], key=lambda cl: cl[0][1].shape[0]), 1)
+    seq_surv = dtw_shape("dtw_wavefront", rec_s.calls["dtw_rerank"][-1], 2)
     entries.append(dict(
         name="dtw_wavefront", route="cuda",
         source="src/repro_torch/csrc/dtw_wavefront.cu",
@@ -649,9 +678,23 @@ def ssh_paths(args, counted, phases) -> list:
         launches=phases["sequential"]["dtw_wavefront"]
         + phases["ucr"]["dtw_wavefront"],
         launches_by_phase={p: c["dtw_wavefront"] for p, c in phases.items()},
+        launches_by_schedule={p: {s: phases[p][f"dtw_wavefront:{s}"]
+                                  for s in kd.SCHEDULES}
+                              for p in ("sequential", "ucr")},
         max_abs_err=0.0, **ucr_big, library_ms=None,
         sequential_shape=seq_surv, tolerance="bit-identical",
-        calls_checked=len(one_calls)))
+        calls_checked=one_log, bound_note=bound_note))
+    for e in entries[-2:]:
+        log(f"dtw {e['name']}: schedules of the recorded calls "
+            f"{e['calls_checked']}; launches by schedule "
+            f"{e['launches_by_schedule']}")
+        for shape in (e, e.get("sequential_shape")):
+            if shape:
+                log(f"dtw {e['name']} [{shape['shape']}]: {shape['schedule']}"
+                    f" {shape['ms']:.4f} ms, {shape['gcells_per_s']:.1f} "
+                    f"Gcells/s, {shape['share_of_bound']:.3f} of the "
+                    f"{shape['bound_ms']:.4f} ms bound; both schedules in "
+                    f"turns {shape['schedule_ms']}")
 
     # cs_tables: the level-0 tables of one 4096-row build chunk
     (bkt, sgn, width), _ = rec_c.calls["cs_tables"][0]
@@ -766,29 +809,75 @@ def in_turns(fns, rounds=2):
     return out
 
 
+def ptxas_report(_build, name, label):
+    """{kernel label: [ptxas's registers, stack and spill lines]} of the
+    library ``name``; ``label`` maps a mangled name to a short one."""
+    import re
+    kernels, cur = {}, None
+    for line in _build.build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = label(m.group(1))
+            kernels[cur] = []
+        elif cur and ("registers" in line or "stack frame" in line
+                      or "spill" in line):
+            kernels[cur].append(line.replace("ptxas info    :", "").strip())
+    for kname, info in kernels.items():
+        log(f"ptxas {kname}: {'; '.join(info)}")
+    return kernels
+
+
+def dtw_schedules_for(r):
+    """The DTW schedules that take radius ``r``."""
+    from repro_torch.kernels import dtw_wavefront as kd
+    return tuple(s for s in kd.SCHEDULES
+                 if s != "rows" or r <= kd.ROWS_MAX_RADIUS)
+
+
+def dtw_build_report(_build):
+    """Print what ptxas said of every DTW kernel (a spill fails the run)
+    and the SASS instructions a DP cell at r = 25 of each schedule
+    (``bench.dtw_schedules.cell_costs``, from ``cuobjdump -sass``)."""
+    import re
+    from repro_torch.bench.dtw_schedules import cell_costs, kernel_of
+
+    def label(mangled):
+        k = kernel_of(mangled)
+        if not k:
+            return mangled
+        return k[0] + (f"<{k[1]}>" if k[2] is None
+                       else f"<{k[1]},thr={k[2]},one={k[3]}>")
+    kernels = ptxas_report(_build, "dtw_wavefront", label)
+    spills = {k: i for k, i in kernels.items()
+              if any(re.search(r"[1-9]\d* bytes spill", x) for x in i)}
+    if spills:
+        raise AssertionError(f"DTW kernels spill: {spills}")
+    costs = cell_costs(str(_build.library_path("dtw_wavefront")))
+    sass = {k: {a: round(v[a], 2) for a in ("per_slot", "row_overhead",
+                                            "per_cell") if a in v}
+            for k, v in costs.items() if "per_cell" in v}
+    log(f"SASS of the DTW kernels, instructions a DP cell at r = 25: "
+        f"{sass}")
+    regs = {k: next((x for x in i if "registers" in x), "")
+            for k, i in kernels.items()}
+    return dict(sass=sass, ptxas_kernels=len(kernels), registers=regs)
+
+
 def flash_build_report(_build, lib):
     """Print what ptxas said of every flash kernel (registers, stack and
     spills) and count the tensor-core instructions in the tensor-core
     kernel's SASS; a count of 0 fails the run."""
     import re
     import shutil
-    kernels, cur = {}, None
-    for line in _build.build_log("flash_attention").splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-            kind = re.search(r"flash_attention_(tc|simt)_kernel", name)
-            args = ("bf16," if "nv_bfloat16" in name else
-                    "float," if "_kernelIf" in name else "")
-            dp = re.search(r"Li(\d+)E", name)
-            cur = f"{kind.group(0) if kind else name}<{args}" \
-                  f"{dp.group(1) if dp else '?'}>"
-            kernels[cur] = []
-        elif cur and ("registers" in line or "stack frame" in line
-                      or "spill" in line):
-            kernels[cur].append(line.replace("ptxas info    :", "").strip())
-    for name, info in kernels.items():
-        log(f"ptxas {name}: {'; '.join(info)}")
+
+    def label(name):
+        kind = re.search(r"flash_attention_(tc|simt)_kernel", name)
+        args = ("bf16," if "nv_bfloat16" in name else
+                "float," if "_kernelIf" in name else "")
+        dp = re.search(r"Li(\d+)E", name)
+        return (f"{kind.group(0) if kind else name}<{args}"
+                f"{dp.group(1) if dp else '?'}>")
+    ptxas_report(_build, "flash_attention", label)
     log(f"flash_attention_tc_kernel dynamic shared memory: "
         f"{lib.flash_attention_tc_smem_bytes(64)} bytes at D <= 64, "
         f"{lib.flash_attention_tc_smem_bytes(128)} at D <= 128")
@@ -1118,8 +1207,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA GPU")
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        raise SystemExit(f"chip_smoke: {src / 'repro_torch'} is missing; "
+                         "run this script from a checkout of the repo")
+    sys.path.insert(0, str(src))
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import dtw_wavefront as kd
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1148,7 +1242,7 @@ def main() -> int:
         out = fn()
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        phases[phase] = counts
+        phases[phase] = dict(counts, **kd.schedule_counts())
         missing = [k for k in kernels if counts[k] < 1]
         log(f"phase {phase}: launches {counts}")
         if missing:

@@ -1,293 +1,520 @@
-// Banded squared DTW for the SSH re-rank stage: two kernels over one
-// warp-per-pair device routine (dtw_warp).
+// Banded squared DTW for the SSH re-rank stage: two entry points, each
+// with two schedules.
 //
-// 1. dtw_pairs_kernel replaces the TPU kernel
+// 1. dtw_wavefront_pairs_launch replaces the TPU kernel
 //    repro/kernels/dtw_wavefront.py::dtw_wavefront_pairs (_kernel,
-//    _kernel_thr, _make_step: pairs on the 128 lanes, band offsets on
-//    sublanes, one vector op per anti-diagonal, a whole-block exit test);
-//    the batched searcher's seed and survivor DTW.
+//    _kernel_thr, _make_step): the batched searcher's seed and survivor
+//    DTW.
 //
 //      queries (P, m) f32, candidates (P, m) f32, radius r, thr (P,) or
 //      none  ->  out (P,) f32
 //      out[p] = banded (|i - j| <= r) squared DTW of the pair; with thr,
 //      the exact cost when it is <= thr[p] and BIG = 1e30 otherwise.
 //
-// 2. dtw_one_kernel replaces repro/kernels/dtw_wavefront.py::dtw_wavefront
-//    (one query against a candidate block, the same lane layout); the
-//    sequential re-rank and the UCR-suite scan.
+// 2. dtw_wavefront_launch replaces repro/kernels/dtw_wavefront.py::
+//    dtw_wavefront (one query against a candidate block): the sequential
+//    re-rank and the UCR-suite scan.
 //
 //      query (m,) f32, candidates (C, m) f32, radius r, thr scalar, (C,)
 //      or none  ->  out (C,) f32, the same contract per candidate.
 //
-//    It runs the same dtw_warp, so its values are bit-identical to the
-//    pairs kernel and to the plain wavefront.  The query is loaded into
-//    shared memory once per block and read by all ONE_WARPS warps, each
-//    of which owns one candidate row; a block holds 16 warps (the pairs
-//    kernel holds 4, each with its own query row), so a 512-long query
-//    costs 2 KB of a 34 KB block.  Bound and limit are the pairs
-//    kernel's, below; the UCR scan, at hundreds of thousands of
-//    candidates, is where the kernel's own rate shows.
+// Every cell is fminf(__fadd_rn(__fmul_rn(d, d), best), BIG) with
+// d = __fsub_rn(q[i], x[j]) and best the minimum of its three
+// neighbours (0 at (0, 0), BIG outside the band or the matrix).  The
+// explicit round-to-nearest intrinsics keep nvcc from contracting into
+// an FMA, and min is exact and commutative, so any schedule that computes
+// each cell once from its three finished neighbours gives the bits of the
+// plain anti-diagonal wavefront (kernels.ref.dtw_pairs_ref).  An early
+// abandon may use any sound lower bound: only the output is contracted
+// (exact where <= thr, else BIG, strict >).
 //
-// Bound on the H100: operations.  About 6 flops per DP cell (a subtract,
-// a multiply, an add and three mins) over P*m*(2r+1) cells, minus the
-// cells an early-abandoned pair never computes, against only 8*P*m bytes
-// of input.
+// Bound on the H100: operations.  A cell is a subtract, a multiply, an
+// add and three mins, none of which fuses, against 8 bytes of input per
+// row and pair.  The min-plus recurrence has no tensor-core form, so the
+// limit is instruction issue (4 warp instructions a clock on each SM),
+// and for few pairs the dependency chain of one pair.
 //
-// Design: one warp per pair, so abandoning is per pair and never holds
-// a neighbour back (the TPU kernel could only leave a 128-lane block
-// when all of its lanes were dead).  The query and candidate rows sit in
-// shared memory.  The Sakoe-Chiba band slots u in [0, 2r+2) of one
-// anti-diagonal lie across the lanes in blocks of S consecutive slots
-// (S = 2 at r = 25, 7 at r = 102), held in registers.  The wavefront
-// walks the 2m-1 anti-diagonals with the TPU kernel's index algebra:
-// diagonal d stores cell (i, j = d - i) at u = i - (d/2 - r), so
-//   D[i-1, j]   = prev1[u]   (d even) / prev1[u-1] (d odd)
-//   D[i, j-1]   = prev1[u+1] (d even) / prev1[u]   (d odd)
-//   D[i-1, j-1] = prev2[u]
-// and the answer sits at u = r on the last diagonal.  The one-slot
-// shifts cross a lane boundary only at the block edges, which one
-// __shfl_up_sync and one __shfl_down_sync per diagonal supply.  The cell
-// update is __fadd_rn(__fmul_rn(diff, diff), best) with diff from
-// __fsub_rn: the explicit round-to-nearest intrinsics keep nvcc from
-// contracting into an FMA, so every value is the one the plain PyTorch
-// wavefront computes, bit for bit.  With a threshold, the warp takes the
-// minimum over the two live diagonals after each step (a sound lower
-// bound on the final cost: every warping path crosses one of any two
-// adjacent anti-diagonals) and abandons once it exceeds thr, strictly.
+// Schedule A, "rows" (dtw_rows_kernel): one thread per pair, many pairs.
+// The thread sweeps the rows j of the candidate in band coordinates,
+// u = i - j + r in [0, 2r], and keeps the row's 2r + 1 costs in
+// registers R[k], k = u + off, updated in place from left to right:
+//   D[j-1, i-1] = R[k] (old), D[j-1, i] = R[k+1] (old), D[j, i-1] = left.
+// (Rows run along the candidate: the DP is symmetric under transposing,
+// cell for cell.)  R holds W slots, a compile-time multiple of 8 up to
+// 128, and the band sits at its right end (off = W - 1 - 2r < 8), so the
+// slots left of the band stay BIG and a row starts with a jump to slot
+// off among the first 8, then runs the rest straight: no slot tests its
+// bounds.  A cell is computed as min(fl(c + left), min(fl(c + min(diag,
+// top)), BIG)), equal to the clamped fl(c + best) bit for bit (row_slot),
+// so that only an add and a min lie on the chain from one cell to the
+// next.  The query side is padded with +inf, so a cell left or right of
+// the matrix costs inf and clamps to BIG by the cell formula itself.  The
+// one operand that changes per cell is read from shared memory at an
+// immediate offset: the padded query, a broadcast read, for the
+// single-query kernel; a (time, pair) tile, one bank per lane, for pairs.
+// The candidates come in 32-row (time, pair) tiles.  A block is one warp
+// of 32 pairs; with a threshold, the row minimum (a sound bound: every
+// warping path crosses every row) is tested after each tile, and the
+// block ends when all 32 pairs are past their thresholds.  8 instructions
+// a cell: one shared load, the sub and mul, two adds, three mins.
+//
+// Schedule B, "diagonals" (dtw_diag_kernel): one warp per pair, for few
+// pairs (the latency of one pair then sets the time) and for bands wider
+// than A's registers, up to r = 1023.  The warp walks the 2m - 1
+// anti-diagonals, an even and an odd one a turn; only the in-band cells
+// of diagonal d get slots, i = lo(d) + s with lo(d) = ceil((d - r) / 2)
+// and s in [0, r + 1), S consecutive slots a lane (S = 1 up to r = 31).
+// Then
+//   D[i-1, j-1] = prev2[s], and {D[i-1, j], D[i, j-1]} =
+//   {prev1[s-1], prev1[s]} when d - r is even, {prev1[s], prev1[s+1]}
+//   when it is odd,
+// one shuffle a diagonal across lanes.  The rows sit in shared memory
+// padded on both sides (+inf next to the matrix), so no load is guarded;
+// a slot past the band gets an infinite cost and so BIG, and only an add
+// and a min follow the shuffle on the chain.  With a threshold the warp
+// reduces the minimum of its two live diagonals (a sound bound: every
+// path crosses one of them) every check_every diagonals and abandons once
+// it exceeds thr.  A block is one warp, so 300 candidates spread over the
+// 132 SMs.
+//
+// kernels/dtw_wavefront.py::dtw_schedule is the written rule that picks
+// A or B; either can be asked for directly.
 #include <cuda_runtime.h>
+
+#include <utility>
 
 namespace {
 
-constexpr int WARPS = 4;             // pairs per block (dtw_pairs_kernel)
-constexpr int ONE_WARPS = 16;        // candidates per block (dtw_one_kernel)
 constexpr float BIG = 1e30f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int TILE = 32;           // candidate rows per shared-memory tile (A)
+constexpr int LD = 33;             // row stride of A's (time, pair) tiles
+constexpr int ROWS_MAX_W = 128;    // widest slot class of A: r <= 63
+constexpr int DIAG_MAX_S = 32;     // slots a lane of B: r <= 1023
+constexpr int SMEM_MAX = 232448;   // 227 KB a block
 
-// One warp's banded DTW of the rows qs, xs (both in shared memory).
-// Returns the result on every lane: the exact cost, or BIG when has_thr
-// and the pair was abandoned or ends above t.
-template <int S>
-__device__ __forceinline__ float dtw_warp(const float* qs, const float* xs,
-                                          int m, int r, bool has_thr,
-                                          float t, int lane) {
-  const int bw = 2 * r + 2;
+__device__ __forceinline__ float pos_inf() {
+  return __int_as_float(0x7f800000);
+}
 
-  float prev1[S], prev2[S];
+// dst = src[i] for i in [0, m), else +inf: an asynchronous 4-byte copy
+// global -> shared (cp.async), so that a lane's copies are all in flight
+// at once; copies_done() waits for them
+__device__ __forceinline__ void copy_or_inf(float* dst, const float* src,
+                                            int i, int m) {
+  if (i >= 0 && i < m) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(d), "l"(src + i) : "memory");
+  } else {
+    *dst = pos_inf();
+  }
+}
+
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// c ? a : b, opaque to the compiler: a chain of these over a register
+// array (R[k] picked where k equals a runtime index) is not folded into a
+// dynamically indexed load, which would move the array to local memory
+__device__ __forceinline__ float pick(bool c, float a, float b) {
+  float out;
+  asm("{\n\t.reg .pred p;\n\tsetp.ne.u32 p, %3, 0;\n\t"
+      "selp.f32 %0, %1, %2, p;\n\t}"
+      : "=f"(out) : "f"(a), "f"(b), "r"(static_cast<unsigned>(c)));
+  return out;
+}
+
+// -- schedule A ----------------------------------------------------------
+
+// Slot K of a row: D[j, i] from R[K] (diagonal), R[K + 1] (top) and the
+// slot just computed (left), as
+//   min(fl(c + left), min(fl(c + min(diag, top)), BIG)),  c = fl(d * d),
+// which is fl(c + min(diag, top, left)) clamped to BIG, bit for bit:
+// x -> fl(c + x) is monotone, so it commutes with min.  The chain from
+// one slot to the next is then one add and one min.
+template <int K, int W>
+__device__ __forceinline__ void row_slot(float (&R)[W], float qv, float xv,
+                                         float& left) {
+  float top;
+  if constexpr (K + 1 < W) top = R[K + 1];
+  else top = BIG;
+  const float d = __fsub_rn(qv, xv);
+  const float c = __fmul_rn(d, d);
+  const float y = fminf(__fadd_rn(c, fminf(R[K], top)), BIG);
+  const float v = fminf(__fadd_rn(c, left), y);
+  R[K] = v;
+  left = v;
+}
+
+template <int W, int QS, int... K>
+__device__ __forceinline__ void row_tail(float (&R)[W], const float* qb,
+                                         float xv, float& left,
+                                         std::integer_sequence<int, K...>) {
+  (row_slot<K + 8, W>(R, qb[(K + 8) * QS], xv, left), ...);
+}
+
+#define DTW_CASE(k)                               \
+  case (k):                                       \
+    row_slot<(k), W>(R, head[(k)], xv, left);     \
+    [[fallthrough]];
+
+// One row: slots off .. W-1 (the band), off in [0, 8).  qb[k * QS] is the
+// query of slot k; the operand is padded so that the first 8 exist even
+// left of the band, and they are loaded before the jump to slot off, so
+// that no load waits behind it.
+template <int W, int QS>
+__device__ __forceinline__ void row_sweep(float (&R)[W], const float* qb,
+                                          float xv, int off) {
+  float head[8];
 #pragma unroll
-  for (int s = 0; s < S; ++s) prev1[s] = prev2[s] = BIG;
+  for (int k = 0; k < 8; ++k) head[k] = qb[k * QS];
+  float left = BIG;
+  switch (off) {
+    DTW_CASE(0) DTW_CASE(1) DTW_CASE(2) DTW_CASE(3)
+    DTW_CASE(4) DTW_CASE(5) DTW_CASE(6) DTW_CASE(7)
+    default: break;
+  }
+  row_tail<W, QS>(R, qb, xv, left, std::make_integer_sequence<int, W - 8>{});
+}
 
-  bool abandoned = false;
-  for (int d = 0; d < 2 * m - 1; ++d) {
-    const int offset = d / 2 - r;
-    const bool even = (d & 1) == 0;
-    // prev1[u-1] for this lane's first slot, prev1[u+1] for its last
-    float from_below = __shfl_up_sync(FULL, prev1[S - 1], 1);
-    float from_above = __shfl_down_sync(FULL, prev1[0], 1);
-    if (lane == 0) from_below = BIG;
-    if (lane == 31) from_above = BIG;
+#undef DTW_CASE
 
-    float cur[S];
+// W: slot class (2r + 1 <= W); ONE: one query for every pair (q is (m,)),
+// else q is (P, m).  thr_stride 0: one threshold for all, 1: thr[p].
+template <int W, bool HAS_THR, bool ONE>
+__global__ void __launch_bounds__(32)
+dtw_rows_kernel(const float* __restrict__ q, const float* __restrict__ x,
+                const float* __restrict__ thr, int thr_stride,
+                float* __restrict__ out, int P, int m, int r) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x;
+  const long long p0 = static_cast<long long>(blockIdx.x) * 32;
+  const long long p = p0 + lane;
+  const int n_here = static_cast<int>(min(32LL, P - p0));
+  const bool live = lane < n_here;
+  // the query operand: ONE, the padded query qp[t] = q[t - r] (inf off
+  // the series), m + 2r values; else a (TILE + 2r, LD) tile of each
+  // pair's padded query for the rows of the current tile
+  // (8 entries, or rows, in front: row_sweep loads 8 slots ahead of the
+  // band's first)
+  const int span = ONE ? m + 2 * r : TILE + 2 * r;
+  float* qw = smem + (ONE ? 8 : 8 * LD);
+  float* xt = qw + (ONE ? span : span * LD);       // (TILE, LD) candidates
+  if (ONE) {
+    for (int t = lane; t < span; t += 32) copy_or_inf(qw + t, q, t - r, m);
+  }
+  const int off = W - 1 - 2 * r;
+  float R[W];
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const int u = lane * S + s;
-      const int i = offset + u;
-      const int j = d - i;
-      const float down = s > 0 ? prev1[s - 1] : from_below;      // a[u-1]
-      const float up = s < S - 1 ? prev1[s + 1] : from_above;    // a[u+1]
-      const float top = even ? prev1[s] : down;
-      const float left = even ? up : prev1[s];
-      float best = fminf(fminf(top, left), prev2[s]);
-      if (i == 0 && j == 0) best = 0.0f;
-      const bool valid = u < bw && i >= 0 && i < m && j >= 0 && j < m &&
-                         abs(i - j) <= r;
-      float v = BIG;
-      if (valid) {
-        const float diff = __fsub_rn(qs[i], xs[j]);
-        v = fminf(__fadd_rn(__fmul_rn(diff, diff), best), BIG);
-      }
-      cur[s] = v;
+  for (int k = 0; k < W; ++k)              // row -1: 0 at u = r, the
+    R[k] = pick(k == r + off, 0.0f, BIG);    // diagonal of cell (0, 0)
+  const float t = (HAS_THR && live) ? thr[p * thr_stride] : 0.0f;
+  bool dead = !live;
+
+  for (int j0 = 0; j0 < m; j0 += TILE) {
+    const int rows = min(TILE, m - j0);
+    __syncthreads();                         // the last tile is consumed
+    for (int pp = 0; pp < n_here; ++pp)      // coalesced along time
+      if (lane < rows)
+        copy_or_inf(xt + lane * LD + pp, x + (p0 + pp) * m, j0 + lane, m);
+    if (!ONE) {
+      for (int pp = 0; pp < n_here; ++pp)
+        for (int tt = lane; tt < span; tt += 32)
+          copy_or_inf(qw + tt * LD + pp, q + (p0 + pp) * m, j0 + tt - r, m);
     }
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      prev2[s] = prev1[s];
-      prev1[s] = cur[s];
+    copies_done();
+    __syncthreads();
+#pragma unroll 1
+    for (int jj = 0; jj < rows; ++jj) {
+      const float xv = xt[jj * LD + lane];
+      if (ONE)
+        row_sweep<W, 1>(R, qw + (j0 + jj - off), xv, off);
+      else
+        row_sweep<W, LD>(R, qw + (jj - off) * LD + lane, xv, off);
     }
-
-    if (has_thr) {
+    if (HAS_THR) {
       float lo = BIG;
 #pragma unroll
-      for (int s = 0; s < S; ++s) lo = fminf(lo, fminf(prev1[s], prev2[s]));
+      for (int k = 0; k < W; ++k) lo = fminf(lo, R[k]);
+      dead = dead || lo > t;
+      if (__syncthreads_and(dead)) break;    // every pair past its bound
+    }
+  }
+  if (!live) return;
+  float v = BIG;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        lo = fminf(lo, __shfl_xor_sync(FULL, lo, off));
-      if (lo > t) {                  // warp-uniform after the reduction
+  for (int k = 0; k < W; ++k) v = pick(k == r + off, R[k], v);
+  if (HAS_THR && (dead || v > t)) v = BIG;
+  out[p] = v;
+}
+
+// -- schedule B ----------------------------------------------------------
+
+// Anti-diagonal d of B; EVEN: d - r is even (the neighbour set
+// {prev1[s-1], prev1[s]}, r + 1 cells), else {prev1[s], prev1[s+1]}, r
+// cells.  Slot s holds i = lo + s, j = d - i, lo = ceil((d - r) / 2).
+template <int S, bool EVEN>
+__device__ __forceinline__ void diag_step(float (&prev1)[S],
+                                          float (&prev2)[S],
+                                          const float* qp, const float* xp,
+                                          int pad, int d, int r, int s0,
+                                          int lane) {
+  const int lo = (d - r + 1) >> 1;
+  const int count = EVEN ? r + 1 : r;
+  const float* qb = qp + pad + lo + s0;         // q[lo + s]
+  const float* xb = xp + pad + d - lo - s0;     // x[d - lo - s]
+  // off the chain: each slot's cost c, inf where the slot lies past the
+  // band (its value is then BIG), and the cost the neighbour term adds,
+  // inf also where that neighbour lies across the warp's edge
+  const float inf = pos_inf();
+  float c[S], cn[S];
+#pragma unroll
+  for (int e = 0; e < S; ++e) {
+    const float dq = __fsub_rn(qb[e], xb[-e]);
+    c[e] = s0 + e < count ? __fmul_rn(dq, dq) : inf;
+    cn[e] = c[e];
+  }
+  if (EVEN ? lane == 0 : lane == 31) cn[EVEN ? 0 : S - 1] = inf;
+  // the neighbour slot across the lane boundary
+  const float nbx = EVEN ? __shfl_up_sync(FULL, prev1[S - 1], 1)
+                         : __shfl_down_sync(FULL, prev1[0], 1);
+  // min(fl(c + nb), min(fl(c + min(top or left, diag)), BIG)): the
+  // clamped fl(c + best) bit for bit (row_slot says why), with one add and
+  // one min after the shuffle
+  float cur[S];
+#pragma unroll
+  for (int e = 0; e < S; ++e) {
+    float nb;
+    if (EVEN) nb = e > 0 ? prev1[e - 1] : nbx;
+    else nb = e < S - 1 ? prev1[e + 1] : nbx;
+    const float y = fminf(__fadd_rn(c[e], fminf(prev1[e], prev2[e])), BIG);
+    cur[e] = fminf(__fadd_rn(cn[e], nb), y);
+  }
+#pragma unroll
+  for (int e = 0; e < S; ++e) {
+    prev2[e] = prev1[e];
+    prev1[e] = cur[e];
+  }
+}
+
+template <int S, bool HAS_THR, bool ONE>
+__global__ void __launch_bounds__(32)
+dtw_diag_kernel(const float* __restrict__ q, const float* __restrict__ x,
+                const float* __restrict__ thr, int thr_stride,
+                float* __restrict__ out, int P, int m, int r,
+                int check_every) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x;
+  const long long p = blockIdx.x;
+  // in-band cells reach r/2 + 1 past either end of the matrix, and the
+  // slots past the band up to 32 S more: their loads need no guard
+  const int pad = r / 2 + 1 + 32 * S;
+  const int len = m + 2 * pad;
+  float* qp = smem;
+  float* xp = smem + len;
+  const float* qrow = ONE ? q : q + p * m;
+  const float* xrow = x + p * m;
+  for (int t = lane; t < len; t += 32) {
+    copy_or_inf(qp + t, qrow, t - pad, m);
+    copy_or_inf(xp + t, xrow, t - pad, m);
+  }
+  copies_done();
+  __syncwarp();
+  const float t = HAS_THR ? thr[p * thr_stride] : 0.0f;
+
+  const int s0 = lane * S;
+  float prev1[S], prev2[S];
+#pragma unroll
+  for (int e = 0; e < S; ++e) {
+    prev1[e] = BIG;
+    prev2[e] = pick(s0 + e == r / 2, 0.0f, BIG);  // (0, 0)'s diagonal
+  }
+  // d - r alternates parity: the loop takes an even and an odd diagonal
+  // a turn (no branch on parity inside); an odd r starts with one odd
+  // diagonal, an even number left ends with one even diagonal
+  const int n_diag = 2 * m - 1;
+  int d = 0;
+  if (r & 1) {
+    diag_step<S, false>(prev1, prev2, qp, xp, pad, 0, r, s0, lane);
+    d = 1;
+  }
+  bool abandoned = false;
+  int next_check = check_every - 1;
+#pragma unroll 1
+  for (; d + 1 < n_diag; d += 2) {
+    diag_step<S, true>(prev1, prev2, qp, xp, pad, d, r, s0, lane);
+    diag_step<S, false>(prev1, prev2, qp, xp, pad, d + 1, r, s0, lane);
+    if (HAS_THR && d + 1 >= next_check) {
+      next_check += check_every;
+      float low = BIG;
+#pragma unroll
+      for (int e = 0; e < S; ++e) low = fminf(low, fminf(prev1[e], prev2[e]));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        low = fminf(low, __shfl_xor_sync(FULL, low, o));
+      if (low > t) {                  // warp-uniform after the reduction
         abandoned = true;
         break;
       }
     }
   }
-
-  const int owner = r / S, slot = r - owner * S;
+  if (!abandoned && d < n_diag)
+    diag_step<S, true>(prev1, prev2, qp, xp, pad, d, r, s0, lane);
+  // (m-1, m-1) on the last diagonal
+  const int s_end = (m - 1) - ((2 * m - 2 - r + 1) >> 1);
   float v = BIG;
 #pragma unroll
-  for (int s = 0; s < S; ++s)
-    if (s == slot) v = prev1[s];
-  v = __shfl_sync(FULL, v, owner);
-  if (has_thr && (abandoned || v > t)) v = BIG;
-  return v;
-}
-
-template <int S>
-__global__ void dtw_pairs_kernel(const float* __restrict__ q,
-                                 const float* __restrict__ x,
-                                 const float* __restrict__ thr,
-                                 float* __restrict__ out,
-                                 int P, int m, int r) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long p = static_cast<long long>(blockIdx.x) * WARPS + warp;
-  if (p >= P) return;                // warp-uniform
-
-  float* qs = smem + warp * 2 * m;
-  float* xs = qs + m;
-  for (int k = lane; k < m; k += 32) {
-    qs[k] = q[p * m + k];
-    xs[k] = x[p * m + k];
-  }
-  __syncwarp();
-
-  const bool has_thr = thr != nullptr;
-  const float v = dtw_warp<S>(qs, xs, m, r, has_thr,
-                              has_thr ? thr[p] : 0.0f, lane);
+  for (int e = 0; e < S; ++e) v = pick(s0 + e == s_end, prev1[e], v);
+  v = __shfl_sync(FULL, v, s_end / S);
+  if (HAS_THR && (abandoned || v > t)) v = BIG;
   if (lane == 0) out[p] = v;
 }
 
-// thr_stride 0: one scalar threshold for every candidate; 1: thr[c].
-template <int S>
-__global__ void dtw_one_kernel(const float* __restrict__ q,
-                               const float* __restrict__ x,
-                               const float* __restrict__ thr, int thr_stride,
-                               float* __restrict__ out, int C, int m, int r) {
-  extern __shared__ float smem[];
-  float* qs = smem;                                  // m
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int k = threadIdx.x; k < m; k += blockDim.x) qs[k] = q[k];
-  __syncthreads();                   // before any warp may leave
+// -- launch ----------------------------------------------------------------
 
-  const long long c = static_cast<long long>(blockIdx.x) * ONE_WARPS + warp;
-  if (c >= C) return;                // warp-uniform
-  float* xs = smem + m + warp * m;
-  for (int k = lane; k < m; k += 32) xs[k] = x[c * m + k];
-  __syncwarp();
-
-  const bool has_thr = thr != nullptr;
-  const float v = dtw_warp<S>(qs, xs, m, r, has_thr,
-                              has_thr ? thr[c * thr_stride] : 0.0f, lane);
-  if (lane == 0) out[c] = v;
+int rows_smem(bool one, int m, int r) {
+  const int q = one ? 8 + m + 2 * r : (8 + TILE + 2 * r) * LD;
+  return (q + TILE * LD) * static_cast<int>(sizeof(float));
 }
 
-template <int S>
-int launch_one(const float* q, const float* x, const float* thr,
-               int thr_stride, float* out, int C, int m, int r,
-               cudaStream_t stream) {
-  const int smem = (ONE_WARPS + 1) * m * static_cast<int>(sizeof(float));
+int diag_slots(int r) {             // S of the launch (dispatch_diag)
+  const int need = (r + 1 + 31) / 32;
+  return need <= 8 ? need : need <= 16 ? 16 : DIAG_MAX_S;
+}
+
+int diag_smem(int m, int r) {
+  const int pad = r / 2 + 1 + 32 * diag_slots(r);
+  return 2 * (m + 2 * pad) * static_cast<int>(sizeof(float));
+}
+
+template <typename K>
+int prepare(K kernel, int smem) {
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        dtw_one_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const unsigned grid = static_cast<unsigned>((C + ONE_WARPS - 1) / ONE_WARPS);
-  dtw_one_kernel<S><<<grid, ONE_WARPS * 32, smem, stream>>>(
-      q, x, thr, thr_stride, out, C, m, r);
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }
 
-template <int S>
-int launch(const float* q, const float* x, const float* thr, float* out,
-           int P, int m, int r, cudaStream_t stream) {
-  const int smem = WARPS * 2 * m * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        dtw_pairs_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const unsigned grid = static_cast<unsigned>((P + WARPS - 1) / WARPS);
-  dtw_pairs_kernel<S><<<grid, WARPS * 32, smem, stream>>>(q, x, thr, out, P,
-                                                          m, r);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Calls f.template operator()<S>() with S = band slots per lane for
-// radius r (1..8 exactly, then 16, 32, 64); cudaErrorInvalidValue when r
-// is too wide.
-template <typename F>
-int with_slots(int r, F f) {
-  const int need = (2 * r + 2 + 31) / 32;
-  switch (need) {
-    case 1: return f.template operator()<1>();
-    case 2: return f.template operator()<2>();
-    case 3: return f.template operator()<3>();
-    case 4: return f.template operator()<4>();
-    case 5: return f.template operator()<5>();
-    case 6: return f.template operator()<6>();
-    case 7: return f.template operator()<7>();
-    case 8: return f.template operator()<8>();
-    default: break;
-  }
-  if (need <= 16) return f.template operator()<16>();
-  if (need <= 32) return f.template operator()<32>();
-  if (need <= 64) return f.template operator()<64>();
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-struct PairsLaunch {
-  const float *q, *x, *thr;
-  float* out;
-  int P, m, r;
-  cudaStream_t st;
-  template <int S>
-  int operator()() const { return launch<S>(q, x, thr, out, P, m, r, st); }
-};
-
-struct OneLaunch {
+struct Args {
   const float *q, *x, *thr;
   int thr_stride;
   float* out;
-  int C, m, r;
+  int P, m, r, check_every;
   cudaStream_t st;
-  template <int S>
-  int operator()() const {
-    return launch_one<S>(q, x, thr, thr_stride, out, C, m, r, st);
-  }
 };
+
+template <int W, bool HAS_THR, bool ONE>
+int launch_rows(const Args& a) {
+  auto kernel = dtw_rows_kernel<W, HAS_THR, ONE>;
+  const int smem = rows_smem(ONE, a.m, a.r);
+  if (const int e = prepare(kernel, smem)) return e;
+  const unsigned grid = static_cast<unsigned>((a.P + 31) / 32);
+  kernel<<<grid, 32, smem, a.st>>>(a.q, a.x, a.thr, a.thr_stride, a.out,
+                                   a.P, a.m, a.r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int S, bool HAS_THR, bool ONE>
+int launch_diag(const Args& a) {
+  auto kernel = dtw_diag_kernel<S, HAS_THR, ONE>;
+  const int smem = diag_smem(a.m, a.r);
+  if (const int e = prepare(kernel, smem)) return e;
+  kernel<<<static_cast<unsigned>(a.P), 32, smem, a.st>>>(
+      a.q, a.x, a.thr, a.thr_stride, a.out, a.P, a.m, a.r, a.check_every);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool HAS_THR, bool ONE, int... C>
+int rows_class(const Args& a, std::integer_sequence<int, C...>) {
+  // the class W = 8 (c + 1) with 2r + 1 <= W: off = W - 1 - 2r in [0, 8)
+  const int c = 2 * a.r / 8;
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  ((c == C ? (rc = launch_rows<8 * (C + 1), HAS_THR, ONE>(a), 0) : 0), ...);
+  return rc;
+}
+
+template <bool HAS_THR, bool ONE>
+int dispatch_rows(const Args& a) {
+  return rows_class<HAS_THR, ONE>(
+      a, std::make_integer_sequence<int, ROWS_MAX_W / 8>{});
+}
+
+// S = slots a lane for r + 1 in-band cells: 1..8 exactly, then 16, 32
+template <bool HAS_THR, bool ONE>
+int dispatch_diag(const Args& a) {
+  switch ((a.r + 1 + 31) / 32) {
+    case 1: return launch_diag<1, HAS_THR, ONE>(a);
+    case 2: return launch_diag<2, HAS_THR, ONE>(a);
+    case 3: return launch_diag<3, HAS_THR, ONE>(a);
+    case 4: return launch_diag<4, HAS_THR, ONE>(a);
+    case 5: return launch_diag<5, HAS_THR, ONE>(a);
+    case 6: return launch_diag<6, HAS_THR, ONE>(a);
+    case 7: return launch_diag<7, HAS_THR, ONE>(a);
+    case 8: return launch_diag<8, HAS_THR, ONE>(a);
+    default: break;
+  }
+  const int need = (a.r + 1 + 31) / 32;
+  if (need <= 16) return launch_diag<16, HAS_THR, ONE>(a);
+  if (need <= DIAG_MAX_S) return launch_diag<DIAG_MAX_S, HAS_THR, ONE>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// schedule 0: rows (A), 1: diagonals (B)
+template <bool ONE>
+int dispatch(const Args& a, int schedule) {
+  if (a.m < 1 || a.r < 0 || a.r > a.m - 1 || a.check_every < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool thr = a.thr != nullptr;
+  if (schedule == 0)
+    return thr ? dispatch_rows<true, ONE>(a) : dispatch_rows<false, ONE>(a);
+  if (schedule == 1)
+    return thr ? dispatch_diag<true, ONE>(a) : dispatch_diag<false, ONE>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 }  // namespace
 
-// Widest band the kernels take: 2r + 2 slots over 32 lanes of 64 each.
-extern "C" int dtw_pairs_max_radius() { return 32 * 64 / 2 - 1; }
+// Widest band of each schedule: A's registers (2r + 1 <= 128), B's
+// slots (r + 1 <= 32 lanes of 32).
+extern "C" int dtw_rows_max_radius() { return (ROWS_MAX_W - 1) / 2; }
+extern "C" int dtw_pairs_max_radius() { return 32 * DIAG_MAX_S - 1; }
+
+// Dynamic shared memory of a launch (schedule 0 rows, 1 diagonals;
+// one: the single-query entry point); more than 232,448 is refused.
+extern "C" int dtw_smem_bytes(int schedule, int one, int m, int r) {
+  return schedule == 0 ? rows_smem(one != 0, m, r) : diag_smem(m, r);
+}
+
+// Longest series the diagonal schedule takes at every radius it takes.
+extern "C" int dtw_max_length() {
+  const int r_max = 32 * DIAG_MAX_S - 1;
+  int m = 1;
+  while (diag_smem(m + 1, m < r_max ? m : r_max) <= SMEM_MAX) ++m;
+  return m;
+}
 
 extern "C" int dtw_wavefront_pairs_launch(const float* q, const float* x,
                                           const float* thr, float* out,
-                                          int P, int m, int r,
-                                          void* stream) {
-  return with_slots(r, PairsLaunch{q, x, thr, out, P, m, r,
-                                   static_cast<cudaStream_t>(stream)});
+                                          int P, int m, int r, int schedule,
+                                          int check_every, void* stream) {
+  return dispatch<false>(Args{q, x, thr, 1, out, P, m, r, check_every,
+                              static_cast<cudaStream_t>(stream)},
+                         schedule);
 }
 
 extern "C" int dtw_wavefront_launch(const float* q, const float* x,
                                     const float* thr, int thr_stride,
                                     float* out, int C, int m, int r,
+                                    int schedule, int check_every,
                                     void* stream) {
-  return with_slots(r, OneLaunch{q, x, thr, thr_stride, out, C, m, r,
-                                 static_cast<cudaStream_t>(stream)});
-}
-
-// Series length the single-query kernel takes: the query plus one row
-// per warp in shared memory.
-extern "C" int dtw_one_max_length() {
-  return 227 * 1024 / ((ONE_WARPS + 1) * static_cast<int>(sizeof(float)));
+  return dispatch<true>(Args{q, x, thr, thr_stride, out, C, m, r,
+                             check_every, static_cast<cudaStream_t>(stream)},
+                        schedule);
 }
 
 extern "C" const char* dtw_wavefront_error_string(int code) {

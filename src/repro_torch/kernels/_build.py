@@ -6,8 +6,9 @@ beside the source checkout, at first use.  The file name carries a hash
 of the source and the flags, so an edited kernel rebuilds and a stale
 library is never loaded.  ``build_all`` starts one ``nvcc`` per source
 at once.  What ``nvcc`` printed is kept beside the library
-(:func:`build_log`): for ``flash_attention`` that is ``ptxas``'s count of
-registers, shared memory and spills of every kernel.
+(:func:`build_log`): for ``flash_attention`` and ``dtw_wavefront`` that
+is ``ptxas``'s count of registers, shared memory and spills of every
+kernel.
 
 Every wrapper counts its launches in :data:`LAUNCHES` under its kernel's
 name (one per kernel launch, nowhere else; :data:`KERNELS` lists the
@@ -32,8 +33,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-#: more flags for one library: ptxas's resource report of the flash kernels
-EXTRA_FLAGS = {"flash_attention": ("-Xptxas", "-v")}
+#: more flags for a library: ptxas's resource report of its kernels
+EXTRA_FLAGS = {"flash_attention": ("-Xptxas", "-v"),
+               "dtw_wavefront": ("-Xptxas", "-v")}
 
 C_INT, C_PTR = ctypes.c_int, ctypes.c_void_p
 C_I64, C_FLOAT = ctypes.c_longlong, ctypes.c_float
@@ -54,11 +56,13 @@ SIGNATURES = {
     },
     "dtw_wavefront": {
         "dtw_wavefront_pairs_launch": [C_PTR, C_PTR, C_PTR, C_PTR, C_INT,
-                                       C_INT, C_INT, C_PTR],
+                                       C_INT, C_INT, C_INT, C_INT, C_PTR],
         "dtw_wavefront_launch": [C_PTR, C_PTR, C_PTR, C_INT, C_PTR, C_INT,
-                                 C_INT, C_INT, C_PTR],
+                                 C_INT, C_INT, C_INT, C_INT, C_PTR],
+        "dtw_rows_max_radius": [],
         "dtw_pairs_max_radius": [],
-        "dtw_one_max_length": [],
+        "dtw_smem_bytes": [C_INT, C_INT, C_INT, C_INT],
+        "dtw_max_length": [],
     },
     "count_sketch": {
         "cs_tables_launch": [C_PTR, C_PTR, C_PTR, C_INT, C_INT, C_INT,

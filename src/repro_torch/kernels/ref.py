@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import dtw as _dtw
 from repro_torch.core.sketch import sketch_projections
+from repro_torch.kernels.dtw_wavefront import ROWS_TILE
 from repro_torch.kernels.flash_attention import REORDER
 
 
@@ -70,6 +71,60 @@ def dtw_wavefront_ref(query: torch.Tensor, candidates: torch.Tensor,
     wavefront, bit for bit."""
     return _dtw.dtw_banded_pairs(query[None, :].expand_as(candidates),
                                  candidates, band, threshold=threshold)
+
+
+def dtw_band_rows_ref(queries: torch.Tensor, candidates: torch.Tensor,
+                      band: Optional[int] = None,
+                      threshold=None) -> torch.Tensor:
+    """The row schedule of ``csrc/dtw_wavefront.cu`` in plain torch:
+    (P, m) x (P, m) -> (P,), the contract of :func:`dtw_pairs_ref`
+    (``threshold`` a scalar or (P,)).
+
+    Each pair sweeps the candidate's rows j, keeping the row's 2r + 1
+    band costs (u = i - j + r) and updating them in place from left to
+    right: cell (j, u) reads the old u (diagonal), the old u + 1 (top)
+    and the new u - 1 (left), as the kernel computes it:
+    min(c + left, min(c + min(diagonal, top), BIG)) with c = (q - x)^2,
+    which equals the plain min(c + min(diagonal, top, left), BIG) bit for
+    bit (x -> fl(c + x) is monotone, so it commutes with min).  The
+    query is padded with +inf, so a cell off the matrix costs inf and
+    clamps to BIG.  Row -1 holds 0 at u = r, the diagonal of cell
+    (0, 0).  With a threshold, the row minimum is tested after every
+    ``ROWS_TILE`` rows and at the end, as the kernel does, and the sweep
+    stops once every pair is past it.  Loops over rows and u in Python:
+    for tests at small sizes.
+    """
+    q = queries.to(torch.float32)
+    x = candidates.to(torch.float32)
+    p, m = q.shape
+    r = _dtw.radius(band, m)
+    big = torch.tensor(_dtw.BIG, dtype=torch.float32)
+    pad = torch.full((p, r), float("inf"), dtype=torch.float32)
+    qp = torch.cat([pad, q, pad], 1)                 # qp[:, t] = q[:, t - r]
+    row = torch.full((p, 2 * r + 1), _dtw.BIG, dtype=torch.float32)
+    row[:, r] = 0.0
+    thr = None
+    if threshold is not None:
+        thr = torch.as_tensor(threshold, dtype=torch.float32).expand(p)
+    dead = torch.zeros(p, dtype=torch.bool)
+    for j in range(m):
+        left = big.expand(p)
+        for u in range(2 * r + 1):
+            top = row[:, u + 1] if u < 2 * r else big.expand(p)
+            d = qp[:, j + u] - x[:, j]
+            c = d * d
+            y = torch.minimum(c + torch.minimum(row[:, u], top), big)
+            left = torch.minimum(c + left, y)
+            row[:, u] = left
+        if thr is not None and (j % ROWS_TILE == ROWS_TILE - 1
+                                or j == m - 1):
+            dead |= row.min(1).values > thr
+            if bool(dead.all()):
+                break
+    out = row[:, r].clone()
+    if thr is not None:
+        out = torch.where(dead | (out > thr), big, out)
+    return out
 
 
 def cs_tables_ref(bucket: torch.Tensor, sign: torch.Tensor, width: int

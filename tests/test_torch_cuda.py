@@ -28,6 +28,7 @@ from repro_torch.configs.ssh_ecg import SMOKE
 from repro_torch.data.timeseries import make_benchmark_db
 from repro_torch.db import SearchConfig, TimeSeriesDB
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import dtw_wavefront as kd
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(2)
@@ -122,6 +123,122 @@ def test_single_query_dtw_kernel_bit_identical(cuda, band, thr_kind):
     assert torch.equal(ops.dtw_rerank(q, x, band),
                        ops.dtw_rerank_pairs(q.expand(c, m).contiguous(), x,
                                             band))
+
+
+def _walk_rows(rng, n, m, cuda):
+    w = rng.normal(size=(n, m)).cumsum(1)
+    if m > 1:
+        w = (w - w.mean(1, keepdims=True)) / w.std(1, keepdims=True)
+    return torch.tensor(w, dtype=torch.float32, device=cuda)
+
+
+def _dtw_thresholds(exact, rng):
+    """none, scalar, per pair (half of them below the cost, mixed within
+    every warp), exactly the cost (kept: strict >) and below every row."""
+    n = exact.shape[0]
+    mixed = exact * torch.tensor(rng.choice([0.5, 0.9, 1.1, 2.0], n),
+                                 dtype=torch.float32, device=exact.device)
+    return {"none": None, "scalar": exact.median(), "per_pair": mixed,
+            "exact": exact.clone(),
+            "below_rows": torch.full_like(exact, -1.0)}
+
+
+def _check_dtw_schedules(cuda, q, x, band, schedules, thresholds=True):
+    """Both entry points through the rule (None) and each schedule in
+    ``schedules``, bit for bit against the plain versions, with the
+    launch counts per kernel and per schedule asserted."""
+    n, m = x.shape
+    qs = q[None].expand(n, m).contiguous()
+    exact = ref.dtw_pairs_ref(qs, x, band)
+    thrs = (_dtw_thresholds(exact, np.random.default_rng(n + m))
+            if thresholds else {"none": None})
+    r = m - 1 if band is None else min(band, m - 1)
+    for kind, thr in thrs.items():
+        thr_p = None if thr is None else thr.reshape(-1).expand(n) \
+            .contiguous()
+        want = ref.dtw_pairs_ref(qs, x, band, thr_p)
+        assert torch.equal(ref.dtw_wavefront_ref(q, x, band, thr), want)
+        if kind == "exact":
+            assert torch.equal(want, exact)
+        if kind == "below_rows":
+            assert bool((want == 1e30).all())
+        for sched in (None, *schedules):
+            took = sched or kd.dtw_schedule(n, m, r)
+            ops.reset_launch_counts()
+            got_p = kd.dtw_wavefront_pairs(qs, x, r, thr_p, schedule=sched)
+            got_1 = kd.dtw_wavefront(q, x, r, thr, schedule=sched)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["dtw_wavefront_pairs"] == 1
+            assert _build.LAUNCHES["dtw_wavefront"] == 1
+            assert kd.schedule_counts() == {
+                f"{k}:{s}": int(s == took)
+                for k in ("dtw_wavefront_pairs", "dtw_wavefront")
+                for s in kd.SCHEDULES}
+            assert torch.equal(got_p, want), (sched, kind)
+            assert torch.equal(got_1, want), (sched, kind)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 40, 96])
+@pytest.mark.parametrize("band", [0, 1, 2, 6, "m-1", None])
+def test_dtw_schedules_bit_identical_grid(cuda, m, band):
+    band = m - 1 if band == "m-1" else band
+    rng = np.random.default_rng(m * 7 + (band if band is not None else 5))
+    x = _walk_rows(rng, 70, m, cuda)             # 3 warps, the last ragged
+    q = _walk_rows(rng, 1, m, cuda)[0]
+    r = m - 1 if band is None else min(band, m - 1)
+    schedules = (("rows", "diagonals") if r <= 63 else ("diagonals",))
+    _check_dtw_schedules(cuda, q, x, band, schedules)
+
+
+@pytest.mark.parametrize("m,band,n", [(512, 25, 1000), (1024, 1023, 20),
+                                      (1024, 63, 300)])
+def test_dtw_schedules_wide_shapes(cuda, m, band, n):
+    rng = np.random.default_rng(m + band)
+    x = _walk_rows(rng, n, m, cuda)
+    q = _walk_rows(rng, 1, m, cuda)[0]
+    schedules = ("rows", "diagonals") if band <= 63 else ("diagonals",)
+    _check_dtw_schedules(cuda, q, x, band, schedules)
+
+
+def test_dtw_schedules_longest_series(cuda):
+    lib = _build.load("dtw_wavefront")
+    m, r_max = lib.dtw_max_length(), lib.dtw_pairs_max_radius()
+    assert m >= 3418 and r_max == 1023   # the limits before
+    rng = np.random.default_rng(3)
+    x = _walk_rows(rng, 3, m, cuda)
+    q = _walk_rows(rng, 1, m, cuda)[0]
+    _check_dtw_schedules(cuda, q, x, r_max, ("diagonals",),
+                         thresholds=False)
+    _check_dtw_schedules(cuda, q, x, 25, ("rows", "diagonals"),
+                         thresholds=False)
+    with pytest.raises(ValueError, match="shared memory"):
+        kd.dtw_wavefront(q.repeat(2), x.repeat(1, 2), 25,
+                         schedule="diagonals")
+
+
+def test_dtw_schedule_crossover(cuda):
+    """C from 1 across the rule's crossover at r = 25: each count takes
+    the schedule the rule names, bit-identical either way."""
+    m, r = 128, 25
+    cross = kd.ROWS_MIN_PAIRS_PER_CELL * (2 * r + 1)
+    rng = np.random.default_rng(9)
+    x = _walk_rows(rng, cross + 1, m, cuda)
+    q = _walk_rows(rng, 1, m, cuda)[0]
+    for n in (1, 31, 33, cross - 1, cross, cross + 1):
+        assert kd.dtw_schedule(n, m, r) == ("rows" if n >= cross
+                                            else "diagonals")
+        _check_dtw_schedules(cuda, q, x[:n].contiguous(), r, ())
+
+
+def test_dtw_wrappers_refuse_bad_schedules(cuda):
+    x = torch.zeros((4, 200), device=cuda)
+    with pytest.raises(ValueError, match="rows schedule"):
+        kd.dtw_wavefront_pairs(x, x, 64, schedule="rows")
+    with pytest.raises(ValueError, match="schedule must be"):
+        kd.dtw_wavefront(x[0], x, 5, schedule="columns")
+    with pytest.raises(ValueError, match="radius"):
+        kd.dtw_wavefront_pairs(torch.zeros((2, 1100), device=cuda),
+                               torch.zeros((2, 1100), device=cuda), 1024)
 
 
 @pytest.mark.parametrize("width,s", [(128, 300), (4096, 131)])
