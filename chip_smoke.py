@@ -47,7 +47,14 @@
    the peak rate of their type (H100 SXM: f32 outside the tensor cores
    67 TFLOP/s, int32 33.5 Tops/s; the DTW cell's 6 operations, none of
    which fuses, 33.5e12 a second).  The sketch is timed at a 4096-row
-   build chunk and at the query encode.  The DTW kernels: ptxas's
+   build chunk and at the query encode.  The collision-count kernels:
+   ptxas's registers and spills of each (a spill, or local memory in the
+   SASS, fails the run), the batch kernel's SASS instructions a key
+   compared (``repro_torch.bench.collision_count.key_costs``), every
+   recorded single-query call checked, and the batched probe stage
+   split into its three parts, each timed by CUDA events on batch 0's
+   recorded input: the kernel, the max over the multiprobe offsets and
+   ``top_c_by_count``.  The DTW kernels: ptxas's
    registers and spills of every DTW kernel (a spill fails the run) and
    the SASS instructions a DP cell of each schedule
    (``repro_torch.bench.dtw_schedules.cell_costs``); every recorded call
@@ -528,12 +535,14 @@ def ssh_paths(args, counted, phases) -> list:
                                  "yardstick would not be exact")
 
     # collision_count_batch: the probe of B·O signature rows
+    cc_report = collision_build_report(_build)
     qk, dbk = rec_b.calls["collision_count_batch"][0][0]
     kern = ops.collision_count_batch(qk, dbk)
     plain = ref.collision_count_batch_ref(qk, dbk)
     if not torch.equal(kern, plain):
         raise AssertionError("collision_count_batch is not exact: "
                              f"{int((kern != plain).sum())} counts differ")
+    probe_split = probe_split_ms(qk, dbk, cfg)
     k_ = qk.shape[1]
     check_hash_range(qk, dbk)
 
@@ -554,7 +563,9 @@ def ssh_paths(args, counted, phases) -> list:
             lambda: ref.collision_count_batch_ref(qk, dbk)),
         bound_ms=bms, bound_by=bkind, library_ms=cuda_time_ms(cdist_counts),
         shape=f"queries {tuple(qk.shape)} db {tuple(dbk.shape)}",
-        tolerance="exact", library="K - torch.cdist(q, db, p=0)"))
+        tolerance="exact", library="K - torch.cdist(q, db, p=0)",
+        probe_split=probe_split, sass=cc_report["sass"],
+        registers=cc_report["registers"]))
 
     # collision_count: one probe row of a sequential query
     cc_calls = rec_s.calls["collision_count"]
@@ -861,6 +872,62 @@ def dtw_build_report(_build):
     regs = {k: next((x for x in i if "registers" in x), "")
             for k, i in kernels.items()}
     return dict(sass=sass, ptxas_kernels=len(kernels), registers=regs)
+
+
+def collision_build_report(_build):
+    """Print what ptxas said of every collision-count kernel (a spill
+    fails the run, as does local memory in the SASS) and the batch
+    kernel's SASS instructions a key compared
+    (``bench.collision_count.key_costs``, from ``cuobjdump -sass``)."""
+    import re
+    from repro_torch.bench.collision_count import key_costs
+
+    def label(mangled):
+        m = re.search(r"(collision_count(?:_batch)?_kernel)ILi(\d+)E"
+                      r"(?:Lb([01])E)?", mangled)
+        if not m:
+            return mangled
+        return (f"{m.group(1)}<{m.group(2)}"
+                f"{'' if m.group(3) is None else ',vec=' + m.group(3)}>")
+    kernels = ptxas_report(_build, "collision_count", label)
+    spills = {k: i for k, i in kernels.items()
+              if any(re.search(r"[1-9]\d* bytes spill", x) for x in i)}
+    if spills:
+        raise AssertionError(f"collision-count kernels spill: {spills}")
+    costs = key_costs(str(_build.library_path("collision_count")))
+    if costs["local_memory"]:
+        raise AssertionError(f"collision-count kernels use local memory: "
+                             f"{costs['local_memory']}")
+    sass = {k: {a: (round(v[a], 3) if isinstance(v[a], float) else v[a])
+                for a in ("per_key", "lds_per_key", "instructions",
+                          "compares", "ops")}
+            for k, v in costs["batch"].items()}
+    log(f"SASS of collision_count_batch_kernel, the hot loop: {sass}")
+    regs = {k: next((x for x in i if "registers" in x), "")
+            for k, i in kernels.items()}
+    return dict(sass=sass, ptxas_kernels=len(kernels), registers=regs)
+
+
+def probe_split_ms(qk, dbk, cfg):
+    """CUDA-event ms of the batched probe stage's three parts on one
+    recorded input (``serving.batched.batch_probe``): the kernel, the max
+    over the multiprobe offsets and ``top_c_by_count``."""
+    from repro_torch.core.search import top_c_by_count
+    from repro_torch.kernels import ops
+    o = cfg.multiprobe_offsets
+    b = qk.shape[0] // o
+    top_c = min(cfg.top_c, dbk.shape[0])
+    counts = ops.collision_count_batch(qk, dbk)
+    best = counts.reshape(b, o, -1).amax(1)
+    split = dict(
+        kernel=cuda_time_ms(lambda: ops.collision_count_batch(qk, dbk)),
+        offsets_max=cuda_time_ms(lambda: counts.reshape(b, o, -1).amax(1)),
+        top_c=cuda_time_ms(lambda: top_c_by_count(best, top_c)))
+    split["sum"] = sum(split.values())
+    log(f"probe split, ms (batch 0's probe: counts {tuple(counts.shape)}, "
+        f"{o} offsets, top {top_c}): "
+        f"{ {k: round(v, 4) for k, v in split.items()} }")
+    return split
 
 
 def flash_build_report(_build, lib):

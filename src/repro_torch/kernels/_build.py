@@ -6,9 +6,9 @@ beside the source checkout, at first use.  The file name carries a hash
 of the source and the flags, so an edited kernel rebuilds and a stale
 library is never loaded.  ``build_all`` starts one ``nvcc`` per source
 at once.  What ``nvcc`` printed is kept beside the library
-(:func:`build_log`): for ``flash_attention`` and ``dtw_wavefront`` that
-is ``ptxas``'s count of registers, shared memory and spills of every
-kernel.
+(:func:`build_log`): for ``flash_attention``, ``dtw_wavefront`` and
+``collision_count`` that is ``ptxas``'s count of registers, shared
+memory and spills of every kernel.
 
 Every wrapper counts its launches in :data:`LAUNCHES` under its kernel's
 name (one per kernel launch, nowhere else; :data:`KERNELS` lists the
@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 #: more flags for a library: ptxas's resource report of its kernels
 EXTRA_FLAGS = {"flash_attention": ("-Xptxas", "-v"),
-               "dtw_wavefront": ("-Xptxas", "-v")}
+               "dtw_wavefront": ("-Xptxas", "-v"),
+               "collision_count": ("-Xptxas", "-v")}
 
 C_INT, C_PTR = ctypes.c_int, ctypes.c_void_p
 C_I64, C_FLOAT = ctypes.c_longlong, ctypes.c_float

@@ -8,6 +8,11 @@ sequential searcher, one query row at a time).  The source says what
 bounds each and how its design answers that;
 ``kernels.ref.collision_count_batch_ref`` and
 ``kernels.ref.collision_count_ref`` are their plain PyTorch versions.
+
+Both kernels pad the key axis to :func:`k_pad` slots with the TPU
+kernel's sentinels, ``DB_PAD`` on the database side and ``Q_PAD`` on the
+query side, inside the kernel (nothing is padded on the host);
+``ref.collision_count_padded_ref`` is that rule in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -16,6 +21,25 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "collision_count"      # the library
+K_MULTIPLE = 8                # the kernels' key slots: K rounded up to this
+DB_PAD = -2 ** 31             # database-side sentinel (INT32_MIN)
+Q_PAD = 2 ** 31 - 1           # query-side sentinel (INT32_MAX)
+ONE_TILE = 256                # single-query kernel: database rows per tile
+
+
+def one_stage_words(k: int) -> int:
+    """int32 words of one stage of the single-query kernel's ring: the
+    tile's 256·k, up to 3 words of lead and 3 of tail from widening its
+    span to 16-byte boundaries, and the up to 7 slots its last row reads
+    past k; rounded up to 128 bytes (``one_stage_words`` in the source)."""
+    return (ONE_TILE * k + 16 + 31) // 32 * 32
+
+
+def k_pad(k: int) -> int:
+    """Key slots a kernel runs for signatures of width ``k``: ``k``
+    rounded up to a multiple of :data:`K_MULTIPLE` (the compile-time
+    width of the instance it launches)."""
+    return -(-k // K_MULTIPLE) * K_MULTIPLE
 
 
 def _check_int32_pair(query_keys, db_keys, fn: str) -> None:

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import dtw as _dtw
 from repro_torch.core.sketch import sketch_projections
+from repro_torch.kernels import collision_count as _cc
 from repro_torch.kernels.dtw_wavefront import ROWS_TILE
 from repro_torch.kernels.flash_attention import REORDER
 
@@ -44,6 +45,66 @@ def collision_count_ref(query_keys: torch.Tensor, db_keys: torch.Tensor
                         ) -> torch.Tensor:
     """query (K,), db (N, K) int32 -> (N,) int32 per-row match counts."""
     return (db_keys == query_keys[None, :]).sum(1, dtype=torch.int32)
+
+
+def collision_count_padded_ref(query_keys: torch.Tensor,
+                               db_keys: torch.Tensor) -> torch.Tensor:
+    """The kernels' padding rule: queries (B, K) padded to ``k_pad(K)``
+    slots with ``Q_PAD``, the database (N, K) with ``DB_PAD``, and every
+    slot compared -> (B, N) int32.  A padded slot compares the two
+    sentinels and never matches, so this equals
+    :func:`collision_count_batch_ref` for any keys, the sentinels
+    themselves included."""
+    (b, k), n = query_keys.shape, db_keys.shape[0]
+    extra = _cc.k_pad(k) - k
+    qp = torch.cat([query_keys, torch.full((b, extra), _cc.Q_PAD,
+                                           dtype=torch.int32,
+                                           device=query_keys.device)], 1)
+    dp = torch.cat([db_keys, torch.full((n, extra), _cc.DB_PAD,
+                                        dtype=torch.int32,
+                                        device=db_keys.device)], 1)
+    return collision_count_batch_ref(qp, dp)
+
+
+def collision_count_stream_ref(query_keys: torch.Tensor,
+                               db_keys: torch.Tensor, lead: int = 0
+                               ) -> torch.Tensor:
+    """The single-query kernel's walk over memory, in plain PyTorch:
+    query (K,), db (N, K) int32 -> (N,) int32, equal to
+    :func:`collision_count_ref`.
+
+    The matrix lies ``lead`` (0-3) words after a 16-byte boundary, in a
+    buffer whose other words hold ``Q_PAD`` (so a pad slot read from
+    memory instead of set to ``DB_PAD`` would match).  Tile t of
+    ``ONE_TILE`` rows is the span of words [w0, w1) widened to [s0, s1)
+    on 16-byte boundaries and copied into a stage of
+    ``one_stage_words(K)`` words; its rows are read at offset w0 - s0,
+    slots past K as ``DB_PAD``, against the query padded with ``Q_PAD``.
+    Asserts that no span reaches past the 16-byte chunks holding real
+    keys and that every read stays inside its stage."""
+    n, k = db_keys.shape
+    kp, tile, words = _cc.k_pad(k), _cc.ONE_TILE, _cc.one_stage_words(k)
+    end = (lead + n * k + 3) & ~3         # end of the last real chunk
+    flat = torch.full((end,), _cc.Q_PAD, dtype=torch.int32)
+    flat[lead:lead + n * k] = db_keys.reshape(-1).cpu()
+    qp = torch.cat([query_keys.cpu(),
+                    torch.full((kp - k,), _cc.Q_PAD, dtype=torch.int32)])
+    out = torch.empty(n, dtype=torch.int32)
+    for t in range(-(-n // tile)):
+        rows = min(tile, n - t * tile)
+        w0 = t * tile * k + lead
+        w1 = w0 + rows * k
+        s0, s1 = w0 & ~3, (w1 + 3) & ~3
+        assert 0 <= s0 and s1 <= end and s1 - s0 <= words
+        stage = torch.full((words,), _cc.Q_PAD, dtype=torch.int32)
+        stage[:s1 - s0] = flat[s0:s1]
+        idx = (w0 - s0 + k * torch.arange(rows)[:, None]
+               + torch.arange(kp)[None, :])
+        assert int(idx.max()) < words
+        vals = stage[idx]
+        vals[:, k:] = _cc.DB_PAD
+        out[t * tile:t * tile + rows] = (vals == qp).sum(1)
+    return out.to(db_keys.device)
 
 
 def dtw_pairs_ref(queries: torch.Tensor, candidates: torch.Tensor,

@@ -101,6 +101,85 @@ def test_single_query_collision_count_kernel_exact(cuda, k, n):
                        ref.collision_count_ref(db[7], db[5:]))
 
 
+_I32 = np.iinfo(np.int32)
+# keys with both sentinels of the kernels' padding in real slots
+_EXTREME = np.array([_I32.min, _I32.max, -1, 0, 1, 2], dtype=np.int32)
+
+
+def _keys(rng, shape, cuda):
+    """int32 keys, half of the columns drawn from _EXTREME and half from
+    {0, 1, 2}, so that counts spread and both sentinels appear."""
+    k = shape[-1]
+    x = rng.integers(0, 3, size=shape).astype(np.int32)
+    cols = rng.permutation(k)[:max(1, k // 2)]
+    x[..., cols] = rng.choice(_EXTREME, size=x[..., cols].shape)
+    return torch.tensor(x, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("k", [1, 8, 20, 33, 40, 64])
+@pytest.mark.parametrize("bo", [1, 7, 192, 193])
+@pytest.mark.parametrize("n", [100, 1300])
+def test_collision_count_batch_ragged_exact(cuda, k, bo, n):
+    """Ragged N (under one 256-row tile, and not a multiple of it),
+    ragged B·O (193 rows at K = 64 take two 48 KB staging passes), K
+    not a multiple of 8, both sentinels as real keys; queries share
+    the database's column draws, so that every count occurs."""
+    rng = np.random.default_rng(k * 1000 + bo + n)
+    db = _keys(rng, (n, k), cuda)
+    q = db[torch.tensor(rng.integers(0, n, bo), device=cuda)].clone()
+    flip = torch.tensor(rng.random((bo, k)) < 0.5, device=cuda)
+    q[flip] = _keys(rng, (bo, k), cuda)[flip]
+    got = ops.collision_count_batch(q, db)
+    assert torch.equal(got, ref.collision_count_batch_ref(q, db))
+    assert torch.equal(got, ref.collision_count_padded_ref(q, db))
+
+
+def test_collision_count_batch_serving_rows_and_views(cuda):
+    """The serving shape's 192 x 40 query rows against a few thousand
+    database rows, and both operands as views with misaligned bases
+    (db[5:] at K = 33)."""
+    rng = np.random.default_rng(17)
+    db = _keys(rng, (5000, 40), cuda)
+    q = db[torch.tensor(rng.integers(0, 5000, 192), device=cuda)]
+    assert torch.equal(ops.collision_count_batch(q, db),
+                       ref.collision_count_batch_ref(q, db))
+    db33 = _keys(rng, (3005, 33), cuda)[5:]
+    q33 = _keys(rng, (10, 33), cuda)[3:]
+    assert torch.equal(ops.collision_count_batch(q33, db33),
+                       ref.collision_count_batch_ref(q33, db33))
+
+
+@pytest.mark.parametrize("k", [1, 8, 20, 33, 40, 64])
+@pytest.mark.parametrize("n", [100, 257, 4097])
+@pytest.mark.parametrize("lead", [0, 1, 2, 3])
+def test_collision_count_single_ragged_exact(cuda, k, n, lead):
+    """Ragged N, K not a multiple of 8 or 4 (the word-by-word path),
+    both sentinels as real keys, and the database's base ``lead`` words
+    past a 16-byte boundary (a view db[lead:] of a 16-byte-aligned
+    block at K = 4j; any lead at odd K)."""
+    rng = np.random.default_rng(k * 100 + n + lead)
+    full = _keys(rng, (n + lead, k), cuda)
+    db = full[lead:]
+    q = db[int(rng.integers(0, n))].clone()
+    if k >= 3:
+        q[:k // 3] = _keys(rng, (k // 3,), cuda)
+    got = ops.collision_count(q, db)
+    assert torch.equal(got, ref.collision_count_ref(q, db))
+
+
+@pytest.mark.parametrize("k,lead", [(40, 0), (33, 5), (34, 1), (64, 0)])
+def test_collision_count_single_many_tiles(cuda, k, lead):
+    """More tiles than the ring holds on every SM (the stages refill
+    several times), at the serving width and at misaligned views."""
+    rng = np.random.default_rng(k + lead)
+    n = 300_000
+    db = _keys(rng, (n + lead, k), cuda)[lead:]
+    q = db[12345].clone()
+    got = ops.collision_count(q, db)
+    assert torch.equal(got, ref.collision_count_ref(q, db))
+    assert int(got[12345]) == k
+
+
 @pytest.mark.parametrize("band", [6, 25, None])
 @pytest.mark.parametrize("thr_kind", ["none", "scalar", "per_candidate"])
 def test_single_query_dtw_kernel_bit_identical(cuda, band, thr_kind):
