@@ -41,13 +41,23 @@
    card, on the very tensors its path handed it (recorded on one more
    run of the path): integers and count-sketch tables exact, DTW
    bit-identical, the sketch within the float32 bound of reordering an
-   80-term sum.  Times by CUDA events: the kernel, the plain version,
-   and one PyTorch call computing the same function where there is one;
-   the bound is the larger of bytes over 3.35 TB/s and operations over
+   80-term sum and bit for bit against ``ref.sketch_conv_fma_ref``, the
+   exact emulation of its fused multiply-add chain.  Times: ``ms`` is
+   the device time a launch (``torch.profiler``'s kernel records,
+   ``repro_torch.bench.device_time``), ``call_ms`` the time between
+   back-to-back calls by CUDA events, which reads host dispatch when a
+   call's host work outlasts its kernel; the same two for one PyTorch
+   call computing the same function where there is one
+   (``library_ms``, ``library_call_ms``); the plain version's call time.
+   The bound is the larger of bytes over 3.35 TB/s and operations over
    the peak rate of their type (H100 SXM: f32 outside the tensor cores
    67 TFLOP/s, int32 33.5 Tops/s; the DTW cell's 6 operations, none of
    which fuses, 33.5e12 a second).  The sketch is timed at a 4096-row
-   build chunk and at the query encode.  The collision-count kernels:
+   build chunk and at the query encode, with ptxas's registers and
+   spills of each sketch kernel (a spill, a stack frame or local memory
+   fails the run) and its SASS instructions a tap
+   (``repro_torch.bench.sketch_flash.tap_costs``).  The collision-count
+   kernels:
    ptxas's registers and spills of each (a spill, or local memory in the
    SASS, fails the run), the batch kernel's SASS instructions a key
    compared (``repro_torch.bench.collision_count.key_costs``), every
@@ -70,7 +80,8 @@
    granite-3-2b CONFIG at full width in bf16, random weights from a
    ``torch.Generator`` seeded by ``--seed``.  First the flash library's
    build report: ptxas's registers, stack and spills of every flash
-   kernel, and the count of tensor-core instructions (HGMMA, HMMA) in the
+   kernel (a spill, a stack frame or local memory in the SASS fails the
+   run), and the count of tensor-core instructions (HGMMA, HMMA) in the
    tensor-core kernel's SASS (``cuobjdump -sass``), which must not be 0.
    Then three more counted paths, each with 40 launches of the
    tensor-core kernel ``flash_attention`` (one a layer) and none of the
@@ -102,8 +113,9 @@
    flops per unmasked (query, key) pair at 989 TFLOP/s (bf16 tensor
    cores) or the q, k, v and o bytes at 3.35 TB/s, the larger.  The
    CUDA-core kernel gets its own entry, held to its plain version and
-   timed on the float32 gate's layer-0 inputs, its bound at the 67
-   TFLOP/s of float32 outside the tensor cores.
+   timed on the float32 gate's layer-0 inputs (device and call time,
+   ``scaled_dot_product_attention`` in float32 beside it), its bound at
+   the 67 TFLOP/s of float32 outside the tensor cores.
 
 Prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Imports nothing of JAX.
@@ -155,23 +167,28 @@ def log(*a):
 
 
 def cuda_time_ms(fn, min_iters=5, budget_ms=300.0):
-    """Mean ms per call by CUDA events, after a warm-up, over enough
-    calls to fill ``budget_ms``."""
-    fn()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(True), torch.cuda.Event(True)
-    t0.record()
-    fn()
-    t1.record()
-    torch.cuda.synchronize()
-    once = max(t0.elapsed_time(t1), 1e-3)
-    iters = max(min_iters, min(200, int(budget_ms / once)))
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    """Mean ms per call by CUDA events around back-to-back calls, after a
+    warm-up (``repro_torch.bench.device_time.call_ms``)."""
+    from repro_torch.bench.device_time import call_ms
+    return call_ms(fn, min_iters, budget_ms)
+
+
+def kernel_times(kernel_fn, library_fn=None):
+    """Device ms a call (``torch.profiler``'s kernel time,
+    ``repro_torch.bench.device_time``) as ``ms`` and the call time (CUDA
+    events around back-to-back calls) as ``call_ms``, of a kernel and of
+    its library yardstick when there is one; whether the profiled window
+    kept every record."""
+    from repro_torch.bench.device_time import timed
+    k = timed(kernel_fn)
+    out = dict(ms=k["device_ms"], call_ms=k["call_ms"],
+               device_window_complete=k["device_complete"])
+    if library_fn is not None:
+        lib = timed(library_fn)
+        out.update(library_ms=lib["device_ms"],
+                   library_call_ms=lib["call_ms"],
+                   library_window_complete=lib["device_complete"])
+    return out
 
 
 def bound_ms(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
@@ -496,9 +513,16 @@ def ssh_paths(args, counted, phases) -> list:
         return lambda: torch.nn.functional.conv1d(
             x[:, None, :], wconv, stride=step).transpose(1, 2)
 
+    sk_report = sketch_build_report(_build)
     sk = {}
     for tag, x in (("build", xb), ("query", xq)):
         kern = ops.sketch_conv(x, filt, step)
+        emu = ref.sketch_conv_fma_ref(x, filt, step)
+        if not torch.equal(kern, emu):
+            raise AssertionError(
+                f"sketch_conv ({tag} shape) is not bit-identical to "
+                f"sketch_conv_fma_ref: {int((kern != emu).sum())} outputs "
+                f"differ")
         plain = ref.sketch_conv_ref(x, filt, step)
         scale = ref.sketch_conv_ref(x.abs(), filt.abs(), step)
         err = (kern - plain).abs()
@@ -510,13 +534,15 @@ def ssh_paths(args, counted, phases) -> list:
                               2 * x.shape[0] * kern.shape[1] * f_ * w)
         sk[tag] = dict(
             max_abs_err=float(err.max()),
-            ms=cuda_time_ms(lambda: ops.sketch_conv(x, filt, step)),
+            **kernel_times(lambda: ops.sketch_conv(x, filt, step),
+                           conv_at(x)),
             plain_ms=cuda_time_ms(lambda: ref.sketch_conv_ref(x, filt, step)),
-            bound_ms=bms, bound_by=bkind, library_ms=cuda_time_ms(conv_at(x)),
+            bound_ms=bms, bound_by=bkind,
             library_max_abs_err=float((conv_at(x)() - plain).abs().max()),
             sign_flips=int(((kern >= 0) != (plain >= 0)).sum()),
             shape=f"x {tuple(x.shape)} filters {tuple(filt.shape)} "
                   f"step {step}")
+        sk[tag]["share_of_bound"] = bms / sk[tag]["ms"]
     entries.append(dict(
         name="sketch_conv", route="cuda",
         source="src/repro_torch/csrc/sketch_conv.cu",
@@ -524,9 +550,12 @@ def ssh_paths(args, counted, phases) -> list:
         launches=phases["batched"]["sketch_conv"], **sk["build"],
         launches_by_phase={p: c["sketch_conv"] for p, c in phases.items()},
         query_shape={k: sk["query"][k] for k in
-                     ("shape", "ms", "plain_ms", "bound_ms", "library_ms",
+                     ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
+                      "share_of_bound", "library_ms", "library_call_ms",
                       "max_abs_err", "sign_flips")},
-        tolerance="|err| <= 2*W*2^-24*sum|x*f|",
+        tolerance="bit-identical to ref.sketch_conv_fma_ref; |err| <= "
+                  "2*W*2^-24*sum|x*f| against the plain version",
+        sass=sk_report["sass"], registers=sk_report["registers"],
         library="F.conv1d(stride=step), cudnn.allow_tf32=False"))
 
     def check_hash_range(qk, dbk):
@@ -558,10 +587,11 @@ def ssh_paths(args, counted, phases) -> list:
         source="src/repro_torch/csrc/collision_count.cu",
         replaces="src/repro/kernels/collision_count.py:68",
         launches=phases["batched"]["collision_count_batch"], max_abs_err=0.0,
-        ms=cuda_time_ms(lambda: ops.collision_count_batch(qk, dbk)),
+        **kernel_times(lambda: ops.collision_count_batch(qk, dbk),
+                       cdist_counts),
         plain_ms=cuda_time_ms(
             lambda: ref.collision_count_batch_ref(qk, dbk)),
-        bound_ms=bms, bound_by=bkind, library_ms=cuda_time_ms(cdist_counts),
+        bound_ms=bms, bound_by=bkind,
         shape=f"queries {tuple(qk.shape)} db {tuple(dbk.shape)}",
         tolerance="exact", library="K - torch.cdist(q, db, p=0)",
         probe_split=probe_split, sass=cc_report["sass"],
@@ -592,9 +622,9 @@ def ssh_paths(args, counted, phases) -> list:
         launches_by_phase={p: c["collision_count"]
                            for p, c in phases.items()},
         max_abs_err=0.0,
-        ms=cuda_time_ms(lambda: ops.collision_count(q1, dbk1)),
+        **kernel_times(lambda: ops.collision_count(q1, dbk1), cdist_one),
         plain_ms=cuda_time_ms(lambda: ref.collision_count_ref(q1, dbk1)),
-        bound_ms=bms, bound_by=bkind, library_ms=cuda_time_ms(cdist_one),
+        bound_ms=bms, bound_by=bkind,
         shape=f"query {tuple(q1.shape)} db {tuple(dbk1.shape)}; "
               f"{len(cc_calls)} calls (one per probe row) checked",
         tolerance="exact", library="K - torch.cdist(q[None], db, p=0)"))
@@ -637,13 +667,15 @@ def ssh_paths(args, counted, phases) -> list:
         per_sched = {s: float(np.mean(v)) for s, v in in_turns(
             {s: (lambda s=s: fn(q, c, r, thr, schedule=s))
              for s in dtw_schedules_for(r)}).items()}
-        ms = per_sched[rule]
+        times = kernel_times(lambda: fn(q, c, r, thr, schedule=rule))
+        ms = times["ms"]
         plain_fn = ((lambda: ref.dtw_pairs_ref(q, c, r, thr)) if pairs
                     else (lambda: ref.dtw_wavefront_ref(q, c, r, thr)))
         return dict(
-            ms=ms, plain_ms=cuda_time_ms(plain_fn, min_iters=min_plain_iters),
+            **times,
+            plain_ms=cuda_time_ms(plain_fn, min_iters=min_plain_iters),
             bound_ms=bms, bound_by=bkind, schedule=rule,
-            schedule_ms=per_sched, cells=cells,
+            schedule_call_ms=per_sched, cells=cells,
             gcells_per_s=cells / ms / 1e6, share_of_bound=bms / ms,
             shape=f"{'pairs' if pairs else 'query'} {tuple(q.shape)} "
                   f"candidates {tuple(c.shape)} radius {r} threshold "
@@ -704,8 +736,9 @@ def ssh_paths(args, counted, phases) -> list:
                 log(f"dtw {e['name']} [{shape['shape']}]: {shape['schedule']}"
                     f" {shape['ms']:.4f} ms, {shape['gcells_per_s']:.1f} "
                     f"Gcells/s, {shape['share_of_bound']:.3f} of the "
-                    f"{shape['bound_ms']:.4f} ms bound; both schedules in "
-                    f"turns {shape['schedule_ms']}")
+                    f"{shape['bound_ms']:.4f} ms bound (device time; call "
+                    f"time {shape['call_ms']:.4f}); both schedules' call "
+                    f"times in turns {shape['schedule_call_ms']}")
 
     # cs_tables: the level-0 tables of one 4096-row build chunk
     (bkt, sgn, width), _ = rec_c.calls["cs_tables"][0]
@@ -732,9 +765,9 @@ def ssh_paths(args, counted, phases) -> list:
         source="src/repro_torch/csrc/count_sketch.cu",
         replaces="src/repro/kernels/count_sketch.py:51",
         launches=phases["streaming"]["cs_tables"], max_abs_err=0.0,
-        ms=cuda_time_ms(lambda: ops.cs_tables(bkt, sgn, width)),
+        **kernel_times(lambda: ops.cs_tables(bkt, sgn, width), scatter_lib),
         plain_ms=cuda_time_ms(lambda: ref.cs_tables_ref(bkt, sgn, width)),
-        bound_ms=bms, bound_by=bkind, library_ms=cuda_time_ms(scatter_lib),
+        bound_ms=bms, bound_by=bkind,
         shape=f"bucket {tuple(bkt.shape)} width {width}; "
               f"{float((kern == 0).float().mean()):.4f} of the bins zero",
         tolerance="bit-identical",
@@ -908,6 +941,43 @@ def collision_build_report(_build):
     return dict(sass=sass, ptxas_kernels=len(kernels), registers=regs)
 
 
+def no_spill(kernels, what):
+    """Fail on a ptxas report of spilled bytes or a stack frame."""
+    import re
+    bad = {k: i for k, i in kernels.items()
+           if any(re.search(r"[1-9]\d* bytes (spill|stack)", x) for x in i)}
+    if bad:
+        raise AssertionError(f"{what} spill or use a stack frame: {bad}")
+
+
+def sketch_build_report(_build):
+    """Print what ptxas said of every sketch kernel (a spill, or local
+    memory in the SASS, fails the run) and the SASS instructions a filter
+    tap of each (``bench.sketch_flash.tap_costs``)."""
+    import re
+    from repro_torch.bench.sketch_flash import tap_costs
+
+    def label(mangled):
+        m = re.search(r"sketch_conv_kernelILi(\d+)ELi(\d+)E", mangled)
+        if not m:
+            return mangled
+        return ("sketch_conv_kernel<runtime>" if m.group(1) == "0" else
+                f"sketch_conv_kernel<{m.group(1)},{m.group(2)}>")
+    kernels = ptxas_report(_build, "sketch_conv", label)
+    no_spill(kernels, "sketch kernels")
+    costs = tap_costs(str(_build.library_path("sketch_conv")))
+    if costs["local_memory"]:
+        raise AssertionError(f"sketch kernels use local memory: "
+                             f"{costs['local_memory']}")
+    sass = {k: {a: (round(v[a], 3) if isinstance(v[a], float) else v[a])
+                for a in ("per_tap", "scope", "instructions", "ffma", "ops")}
+            for k, v in costs["kernels"].items()}
+    log(f"SASS of the sketch kernels, the FFMA loop: {sass}")
+    regs = {k: next((x for x in i if "registers" in x), "")
+            for k, i in kernels.items()}
+    return dict(sass=sass, registers=regs)
+
+
 def probe_split_ms(qk, dbk, cfg):
     """CUDA-event ms of the batched probe stage's three parts on one
     recorded input (``serving.batched.batch_probe``): the kernel, the max
@@ -942,9 +1012,11 @@ def flash_build_report(_build, lib):
         args = ("bf16," if "nv_bfloat16" in name else
                 "float," if "_kernelIf" in name else "")
         dp = re.search(r"Li(\d+)E", name)
+        copy = ",cp.async" if "Lb1E" in name else ""
         return (f"{kind.group(0) if kind else name}<{args}"
-                f"{dp.group(1) if dp else '?'}>")
-    ptxas_report(_build, "flash_attention", label)
+                f"{dp.group(1) if dp else '?'}{copy}>")
+    no_spill(ptxas_report(_build, "flash_attention", label),
+             "flash kernels")
     log(f"flash_attention_tc_kernel dynamic shared memory: "
         f"{lib.flash_attention_tc_smem_bytes(64)} bytes at D <= 64, "
         f"{lib.flash_attention_tc_smem_bytes(128)} at D <= 128")
@@ -956,14 +1028,18 @@ def flash_build_report(_build, lib):
     sass = subprocess.run([tool, "-sass",
                            str(_build.library_path("flash_attention"))],
                           capture_output=True, text=True, check=True).stdout
-    counts, cur = {}, None
+    counts, cur, local = {}, None, set()
     for line in sass.splitlines():
         if "Function :" in line:
             cur = line.split("Function :")[1].strip()
+        elif cur and re.search(r"\b(LDL|STL)\b", line):
+            local.add(label(cur))
         elif cur and "flash_attention_tc_kernel" in cur:
             for op in ("HGMMA", "HMMA"):
                 if re.search(rf"\b{op}\.", line):
                     counts[op] = counts.get(op, 0) + 1
+    if local:
+        raise AssertionError(f"flash kernels use local memory: {local}")
     log(f"SASS of flash_attention_tc_kernel (both head-dim variants): "
         f"{counts}")
     if not counts.get("HGMMA", 0) + counts.get("HMMA", 0):
@@ -1083,6 +1159,10 @@ def lm_path(args, counted, phases) -> dict:
     q32, k32, v32 = rec32.calls["flash_attention"][0][0][:3]
     del params32, rec32
     gate32 = check_prefill_against_decode(res32, GATE_REL_TOL["float32"])
+    log(f"lm_serve_f32: prefill of {SERVE_BATCH} x {SERVE_PROMPT} in "
+        f"float32 {res32.prefill_s:.4f} s ({cfg.n_layers} "
+        f"flash_attention_simt launches); prompt stepping "
+        f"{res32.prompt_s:.3f} s")
     off = {name: float((a.float() - b).abs().max())
                / gate32["max_abs_logit"]
            for name, a, b in (
@@ -1188,13 +1268,17 @@ def lm_path(args, counted, phases) -> dict:
                                ("long", (ql, kl, vl)))}
     mean = {tag: {n: sum(ms) / len(ms) for n, ms in t.items()}
             for tag, t in turns.items()}
-    log(f"lm flash in turns (ms of each turn): {turns}")
+    log(f"lm flash in turns (call ms of each turn): {turns}")
+    dev_t = {tag: kernel_times(lambda q=q, k=k, v=v: ops.flash_attention(
+        q, k, v), sdpa_at(q, k, v))
+        for tag, (q, k, v) in (("batch", (qb, kb, vb)),
+                               ("long", (ql, kl, vl)))}
+    log(f"lm flash device and call ms: {dev_t}")
     long_entry = dict(
-        ms=mean["long"]["tensor_core"],
+        **dev_t["long"],
         bound_ms=lbms, bound_by=lbkind,
-        library_ms=mean["long"]["library"],
-        cuda_core_ms=mean["long"]["cuda_core"],
-        share_of_bound=lbms / mean["long"]["tensor_core"],
+        cuda_core_call_ms=mean["long"]["cuda_core"],
+        share_of_bound=lbms / dev_t["long"]["ms"],
         plain_ms=None,
         plain_note=f"not timed at all {ql.shape[1]} heads: "
                    f"{ql.shape[1] * ql.shape[2] ** 2 * 4 / 1e9:.0f} GB of "
@@ -1212,17 +1296,19 @@ def lm_path(args, counted, phases) -> dict:
                              f"version beyond float32 reordering: max err "
                              f"{float(err32.max())}")
     sbms, sbkind = flash_bound(q32, k32, F32_OPS_PER_S)
+    simt_times = kernel_times(lambda: ops.flash_attention(q32, k32, v32),
+                              sdpa_at(q32, k32, v32))
     simt_entry = dict(
         name="flash_attention_simt", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:67",
         launches=phases["lm_serve_f32"]["flash_attention_simt"],
         max_abs_err=float(err32.max()),
-        ms=cuda_time_ms(lambda: ops.flash_attention(q32, k32, v32)),
+        **simt_times,
         plain_ms=cuda_time_ms(lambda: ref.flash_attention_ref(
             q32, k32, v32, causal=True)),
         bound_ms=sbms, bound_by=sbkind,
-        library_ms=cuda_time_ms(sdpa_at(q32, k32, v32)),
+        share_of_bound=sbms / simt_times["ms"],
         shape=f"q {tuple(q32.shape)} k/v {tuple(k32.shape)} float32 causal "
               f"(layer 0 of the float32 gate's prefill of {SERVE_BATCH} x "
               f"{SERVE_PROMPT})",
@@ -1241,12 +1327,13 @@ def lm_path(args, counted, phases) -> dict:
         launches_by_phase={p: c["flash_attention"]
                            for p, c in phases.items()},
         max_abs_err=max(c["plain"]["max_abs_err"] for c in checks.values()),
-        ms=mean["batch"]["tensor_core"],
+        **dev_t["batch"],
         plain_ms=cuda_time_ms(lambda: ref.flash_attention_ref(
             qb, kb, vb, causal=True), min_iters=2),
-        bound_ms=bms, bound_by=bkind, library_ms=mean["batch"]["library"],
-        cuda_core_ms=mean["batch"]["cuda_core"],
-        share_of_bound=bms / mean["batch"]["tensor_core"],
+        bound_ms=bms, bound_by=bkind,
+        cuda_core_call_ms=mean["batch"]["cuda_core"],
+        turns_call_ms=turns,
+        share_of_bound=bms / dev_t["batch"]["ms"],
         sass=sass_counts,
         library_max_abs_err=lib_err,
         shape=f"q {tuple(qb.shape)} k/v {tuple(kb.shape)} bf16 causal "
@@ -1325,10 +1412,12 @@ def main() -> int:
     entries.extend(lm_path(args, counted, phases))
 
     for e in entries:
-        log(f"kernel {e['name']}: kernel_ms {e['ms']:.4f} plain_ms "
-            f"{e['plain_ms']:.4f} library_ms {e['library_ms']} bound_ms "
-            f"{e['bound_ms']:.4f} ({e['bound_by']}) launches {e['launches']}"
-            f" max_err {e['max_abs_err']} [{e['shape']}]")
+        log(f"kernel {e['name']}: device ms {e['ms']:.4f} call ms "
+            f"{e['call_ms']:.4f} plain_ms {e['plain_ms']:.4f} library "
+            f"device ms {e['library_ms']} bound_ms {e['bound_ms']:.4f} "
+            f"({e['bound_by']}, {e['bound_ms'] / e['ms']:.3f} of it) "
+            f"launches {e['launches']} max_err {e['max_abs_err']} "
+            f"[{e['shape']}]")
         for extra in ("query_shape", "sequential_shape", "long_shape"):
             if extra in e:
                 log(f"kernel {e['name']} at the {extra.split('_')[0]} shape: "

@@ -44,10 +44,11 @@ SERVING = dict(b=192, n=1 << 20, k=40)       # 64 queries x 3 offsets
 BATCH_R = 2              # database rows a thread of the batch kernel holds
 
 
-def hot_loop(ins: List[tuple]) -> collections.Counter:
+def hot_loop(ins: List[tuple], opcode: str = "ISETP"
+             ) -> collections.Counter:
     """Opcodes of the innermost backward-branch loop (one that holds no
-    other) with the most ISETPs: the walk over query rows, its key loop
-    unrolled."""
+    other) with the most ``opcode``s: for the batch kernel, ISETP, the
+    walk over query rows, its key loop unrolled."""
     loops = []
     for k, (addr, text) in enumerate(ins):
         tgt = re.search(_TARGET, text)
@@ -60,7 +61,7 @@ def hot_loop(ins: List[tuple]) -> collections.Counter:
                         for s2, e2, _ in loops)]
     if not inner:
         return collections.Counter()
-    return max(inner, key=lambda x: x[2]["ISETP"])[2]
+    return max(inner, key=lambda x: x[2][opcode])[2]
 
 
 def key_costs(lib: str) -> dict:
@@ -88,20 +89,20 @@ def key_costs(lib: str) -> dict:
     return dict(batch=out, local_memory=local)
 
 
-def build(src: Path, tag: str) -> ctypes.CDLL:
-    """``src`` compiled with the library's flags into
-    ``build/repro_torch/bench/<tag>.so``; loaded with the library's C
-    signatures.  ptxas's report is kept beside it."""
+def build(src: Path, tag: str, name: str = NAME) -> ctypes.CDLL:
+    """``src`` compiled with the kernel libraries' flags into
+    ``build/repro_torch/bench/<tag>.so``; loaded with the C signatures of
+    library ``name``.  ptxas's report is kept beside it."""
     out = _build.BUILD_DIR / "bench" / f"{tag}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [_build._nvcc(), *_build._flags(NAME), "-o", str(out), str(src)]
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(f"nvcc failed for {src} ({tag}):\n{res.stdout}"
                            f"{res.stderr}")
     out.with_suffix(".log").write_text(res.stdout + res.stderr)
     lib = ctypes.CDLL(str(out))
-    for fn, argtypes in _build.SIGNATURES[NAME].items():
+    for fn, argtypes in _build.SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib

@@ -69,21 +69,51 @@
 //    products beside another's softmax.
 //
 // 2. flash_attention_simt_kernel: float32 inputs and every other bf16
-//    input.  One block of 256 threads owns one (b*h, 64-row query tile).
-//    It stages the scaled query tile in shared memory as float32 once,
-//    then loops over 64-key tiles of K and V staged the same way, and
-//    keeps the online-softmax recurrence (running max m, sum l, 64 x D
-//    accumulator) in float32 registers: thread (ty, tx) of the 16 x 16
-//    grid owns query rows 4*ty..4*ty+3, logit columns tx + 16*j and
-//    output columns tx + 16*j.  The row max and row sum reduce over the 16
-//    lanes of a half-warp by shuffles; the probabilities pass through
-//    shared memory to the P.V product.  What bounds it: both products run
-//    as float32 FMAs on the CUDA cores (at most 67 TFLOP/s), 15x or more
-//    above the tensor-core bound, with synchronous loads.  It keeps full
-//    float32 products, which is what the float32 route needs (a 1e-4 bar
-//    on the float32 model).  Shared rows are padded to D + 1 floats, so
-//    every shared-memory read in the two products is conflict-free or a
-//    broadcast.
+//    input, on the CUDA cores in full float32 (the float32 route is held
+//    to 1e-4 on the float32 model, which 3xTF32 would be a different
+//    contract for).  Bound: both products as float32 FMAs, 4*D flops a
+//    unmasked (query, key) pair at 67 TFLOP/s; at the float32 serve
+//    gate's layer (q 8 x 32 heads x 128, 8 KV heads, D 64, causal) that
+//    is 0.0081 ms, and its q, k, v and o bytes take 0.0063 ms.  What holds
+//    it there is latency, not either rate: one warp on a SM sub-partition
+//    issues these FFMA streams at under half an instruction a clock even
+//    with every operand loaded first (measured, PERF.md), so the design
+//    keeps several warps on each sub-partition and each warp's chain short:
+//    * A block is 64 query rows of one head, 4 warps of 16 rows.  A thread
+//      owns 4 rows (tr + 4 i of its warp) and 8 keys (tc + 8 j of a 64-key
+//      tile) of the logits, and the same rows by 4 * D / 32 output
+//      columns: register micro-tiles read with 16-byte shared loads (D
+//      four at a time in S = Q K^T; 4 keys at a time in P V), 1.5 bytes of
+//      shared memory a FFMA.  Rows of Q, K and V are padded to D + 4
+//      floats, so the 16-byte loads of 4 consecutive rows (Q) or 8 (K) or
+//      of one row's 8 chunks (V) fall in distinct bank groups.
+//    * One stage of K and V, filled by cp.async 16-byte copies (float32
+//      inputs whose base pointers, (b, h, s) strides and D are 16-byte
+//      multiples; everything else, bf16 or odd views, by plain loads that
+//      convert to float32), the first with Q.  P leaves registers once:
+//      each warp writes its rows of P over the consumed K tile (a block
+//      barrier after the logits) and reads them back as 16-byte
+//      broadcasts.  That is 52 KB of shared memory a block at D <= 64, so
+//      the registers (168 a thread, 3 blocks a SM) and not shared memory
+//      set the residency: 12 warps a SM, and every block of the gate's
+//      layer (512 of them, the heaviest query tiles first) on the card at
+//      once.  A second K/V stage would hold 2 blocks a SM, and the next
+//      tile lands under the other blocks' compute instead.
+//    * The causal diagonal is cut in the warp's own row span: tiles past it
+//      are not visited; in the tile that crosses it the 16-key sub-blocks
+//      past it are never read, and on the diagonal sub-block (keys
+//      wq0 + 8 jj + tc against rows wq0 + 4 i + tr, aligned because both
+//      start at multiples of 16) the (row group i, key group jj) pairs
+//      with 8 jj > 4 i + 3, all masked, are skipped in both products
+//      (compile-time variants of the logits' loop, a uniform branch a
+//      block of 4 keys in P V).  The softmax and P V are one copy of code
+//      for every variant: long straight-line code runs at the speed of
+//      instruction fetch.
+//    * The scale (times log2 e) is folded into Q once; p = 2^(x - m) by
+//      one MUFU op; each lane keeps its partial row sum and the 8 lanes of
+//      a row add them once at the end, where one reciprocal a row scales
+//      the output.  Columns >= D and rows >= S or T are zero in shared
+//      memory.
 #include <cuda.h>            // CUtensorMap and its enums; no -lcuda needed
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,10 +134,39 @@ constexpr int MAX_D = 128;
 // 2. CUDA-core kernel (float32, and bf16 inputs the tensor-core rule refuses)
 namespace simt {
 
-constexpr int BM = 64;         // query rows per block
-constexpr int BN = 64;         // keys per tile
-constexpr int THREADS = 256;   // 16 x 16
+constexpr int BM = 64;         // query rows a block
+constexpr int BN = 64;         // keys a tile: 8 groups of 8
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// DP: the head dim rounded up to a multiple of 32 (columns D..DP-1 are
+// zero in the shared tiles and never stored)
+template <int DP>
+struct Cfg {
+  static_assert(DP % 32 == 0 && DP <= MAX_D, "head-dim tile");
+  static constexpr int MR = 4;                  // query rows a thread
+  static constexpr int WR = 4 * MR;             // query rows a warp
+  static constexpr int WARPS = BM / WR;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int GPS = WR / 8;            // key groups a sub-block
+  static constexpr int SB = BN / WR;            // WR-key sub-blocks a tile
+  static_assert(SB == 4, "logits() has a case for each sub-block");
+  static constexpr int LD = DP + 4;             // floats a Q, K or V row
+  static constexpr int NC = DP / 32;            // 4-column O chunks a thread
+  static constexpr int Q_FLOATS = BM * LD;
+  static constexpr int KV_FLOATS = BN * LD;
+  // P takes the K tile's place once every warp has its logits, where a
+  // 64-key row fits in a K row; otherwise a region of its own
+  static constexpr bool P_IN_K = LD >= BN + 4;
+  static constexpr int LDP = P_IN_K ? LD : BN + 8;   // floats a P row
+  static constexpr int SMEM = static_cast<int>(sizeof(float)) *
+                              (Q_FLOATS + 2 * KV_FLOATS +
+                               (P_IN_K ? 0 : BM * LDP));
+  // blocks a SM asked of ptxas's register allocation: 3 at D <= 64 (168
+  // registers a thread; 4, which shared memory would allow, spills), 2
+  // above, where shared memory holds 2
+  static constexpr int MIN_BLOCKS = SMEM <= 56 * 1024 ? 3 : 2;
+};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -118,27 +177,216 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-constexpr int smem_floats(int dp) {
-  return (BM + 2 * BN) * (dp + 1) + BM * (BN + 1);
+// component c (0..3, known at compile time) of a float4
+__device__ __forceinline__ float lane4(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
-// DP: the head dim rounded up to a multiple of 16 (columns D..DP-1 are
-// zero in the shared tiles and never stored).
-template <typename T, int DP>
-__global__ void __launch_bounds__(THREADS)
+// 16 bytes global -> shared, or 16 zero bytes when !full
+__device__ __forceinline__ void cp_async16(float* dst, const void* src,
+                                           bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows r0 .. r0 + ROWS - 1 of one head (row stride ss, D columns) into a
+// ROWS x LD float tile; rows >= L and columns >= D become zero
+template <typename T, int DP, int ROWS, bool ASYNC>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
+                                          int L, long long ss, int D) {
+  using C = Cfg<DP>;
+  if constexpr (ASYNC) {
+    constexpr int CH = DP / 4;
+    for (int i = threadIdx.x; i < ROWS * CH; i += C::THREADS) {
+      const int r = i / CH, c = (i - r * CH) * 4;
+      const bool ok = r0 + r < L && c < D;
+      cp_async16(dst + r * C::LD + c, ok ? src + (r0 + r) * ss + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DP; i += C::THREADS) {
+      const int r = i / DP, c = i - r * DP;
+      float x = 0.0f;
+      if (r0 + r < L && c < D) x = to_float(src[(r0 + r) * ss + c]);
+      dst[r * C::LD + c] = x;
+    }
+  }
+}
+
+// Does the thread's logit pair (row group i, key group j) hold a key that
+// a row of the group sees?  Always outside the diagonal (TRI < 0); on the
+// diagonal sub-block TRI only where 8 jj <= 4 i + 3 (jj = j - TRI * GPS);
+// never past it.
+template <int DP, int TRI>
+__host__ __device__ constexpr bool active(int i, int j) {
+  constexpr int G = Cfg<DP>::GPS;
+  return TRI < 0 || j / G < TRI ||
+         (j / G == TRI && 8 * (j - TRI * G) <= 4 * i + 3);
+}
+
+// S = Q K^T of one 64-key tile on the thread's active pairs (the only
+// part specialised by TRI: the products are where the diagonal's skipped
+// pairs save time; the rest of the tile is one copy of code)
+template <int DP, int TRI>
+__device__ __forceinline__ void tile_logits(
+    const float* __restrict__ Qw, const float* __restrict__ Kt, int tr,
+    int tc, float (&s)[Cfg<DP>::MR][8]) {
+  using C = Cfg<DP>;
+  constexpr int MR = C::MR, LD = C::LD;
+  constexpr int JN = TRI < 0 ? 8 : (TRI + 1) * C::GPS;   // groups touched
+#pragma unroll 1
+  for (int d = 0; d < DP; d += 4) {
+    // every operand of the step first, so that one load latency is paid
+    // a step and not one a row
+    float4 kf[JN], qf[MR];
+#pragma unroll
+    for (int j = 0; j < JN; ++j)
+      kf[j] = *reinterpret_cast<const float4*>(Kt + (tc + 8 * j) * LD + d);
+#pragma unroll
+    for (int i = 0; i < MR; ++i)
+      qf[i] = *reinterpret_cast<const float4*>(Qw + (tr + 4 * i) * LD + d);
+#pragma unroll
+    for (int i = 0; i < MR; ++i)
+      // a column of D at a time over every key, so that consecutive FFMAs
+      // of a logit lie JN instructions apart
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int j = 0; j < JN; ++j)
+          if (active<DP, TRI>(i, j))
+            s[i][j] = fmaf(lane4(qf[i], c), lane4(kf[j], c), s[i][j]);
+  }
+}
+
+// 2^x in one MUFU op (denormal results flush to 0: a weight below 2^-126
+// of the row's largest, as the bound allows)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = Q K^T of a 64-key tile on the thread's pairs: ``tri`` is the warp's
+// diagonal sub-block in this tile, or -1.  Key groups past it are never
+// read (masked for every row of the warp), and the pairs that active()
+// skips are masked by causality, so the softmax needs no other test.
+template <int DP>
+__device__ __forceinline__ void logits(const float* __restrict__ Qw,
+                                       const float* __restrict__ Kt, int tr,
+                                       int tc, int tri,
+                                       float (&s)[Cfg<DP>::MR][8]) {
+  using C = Cfg<DP>;
+#pragma unroll
+  for (int i = 0; i < C::MR; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+  switch (tri) {
+    case -1: tile_logits<DP, -1>(Qw, Kt, tr, tc, s); break;
+    case 0: tile_logits<DP, 0>(Qw, Kt, tr, tc, s); break;
+    case 1: tile_logits<DP, 1>(Qw, Kt, tr, tc, s); break;
+    case 2: tile_logits<DP, 2>(Qw, Kt, tr, tc, s); break;
+    case 3: tile_logits<DP, 3>(Qw, Kt, tr, tc, s); break;
+  }
+}
+
+// The online softmax of the tile's logits, P to the warp's shared rows,
+// O += P V.
+template <int DP>
+__device__ __forceinline__ void softmax_pv(
+    float (&s)[Cfg<DP>::MR][8], const float* __restrict__ Vt,
+    float* __restrict__ Pw, int tr, int tc, int wq0, int k0, int Tk,
+    int causal, int tri, float (&m)[Cfg<DP>::MR], float (&l)[Cfg<DP>::MR],
+    float (&acc)[Cfg<DP>::MR][4 * Cfg<DP>::NC]) {
+  using C = Cfg<DP>;
+  constexpr int MR = C::MR, LD = C::LD, LDP = C::LDP, NC = C::NC;
+  const int jn = tri < 0 ? 8 : (tri + 1) * C::GPS;      // groups touched
+#pragma unroll
+  for (int i = 0; i < MR; ++i) {
+    const int row = wq0 + tr + 4 * i;
+    float mt = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int key = k0 + tc + 8 * j;
+      const bool ok = key < Tk && (!causal || key <= row);
+      s[i][j] = ok ? s[i][j] : -INFINITY;
+      mt = fmaxf(mt, s[i][j]);
+    }
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
+    const float m_new = fmaxf(m[i], mt);
+    const float corr = fast_exp2(m[i] - m_new);
+    m[i] = m_new;
+    float rs = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p = fast_exp2(s[i][j] - m_new);   // masked: 2^-inf = 0
+      rs += p;
+      Pw[(tr + 4 * i) * LDP + tc + 8 * j] = p;
+    }
+    l[i] = l[i] * corr + rs;                      // this lane's keys only
+#pragma unroll
+    for (int c = 0; c < 4 * NC; ++c) acc[i][c] *= corr;
+  }
+  __syncwarp();
+
+#pragma unroll 1
+  for (int j = 0; j < jn; ++j) {
+    // the first row group with a key of group j (active() by rows)
+    const int imin = (tri < 0 || j < tri * C::GPS) ? 0
+                                                    : 2 * (j - tri * C::GPS);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // 4 keys: their V rows and every row's 4 weights, loaded first
+      const int c0 = 8 * j + 4 * h;
+      float4 vv[4][NC], pp[MR];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int u = 0; u < NC; ++u)
+          vv[e][u] = *reinterpret_cast<const float4*>(
+              Vt + (c0 + e) * LD + 32 * u + 4 * tc);
+#pragma unroll
+      for (int i = 0; i < MR; ++i)
+        pp[i] = *reinterpret_cast<const float4*>(Pw + (tr + 4 * i) * LDP + c0);
+#pragma unroll
+      for (int i = 0; i < MR; ++i) {
+        if (i < imin) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int u = 0; u < NC; ++u)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              acc[i][4 * u + c] = fmaf(lane4(pp[i], e), lane4(vv[e][u], c),
+                                       acc[i][4 * u + c]);
+      }
+    }
+  }
+}
+
+template <typename T, int DP, bool ASYNC>
+__global__ void __launch_bounds__(Cfg<DP>::THREADS, Cfg<DP>::MIN_BLOCKS)
 flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H,
-                       int group, int S, int Tk, int D, Strides sq,
-                       Strides sk, Strides sv, Strides so, float scale,
-                       int causal) {
-  constexpr int LD = DP + 1;
-  constexpr int LP = BN + 1;
-  constexpr int NJ = DP / 16;   // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;             // BM x LD, scaled
-  float* Ks = Qs + BM * LD;     // BN x LD
-  float* Vs = Ks + BN * LD;     // BN x LD
-  float* Ps = Vs + BN * LD;     // BM x LP
+                            const T* __restrict__ v, T* __restrict__ o,
+                            int H, int group, int S, int Tk, int D,
+                            Strides sq, Strides sk, Strides sv, Strides so,
+                            float scale, int causal) {
+  using C = Cfg<DP>;
+  constexpr int MR = C::MR, NC = C::NC, LD = C::LD;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                               // BM x LD, scaled
+  float* Ks = Qs + C::Q_FLOATS;                   // BN x LD, then P
+  float* Vs = Ks + C::KV_FLOATS;                  // BN x LD
+  float* Ps = C::P_IN_K ? Ks : Vs + C::KV_FLOATS;
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H, hk = h / group;
@@ -147,159 +395,146 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kp = k + b * sk.b + hk * sk.h;
   const T* vp = v + b * sv.b + hk * sv.h;
   T* op = o + b * so.b + h * so.h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tr = lane >> 3, tc = lane & 7;
+  const int wq0 = q0 + warp * C::WR;              // the warp's first row
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  // keys past the last query row are masked for every row of it
+  const int kv_end = causal ? min(Tk, q0 + BM) : Tk;
+  const int w_end = wq0 >= S ? 0 : causal ? min(Tk, wq0 + C::WR) : Tk;
+  const int ntiles = (kv_end + BN - 1) / BN;
 
-  for (int i = tid; i < BM * DP; i += THREADS) {
-    const int r = i / DP, d = i - r * DP;
-    float x = 0.0f;
-    if (q0 + r < S && d < D) x = to_float(qp[(q0 + r) * sq.s + d]) * scale;
-    Qs[r * LD + d] = x;
-  }
-
-  float m[4], l[4], acc[4][NJ];
+  load_rows<T, DP, BM, ASYNC>(Qs, qp, q0, S, sq.s, D);
+  float m[MR], l[MR], acc[MR][4 * NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MR; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
+    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.0f;
   }
 
-  // keys past the tile's last query row are masked for every row of it
-  const int kv_end = causal ? min(Tk, q0 + BM) : Tk;
-  for (int k0 = 0; k0 < kv_end; k0 += BN) {
-    __syncthreads();   // the previous tile's K, V and P are consumed
-    for (int i = tid; i < BN * DP; i += THREADS) {
-      const int r = i / DP, d = i - r * DP;
-      float kx = 0.0f, vx = 0.0f;
-      if (k0 + r < Tk && d < D) {
-        kx = to_float(kp[(k0 + r) * sk.s + d]);
-        vx = to_float(vp[(k0 + r) * sv.s + d]);
-      }
-      Ks[r * LD + d] = kx;
-      Vs[r * LD + d] = vx;
+  for (int t = 0; t < ntiles; ++t) {
+    // the tile's K and V (the slots were freed by the last barrier); the
+    // first comes with Q
+    load_rows<T, DP, BN, ASYNC>(Ks, kp, t * BN, Tk, sk.s, D);
+    load_rows<T, DP, BN, ASYNC>(Vs, vp, t * BN, Tk, sv.s, D);
+    if constexpr (ASYNC) {
+      cp_async_commit();
+      cp_async_wait<0>();
     }
     __syncthreads();
-
-    // logits of the thread's 4 x 4: rows 4*ty + i, keys tx + 16*j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < DP; ++d) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(4 * ty + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + 4 * ty + i;
-      bool ok[4];
-      float mt = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        ok[j] = kj < Tk && (!causal || kj <= qi);
-        if (ok[j]) mt = fmaxf(mt, s[i][j]);
+    if (t == 0) {   // fold scale * log2(e) into Q once
+      const float c = scale * LOG2E;
+      for (int i = threadIdx.x; i < BM * DP; i += C::THREADS) {
+        const int r = i / DP, d = i - r * DP;
+        Qs[r * LD + d] *= c;
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      const float corr = expf(m[i] - m_new);
-      m[i] = m_new;
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.0f;
-        rs += p;
-        Ps[(4 * ty + i) * LP + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * corr + rs;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
+      __syncthreads();
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BN; ++c) {
-      float p[4], w[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(4 * ty + i) * LP + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) w[j] = Vs[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
-    }
+    const int k0 = t * BN;
+    const bool busy = k0 < w_end;
+    // the sub-block of this tile on the warp's diagonal, or -1
+    const int tri = causal && k0 + BN - 1 > wq0 ? (wq0 - k0) / C::WR : -1;
+    float s[MR][8];
+    if (busy) logits<DP>(Qs + warp * C::WR * LD, Ks, tr, tc, tri, s);
+    if (C::P_IN_K) __syncthreads();   // every warp is done with K: P may land
+    if (busy)
+      softmax_pv<DP>(s, Vs, Ps + warp * C::WR * C::LDP, tr, tc, wq0, k0, Tk,
+                     causal, tri, m, l, acc);
+    __syncthreads();   // K, V and P are consumed
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + 4 * ty + i;
+  for (int i = 0; i < MR; ++i) {
+    float ls = l[i];
+    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+    ls += __shfl_xor_sync(0xffffffffu, ls, 4);
+    const int r = wq0 + tr + 4 * i;
     if (r >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float inv = 1.0f / fmaxf(ls, 1e-30f);
+    T* orow = op + r * so.s;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) store(op + r * so.s + d, acc[i][j] / denom);
-    }
+    for (int u = 0; u < NC; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 32 * u + 4 * tc + e;
+        if (d < D) store(orow + d, acc[i][4 * u + e] * inv);
+      }
   }
 }
 
-template <typename T, int DP>
-int launch_dp(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int Hk, int S, int Tk, int D, const Strides* st,
-              float scale, int causal, cudaStream_t stream) {
-  auto kernel = flash_attention_simt_kernel<T, DP>;
-  const int smem = smem_floats(DP) * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+template <typename T, int DP, bool ASYNC>
+int launch_cfg(const void* q, const void* k, const void* v, void* o, int B,
+               int H, int Hk, int S, int Tk, int D, const Strides* st,
+               float scale, int causal, cudaStream_t stream) {
+  using C = Cfg<DP>;
+  auto kernel = flash_attention_simt_kernel<T, DP, ASYNC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(B * H, (S + BM - 1) / BM);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, H / Hk, S, Tk, D,
       st[0], st[1], st[2], st[3], scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int DP>
+int launch_dp(const void* q, const void* k, const void* v, void* o, int B,
+              int H, int Hk, int S, int Tk, int D, const Strides* st,
+              float scale, int causal, bool async, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 4) {
+    if (async)
+      return launch_cfg<T, DP, true>(q, k, v, o, B, H, Hk, S, Tk, D, st,
+                                     scale, causal, stream);
+  }
+  return launch_cfg<T, DP, false>(q, k, v, o, B, H, Hk, S, Tk, D, st, scale,
+                                  causal, stream);
+}
+
+// float32 rows that cp.async can copy 16 bytes at a time: base pointers,
+// D and every (b, h, s) stride of an axis longer than 1 in 16-byte units
+inline bool copies_async(const void* const* ptrs, const Strides* st, int B,
+                         int H, int Hk, int S, int Tk, int D) {
+  auto fits = [](long long stride, int extent) {
+    return extent == 1 || stride % 4 == 0;
+  };
+  if (D % 4) return false;
+  const int ext[3][3] = {{B, H, S}, {B, Hk, Tk}, {B, Hk, Tk}};
+  for (int i = 0; i < 3; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 ||
+        !fits(st[i].b, ext[i][0]) || !fits(st[i].h, ext[i][1]) ||
+        !fits(st[i].s, ext[i][2]))
+      return false;
+  return true;
+}
+
 template <typename T>
 int launch_t(const void* q, const void* k, const void* v, void* o, int B,
              int H, int Hk, int S, int Tk, int D, const Strides* st,
              float scale, int causal, cudaStream_t stream) {
-  if (D <= 16)
-    return launch_dp<T, 16>(q, k, v, o, B, H, Hk, S, Tk, D, st, scale,
-                            causal, stream);
+  const void* ptrs[3] = {q, k, v};
+  const bool async =
+      sizeof(T) == 4 && copies_async(ptrs, st, B, H, Hk, S, Tk, D);
   if (D <= 32)
     return launch_dp<T, 32>(q, k, v, o, B, H, Hk, S, Tk, D, st, scale,
-                            causal, stream);
+                            causal, async, stream);
   if (D <= 64)
     return launch_dp<T, 64>(q, k, v, o, B, H, Hk, S, Tk, D, st, scale,
-                            causal, stream);
+                            causal, async, stream);
   if (D <= 96)
     return launch_dp<T, 96>(q, k, v, o, B, H, Hk, S, Tk, D, st, scale,
-                            causal, stream);
+                            causal, async, stream);
   return launch_dp<T, 128>(q, k, v, o, B, H, Hk, S, Tk, D, st, scale, causal,
-                           stream);
+                           async, stream);
 }
-
 
 }  // namespace simt
 
@@ -828,6 +1063,7 @@ int launch_dp(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace tc
 
 extern "C" int flash_attention_max_head_dim() { return MAX_D; }
+
 
 // The CUDA-core kernel.  dtype: 0 float32, 1 bfloat16 (q, k, v and o
 // alike).  Strides in elements, (b, h, s) of q, k, v, o in that order.

@@ -6,9 +6,8 @@ beside the source checkout, at first use.  The file name carries a hash
 of the source and the flags, so an edited kernel rebuilds and a stale
 library is never loaded.  ``build_all`` starts one ``nvcc`` per source
 at once.  What ``nvcc`` printed is kept beside the library
-(:func:`build_log`): for ``flash_attention``, ``dtw_wavefront`` and
-``collision_count`` that is ``ptxas``'s count of registers, shared
-memory and spills of every kernel.
+(:func:`build_log`): ``ptxas``'s count of registers, shared memory and
+spills of every kernel.
 
 Every wrapper counts its launches in :data:`LAUNCHES` under its kernel's
 name (one per kernel launch, nowhere else; :data:`KERNELS` lists the
@@ -31,12 +30,10 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: <checkout>/build/repro_torch when running from src/ (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+#: ``-Xptxas -v``: ptxas's resource report of every kernel, kept beside
+#: the library (:func:`build_log`)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-#: more flags for a library: ptxas's resource report of its kernels
-EXTRA_FLAGS = {"flash_attention": ("-Xptxas", "-v"),
-               "dtw_wavefront": ("-Xptxas", "-v"),
-               "collision_count": ("-Xptxas", "-v")}
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 C_INT, C_PTR = ctypes.c_int, ctypes.c_void_p
 C_I64, C_FLOAT = ctypes.c_longlong, ctypes.c_float
@@ -107,13 +104,9 @@ def _nvcc() -> str:
                        "kernels of repro_torch need the CUDA toolkit")
 
 
-def _flags(name: str) -> tuple:
-    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
-
-
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{tag[:12]}.so"
 
 
@@ -130,7 +123,7 @@ def _start(name: str):
         return None, None, out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

@@ -31,6 +31,9 @@ NAME = "flash_attention"      # the library, and the tensor-core kernel
 SIMT = "flash_attention_simt"  # the CUDA-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_QUERY_TILES = 65535      # grid.y, 64 query rows a tile
+#: the library's ``MAX_D`` (``flash_attention_max_head_dim()``), kept here
+#: so that a launch makes no second ctypes call
+MAX_HEAD_DIM = 128
 #: float32 reordering allowance of :func:`error_bound`, relative
 REORDER = 2.0 ** -13
 #: unit roundoff of bf16: the tensor-core kernel's P enters P.V in bf16
@@ -144,9 +147,9 @@ def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * h * s == 0:
         return out
     lib = _build.load(NAME)
-    if d > lib.flash_attention_max_head_dim():
+    if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel takes D <= "
-                         f"{lib.flash_attention_max_head_dim()}, got D={d}")
+                         f"{MAX_HEAD_DIM}, got D={d}")
     strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (b, h, hk, s, t, d, *strides,

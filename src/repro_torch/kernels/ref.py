@@ -29,6 +29,44 @@ def sketch_conv_ref(x: torch.Tensor, filters: torch.Tensor, step: int
     return sketch_projections(x, filters, step)
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """fl32(a * b + c) rounded once, as ``__fmaf_rn`` computes it, for
+    float32 tensors (broadcast) on any device.
+
+    The product is exact in float64 (two 24-bit significands), TwoSum
+    gives the sum s and its exact residual e (a*b + c = s + e), and s
+    rounds to float32.  Every float32 midpoint is a float64, so that
+    rounding is the correct one unless s lies on a midpoint itself; then
+    the sign of e says on which side the exact sum lies.
+    """
+    prod = a.double() * b.double()
+    c64 = c.double()
+    s = prod + c64
+    bp = s - c64
+    e = (c64 - (s - bp)) + (prod - bp)
+    r = s.float()
+    r64 = r.double()
+    nxt = torch.nextafter(r, torch.where(s > r64, math.inf, -math.inf))
+    tie = (r64 != s) & (s == (r64 + nxt.double()) * 0.5)
+    return torch.where(tie & (e != 0) & ((e > 0) == (s > r64)), nxt, r)
+
+
+def sketch_conv_fma_ref(x: torch.Tensor, filters: torch.Tensor, step: int
+                        ) -> torch.Tensor:
+    """The sketch kernel's arithmetic, exactly: x (B, m), filters (W, F)
+    float32 -> (B, N_B, F), each output one fused multiply-add chain
+    acc = fma(x[t*step + w], filters[w, f], acc) over w = 0 .. W-1 from
+    0.0 (:func:`fma_f32`).  The kernel is held to it bit for bit."""
+    w_, f_ = filters.shape
+    win = x.unfold(-1, w_, step)                       # (B, N_B, W) view
+    acc = torch.zeros((*win.shape[:-1], f_), dtype=torch.float32,
+                      device=x.device)
+    for w in range(w_):
+        acc = fma_f32(win[..., w, None], filters[w], acc)
+    return acc
+
+
 def collision_count_batch_ref(query_keys: torch.Tensor,
                               db_keys: torch.Tensor) -> torch.Tensor:
     """queries (B, K), db (N, K) int32 -> (B, N) int32 match counts,
@@ -236,6 +274,99 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     del logits
     return torch.einsum("bhst,bhtd->bhsd", probs, vf).to(q.dtype)
+
+
+def simt_tiling(d: int):
+    """(DP, MR, WR) of the CUDA-core flash kernel at head dim ``d``: the
+    head dim rounded up to a multiple of 32, the query rows a thread and
+    a warp (``simt::Cfg<DP>`` in ``csrc/flash_attention.cu``)."""
+    dp = 32 * max(1, -(-d // 32))
+    return dp, 4, 16
+
+
+def flash_attention_simt_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, causal: bool = False,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """The CUDA-core kernel's schedule, step for step, in plain torch
+    (same arguments as :func:`flash_attention_ref`), in float32.
+
+    Blocks of 64 query rows, warps of WR = 16 rows, 64-key tiles in 8
+    groups of 8; Q scaled by scale * log2(e) once; per warp and tile the same
+    choices as the kernel: tiles past the warp's keys not visited, on the
+    tile that crosses its causal diagonal the WR-key sub-blocks past it
+    skipped and, on the diagonal sub-block, only the (row group i, key
+    group jj) pairs with 8 jj <= 4 i + 3 computed (``active``); the P.V
+    product reads P only from row group ``2 jj`` on.  The weights of the
+    pairs the logits skipped are NaN here (the kernel's are 0, masked by
+    causality), so a P.V product that read one, or a skip that dropped a
+    key some row sees, shows in the output.  Each lane (key mod 8) keeps
+    its own partial row sum; they add at the end.
+    """
+    b, h, s, d = q.shape
+    hk, t = k.shape[1], k.shape[2]
+    g = h // hk
+    _, mr, wr = simt_tiling(d)
+    gps, bm, bn = wr // 8, 64, 64
+    c = (d ** -0.5 if scale is None else scale) * math.log2(math.e)
+    qf = q.float() * c
+    kf = k.float().repeat_interleave(g, 1)
+    vf = v.float().repeat_interleave(g, 1)
+    dev = q.device
+    out = torch.zeros((b, h, s, d), device=dev)
+
+    def active(tri, i, j):          # (rows of i, keys of j) broadcast
+        if tri < 0:
+            return torch.ones(torch.broadcast_shapes(i.shape, j.shape),
+                              dtype=torch.bool, device=dev)
+        sb, jj = j // gps, j - tri * gps
+        return (sb < tri) | ((sb == tri) & (8 * jj <= 4 * i + 3))
+
+    for q0 in range(0, s, bm):
+        kv_end = min(t, q0 + bm) if causal else t
+        ntiles = -(-kv_end // bn)
+        for wq0 in range(q0, q0 + bm, wr):
+            w_end = 0 if wq0 >= s else min(t, wq0 + wr) if causal else t
+            rows = torch.arange(wq0, wq0 + wr, device=dev)
+            qw = torch.zeros((b, h, wr, d), device=dev)
+            qw[:, :, :max(0, min(wr, s - wq0))] = qf[:, :, wq0:wq0 + wr]
+            m = torch.full((b, h, wr), -1e30, device=dev)
+            lanes = torch.zeros((b, h, wr, 8), device=dev)
+            acc = torch.zeros((b, h, wr, d), device=dev)
+            i_of = (torch.arange(wr, device=dev) // 4)[:, None]
+            for k0 in range(0, ntiles * bn, bn):
+                if k0 >= w_end:
+                    continue
+                tri = ((wq0 - k0) // wr if causal and k0 + bn - 1 > wq0
+                       else -1)
+                jn = 8 if tri < 0 else (tri + 1) * gps
+                keys = torch.arange(k0, k0 + 8 * jn, device=dev)
+                j_of = (torch.arange(8 * jn, device=dev) // 8)[None, :]
+                kt = torch.zeros((b, h, 8 * jn, d), device=dev)
+                vt = torch.zeros((b, h, 8 * jn, d), device=dev)
+                n_in = max(0, min(8 * jn, t - k0))
+                kt[:, :, :n_in] = kf[:, :, k0:k0 + n_in]
+                vt[:, :, :n_in] = vf[:, :, k0:k0 + n_in]
+                act = active(tri, i_of, j_of)
+                ok = act & (keys < t)[None, :]
+                if causal:
+                    ok &= keys[None, :] <= rows[:, None]
+                x = torch.einsum("bhrd,bhkd->bhrk", qw, kt)
+                x = torch.where(ok, x, -math.inf)
+                mx = torch.maximum(m, x.amax(-1).clamp_min(-1e30))
+                corr = torch.exp2(m - mx)
+                p = torch.exp2(x - mx[..., None])
+                m = mx
+                lanes = lanes * corr[..., None] + p.reshape(
+                    b, h, wr, jn, 8).sum(3)
+                p_smem = torch.where(act, p, math.nan)
+                imin = torch.where(
+                    (j_of < tri * gps) | (tri < 0), 0, 2 * (j_of - tri * gps))
+                p_read = torch.where(i_of >= imin, p_smem, 0.0)
+                acc = acc * corr[..., None] + p_read @ vt
+            n_out = max(0, min(wr, s - wq0))
+            denom = lanes.sum(-1).clamp_min(1e-30)[..., None]
+            out[:, :, wq0:wq0 + n_out] = (acc / denom)[:, :, :n_out]
+    return out
 
 
 class TcRef(NamedTuple):

@@ -3,7 +3,9 @@ strided sliding-window projections on the H100.
 
 It replaces the TPU kernel ``repro/kernels/sketch_conv.py::sketch_conv``.
 The source's header says what bounds it and how its design answers that;
-``kernels.ref.sketch_conv_ref`` is its plain PyTorch version.
+``kernels.ref.sketch_conv_ref`` is its plain PyTorch version and
+``kernels.ref.sketch_conv_fma_ref`` the exact emulation of its
+arithmetic (one fused multiply-add chain an output, taps in order).
 """
 from __future__ import annotations
 
@@ -12,6 +14,23 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "sketch_conv"
+#: window positions a lane owns, and a warp (the kernel's P and TILE)
+P = 5
+TILE = 32 * P
+SMEM_LIMIT = 227 * 1024
+
+
+def seg_floats(w: int, step: int) -> int:
+    """Floats of one warp's segment of a row in shared memory: the span
+    of its TILE windows, 3 more for a 16-byte-aligned start, rounded up
+    to a multiple of 4 (``seg_floats`` of the source)."""
+    return ((TILE - 1) * step + w + 6) // 4 * 4
+
+
+def smem_bytes(w: int, f: int, step: int, warps: int = 1) -> int:
+    """Shared memory of a block of ``warps`` warps: the filter bank and a
+    segment a warp; a one-warp block is the least a launch needs."""
+    return 4 * ((w * f + 3) // 4 * 4 + warps * seg_floats(w, step))
 
 
 def sketch_conv(x: torch.Tensor, filters: torch.Tensor, step: int
@@ -36,11 +55,11 @@ def sketch_conv(x: torch.Tensor, filters: torch.Tensor, step: int
     out = torch.empty((b, n_b, f), dtype=torch.float32, device=x.device)
     if b == 0:
         return out
-    x, filters = x.contiguous(), filters.contiguous()
-    lib = _build.load(NAME)
-    if lib.sketch_conv_smem_bytes(w, f, step) > 227 * 1024:
+    if smem_bytes(w, f, step) > SMEM_LIMIT:
         raise ValueError(f"sketch_conv: W={w}, F={f}, step={step} needs "
                          "more shared memory than a block has")
+    x, filters = x.contiguous(), filters.contiguous()
+    lib = _build.load(NAME)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.sketch_conv_launch(x.data_ptr(), filters.data_ptr(),
                                 out.data_ptr(), b, m, w, f, step, n_b, stream)

@@ -9,9 +9,12 @@ Tolerances: collision counts exact; DTW bit-identical (the kernels
 repeat the plain version's rounding op for op); count-sketch tables
 bit-identical (sums of +-1 are exact in float32 in any order); sketch
 projections within the float32 bound of reordering a W-term sum,
-2·W·2^-24·Σ|x·f|; flash attention within one unit in the last place of
-the output type plus float32 reordering (``flash_attention.error_bound``:
-both compute in float32 and round once); the tensor-core kernel, which
+2·W·2^-24·Σ|x·f|, of the plain version and bit-identical to the exact
+emulation of the kernel's fused multiply-add chain
+(``ref.sketch_conv_fma_ref``); flash attention within one unit in the
+last place of the output type plus float32 reordering
+(``flash_attention.error_bound``: both compute in float32 and round
+once); the tensor-core kernel, which
 rounds the softmax weights to bf16 before P·V, per element: against the
 plain version with (2^-13 + 2^-8) · sum_j w_j |v_j|, and against the
 emulation of its own rounding (``ref.flash_attention_tc_ref``) with
@@ -56,6 +59,59 @@ def test_sketch_conv_kernel_matches_plain(cuda, f, step, m):
                                                       step)
     assert got.shape == want.shape
     assert bool(((got - want).abs() <= bound).all())
+
+
+def _sketch_bits_equal(got, x, filt, step):
+    want = ref.sketch_conv_fma_ref(x, filt, step)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        int((got != want).sum())
+
+
+@pytest.mark.parametrize("w,f,step,m", [
+    (80, 1, 3, 512), (24, 1, 3, 128), (24, 3, 3, 301), (80, 2, 3, 530),
+    (8, 1, 1, 200), (128, 3, 5, 999), (17, 1, 2, 257), (80, 1, 4, 512),
+    (24, 1, 3, 24), (5, 1, 7, 6)])
+def test_sketch_conv_kernel_bit_identical_to_fma_ref(cuda, w, f, step, m):
+    """Both written (W, step) pairs and the run-time walk, F > 1, N_B
+    past one 160-window tile, m not a multiple of 4 (scalar segment
+    loads), a single window; one launch counted per call."""
+    rng = np.random.default_rng(w * 100 + f * 10 + step)
+    x = torch.tensor(rng.normal(size=(37, m)).cumsum(1), dtype=torch.float32,
+                     device=cuda)
+    filt = torch.tensor(rng.normal(size=(w, f)), dtype=torch.float32,
+                        device=cuda)
+    ops.reset_launch_counts()
+    got = ops.sketch_conv(x, filt, step)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["sketch_conv"] == 1
+    _sketch_bits_equal(got, x, filt, step)
+
+
+def test_sketch_conv_kernel_path_shapes_and_views(cuda):
+    """ssh-ecg's build chunk (4096 x 512) and query batch (192 x 512) with
+    the encoder's own filter; a row block whose base is 4 bytes off a
+    16-byte boundary; the library's shared-memory size equals the
+    wrapper's."""
+    from repro_torch.configs import ssh_ecg
+    from repro_torch.data.timeseries import (extract_subsequences,
+                                             synthetic_ecg)
+    from repro_torch.encoders import SSHEncoder
+    from repro_torch.kernels import sketch_conv as sk
+    filt = SSHEncoder(ssh_ecg.CONFIG).materialize(cuda)._require_state()[
+        "filters"]
+    x = torch.as_tensor(extract_subsequences(
+        synthetic_ecg(4096 * 64 + 512, seed=1), 512, stride=64,
+        max_count=4096, znorm=True), device=cuda)
+    for rows in (x, x[:192]):
+        _sketch_bits_equal(ops.sketch_conv(rows, filt, 3), rows, filt, 3)
+    flat = x.reshape(-1)[1:1 + 300 * 512].view(300, 512)
+    assert flat.data_ptr() % 16
+    _sketch_bits_equal(ops.sketch_conv(flat, filt, 3), flat, filt, 3)
+    lib = _build.load("sketch_conv")
+    for w, f, step in ((80, 1, 3), (24, 3, 1), (7, 2, 5)):
+        assert lib.sketch_conv_smem_bytes(w, f, step) == sk.smem_bytes(
+            w, f, step)
 
 
 @pytest.mark.parametrize("k", [20, 40, 64])
@@ -544,6 +600,37 @@ def test_flash_kernel_misaligned_bf16_takes_cuda_cores(cuda):
     _check_flash(q, k, v, causal=True, route="flash_attention",
                  kernel="flash_attention_simt")
     assert takes_tensor_cores(q.clone(), k.clone(), v.clone())
+
+
+@pytest.mark.parametrize("d", [20, 32, 33, 36, 72])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_simt_head_dim_templates(cuda, d, dtype):
+    """The CUDA-core kernel at head dims that are not multiples of 8 or
+    16 (33: plain loads even in float32) in each of its 32-, 64- and
+    96-column tiles, causal and not."""
+    for causal in (True, False):
+        _check_flash(*_flash_inputs(cuda, 1, 4, 2, 130, 150, d, dtype, d),
+                     causal=causal, route="flash_attention_simt")
+
+
+def test_flash_simt_serve_gate_shape_and_views(cuda):
+    """The float32 serve gate's layer: q (8, 32, 128, 64) with 8 KV heads,
+    causal, as transposed (B, S, H, D) views (the cp.async ring); the same
+    values through a float32 view whose base is 4 bytes off a 16-byte
+    boundary (plain loads) agree with it bit for bit."""
+    rng = np.random.default_rng(31)
+    x = [torch.tensor(rng.normal(size=sh), dtype=torch.float32, device=cuda)
+         for sh in ((8, 128, 32, 64), (8, 128, 8, 64), (8, 128, 8, 64))]
+    q, k, v = (t.transpose(1, 2) for t in x)
+    got = _check_flash(q, k, v, causal=True)
+    flat = torch.empty(q.numel() + 1, device=cuda)
+    qm = flat[1:].view(8, 128, 32, 64).transpose(1, 2)
+    qm.copy_(q)
+    assert qm.data_ptr() % 16
+    assert torch.equal(_check_flash(qm, k, v, causal=True), got)
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.MAX_HEAD_DIM == _build.load(
+        "flash_attention").flash_attention_max_head_dim()
 
 
 @pytest.mark.parametrize("route", ROUTES)
