@@ -36,7 +36,27 @@
       folded in: the merged aggregate must equal the sum of the shards'
       exactly, a 4096-row chunk re-encoded directly must give the stored
       signatures, and 8 streamed rows must find themselves through both
-      searchers.
+      searchers;
+   e. persist (phases ``persist_*``; saved directories live under
+      ``build/`` and are removed once read, after a check that the disk
+      there holds two saved databases): the batched index saved with
+      ``TimeSeriesDB.save`` and loaded onto the card answers the 4
+      batches with bit-identical ids and distances (save, load and build
+      seconds, bytes and GB/s logged); the streaming database saved and
+      loaded, then one more 4096-row chunk ingested into it and into the
+      never-saved one: signatures, keys and ``cs/agg`` equal; host
+      buckets (``searcher="local", use_host_buckets=True``) on the loaded
+      index, their build at 2^20 x 20 and 16 queries timed, the database
+      rows self-matched; ``"srp"`` and ``"ssh-multires"`` each built from
+      all the series at their defaults, batch 0 through the batched
+      searcher with the database rows self-matched, bit-identical after
+      one save and load, precision@10 against UCR beside SSH's logged;
+      ``launch.build_index --points 70000`` and ``launch.serve --arch
+      ssh-ecg --sequential --db-dir`` on its output as subprocesses (exit
+      0, ``loaded database``); batch 0 twice on the loaded index from an
+      empty signature LRU: 64 hits the second time, the same ids, no
+      sketch launch.  The LRU is emptied before the sequential path and
+      before the recording run of step 4, which must encode.
 4. Kernels: each of the six against its plain PyTorch version on the
    card, on the very tensors its path handed it (recorded on one more
    run of the path): integers and count-sketch tables exact, DTW
@@ -126,6 +146,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -147,6 +168,9 @@ F32_NONFUSED_OPS_PER_S = 33.5e12
 BATCHES, BATCH_SIZE = 4, 64     # the batched path: 4 batches of 64 queries
 SEQ_ROWS, SEQ_WARPED = 8, 8     # the sequential path: queries of batch 0
 UCR_QUERIES, UCR_GOLD = 4, 2    # UCR scans, and how many brute force holds
+# the launchers' build: synthetic-ECG points (their windows of --length at
+# stride 1 are the database, 69,489 series at length 512)
+LAUNCH_POINTS = 70_000
 STREAM_SHARDS, STREAM_BLOCKS = 2, 8
 BF16_TC_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 PREFILL_32K_BATCH = 32          # the prefill_32k cell's batch (cut to 1)
@@ -237,6 +261,245 @@ def arg(call, i, name):
     return args[i] if len(args) > i else kw.get(name)
 
 
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def persist_paths(args, counted, ctx) -> None:
+    """Path e: save/load of the batched index and of the streaming
+    ``"ssh-cs"`` database, the host-bucket probe, the ``"srp"`` and
+    ``"ssh-multires"`` encoders at full scale, the two launchers as
+    subprocesses and the signature LRU (step 3e of the docstring).  Every
+    saved directory lives under ``build/`` and is removed when read."""
+    import shutil
+    import tempfile
+    from repro_torch.core import search
+    from repro_torch.db import TimeSeriesDB
+    from repro_torch.encoders import IndexSpec
+    from repro_torch.kernels import ops
+
+    series, batches, cfg = ctx["series"], ctx["batches"], ctx["cfg"]
+    db, results = ctx["db"], ctx["results"]
+    n, m = series.shape
+    half = BATCH_SIZE // 2
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="persist_", dir=root))
+    free = shutil.disk_usage(tmp).free
+    # series and two envelopes a database; one is on disk at a time
+    need = 2 * (series.nbytes * 3)
+    log(f"persist: saving under {tmp}, {free / 1e9:.1f} GB free there; "
+        f"one saved {n} x {m} database holds about "
+        f"{3 * series.nbytes / 1e9:.1f} GB")
+    if free < need:
+        raise AssertionError(f"persist: {free / 1e9:.1f} GB free under "
+                             f"{tmp}, fewer than the {need / 1e9:.1f} GB the "
+                             f"phase needs at {n} series")
+
+    def same_answers(got, want, what):
+        for bi, (g_b, w_b) in enumerate(zip(got, want)):
+            for i, (g, w) in enumerate(zip(g_b, w_b)):
+                if not (np.array_equal(g.ids, w.ids)
+                        and np.array_equal(g.dists, w.dists)):
+                    raise AssertionError(
+                        f"{what}: batch {bi} query {i} ids {g.ids} dists "
+                        f"{g.dists} != {w.ids} {w.dists}")
+
+    def self_matched(res, rows, what):
+        bad = [int(rows[i]) for i, r in enumerate(res[:half])
+               if int(r.ids[0]) != int(rows[i])]
+        if bad:
+            raise AssertionError(f"{what}: database rows {bad} are not "
+                                 f"their own top-1")
+
+    # 1. the batched index: save, load, the same answers bit for bit
+    d1 = tmp / "ssh_ecg"
+    t = time.perf_counter()
+    db.save(d1)
+    save_s = time.perf_counter() - t
+    nbytes = dir_bytes(d1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    db2 = TimeSeriesDB.load(d1)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    shutil.rmtree(d1)
+
+    def loaded_path():
+        return [db2.search_batch(qs) for _, qs in batches]
+
+    got = counted("persist_load", ("sketch_conv", "collision_count_batch",
+                                   "dtw_wavefront_pairs"), loaded_path)
+    same_answers(got, results, "loaded index")
+    log(f"persist: saved {len(db)} series in {save_s:.2f} s, "
+        f"{nbytes / 1e9:.3f} GB ({nbytes / save_s / 1e9:.2f} GB/s); loaded "
+        f"onto the card in {load_s:.2f} s ({nbytes / load_s / 1e9:.2f} "
+        f"GB/s); the build of the same index took {ctx['build_s']:.2f} s; "
+        f"{BATCHES} x {BATCH_SIZE} queries answer bit-identically")
+
+    # 2. the streaming database: save, load, one more chunk into both
+    db_cs = ctx["db_cs"]
+    d2 = tmp / "ssh_cs"
+    t = time.perf_counter()
+    db_cs.save(d2)
+    cs_save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    db_cs2 = TimeSeriesDB.load(d2)
+    torch.cuda.synchronize()
+    cs_load_s = time.perf_counter() - t
+    shutil.rmtree(d2)
+    chunk = series[:4096] + np.float32(0.01)
+
+    def ingest_both():
+        for d in (db_cs, db_cs2):
+            d.add_stream(chunk)
+            d.flush()
+
+    counted("persist_cs", ("sketch_conv", "cs_tables"), ingest_both)
+    for name in ("signatures", "keys", "series"):
+        if not torch.equal(getattr(db_cs.index, name),
+                           getattr(db_cs2.index, name)):
+            raise AssertionError(f"ssh-cs after load and ingest: {name} "
+                                 f"differ from the never-saved database")
+    if not torch.equal(db_cs.index.encoder.aggregate_sketch(),
+                       db_cs2.index.encoder.aggregate_sketch()):
+        raise AssertionError("ssh-cs after load and ingest: cs/agg differs")
+    log(f"persist: ssh-cs database of {len(db_cs2) - 4096} series saved in "
+        f"{cs_save_s:.2f} s, loaded in {cs_load_s:.2f} s; after one more "
+        f"4096-row chunk into both, signatures, keys and cs/agg are equal")
+    del db_cs2
+
+    # 3. host buckets on the loaded index, through the local searcher
+    t = time.perf_counter()
+    db_hb = TimeSeriesDB(db2.index, cfg.replace(searcher="local",
+                                                use_host_buckets=True))
+    hb_s = time.perf_counter() - t
+    rows0, qs0 = batches[0]
+    hb_pick = ctx["seq_pick"]
+
+    def host_bucket_path():
+        out, walls = [], []
+        for i in hb_pick:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out.append(db_hb.search(qs0[i]))
+            walls.append(time.perf_counter() - t)
+        return out, walls
+
+    hb_res, hb_walls = counted("persist_host_buckets", ("dtw_wavefront",),
+                               host_bucket_path)
+    bad = [int(rows0[i]) for i, r in zip(hb_pick, hb_res)
+           if i < half and int(r.ids[0]) != int(rows0[i])]
+    if bad:
+        raise AssertionError(f"host buckets: database rows {bad} are not "
+                             f"their own top-1")
+    log(f"persist: host buckets of {len(db2)} x {db2.index.num_tables} keys "
+        f"built in {hb_s:.2f} s; {len(hb_pick)} queries, the "
+        f"{sum(i < half for i in hb_pick)} database rows self-matched; "
+        f"candidates a query {[r.n_candidates for r in hb_res]}; "
+        f"us_per_query {np.mean(hb_walls[1:]) * 1e6:.1f} (mean of queries "
+        f"2-{len(hb_walls)}; the first {hb_walls[0] * 1e6:.1f}) probe_us "
+        f"{np.mean([r.stats.stage_us['probe'] for r in hb_res[1:]]):.1f}")
+    db2.index.host_buckets = None
+
+    # 4. the srp and ssh-multires encoders at full scale
+    ucr_ids = [u.ids for u in ctx["ucr_res"]]
+    precision = {"ssh": ctx["precs"]}
+    for name, spec, kernels in (
+            ("srp", IndexSpec(encoder="srp"),
+             ("collision_count_batch", "dtw_wavefront_pairs")),
+            ("ssh-multires", IndexSpec(encoder="ssh-multires"),
+             ("sketch_conv", "collision_count_batch",
+              "dtw_wavefront_pairs"))):
+        rows, qs = batches[0]
+
+        def encoder_path():
+            t = time.perf_counter()
+            d = TimeSeriesDB.build(series, spec, cfg)
+            torch.cuda.synchronize()
+            return d, time.perf_counter() - t, d.search_batch(qs)
+
+        d, b_s, res = counted(f"persist_{name}", kernels, encoder_path)
+        self_matched(res, rows, name)
+        dd = tmp / name
+        d.save(dd)
+        res2 = TimeSeriesDB.load(dd).search_batch(qs)
+        shutil.rmtree(dd)
+        same_answers([res2], [res], f"{name} after save and load")
+        precision[name] = [search.precision_at_k(res[i].ids, u, cfg.topk)
+                           for i, u in zip(ctx["ucr_pick"], ucr_ids)]
+        log(f"persist: {name} {d} built in {b_s:.2f} s; batch 0 "
+            f"self-matched, answers bit-identical after save and load; "
+            f"precision@{cfg.topk} against UCR on the {len(ucr_ids)} UCR "
+            f"queries {precision[name]} (ssh {precision['ssh']})")
+        del d, res, res2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 5. the launchers, as a user runs them
+    src = Path(__file__).resolve().parent / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    out = tmp / "built"
+    cmds = [[sys.executable, "-m", "repro_torch.launch.build_index",
+             "--points", str(LAUNCH_POINTS), "--length", str(m),
+             "--out", str(out)],
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             "ssh-ecg", "--sequential", "--db-dir", str(out)]]
+
+    def launchers():
+        outs = []
+        for cmd in cmds:
+            t = time.perf_counter()
+            p = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=600, cwd=src.parent, env=env)
+            outs.append((p, time.perf_counter() - t))
+            if p.returncode != 0:
+                raise AssertionError(f"{' '.join(cmd[1:4])} exit "
+                                     f"{p.returncode}: {p.stderr[-3000:]}")
+        return outs
+
+    (b, b_t), (srv, s_t) = counted("persist_launchers", (), launchers)
+    shutil.rmtree(out)
+    if "loaded database" not in srv.stdout:
+        raise AssertionError(f"serve --db-dir did not load the database: "
+                             f"{srv.stdout[-2000:]}")
+    log(f"persist: build_index --points {LAUNCH_POINTS} --length {m} "
+        f"{b_t:.1f} s: {b.stdout.strip().splitlines()[-1]}")
+    log(f"persist: serve --sequential --db-dir {s_t:.1f} s: "
+        f"{' | '.join(srv.stdout.strip().splitlines()[-3:])}")
+
+    # 6. the signature LRU: batch 0 twice on the loaded index, from an
+    # empty LRU (the loaded path above filled it), so the first encodes
+    db2.index.sig_cache = None
+    first = ops_batch_stats(db2, batches[0][1])
+    again = counted("persist_sig_cache", ("collision_count_batch",
+                                          "dtw_wavefront_pairs"),
+                    lambda: ops_batch_stats(db2, batches[0][1]))
+    if ops.launch_counts()["sketch_conv"]:
+        raise AssertionError("signature LRU: the repeated batch launched "
+                             "sketch_conv")
+    if again[1].sig_cache_hit != BATCH_SIZE:
+        raise AssertionError(f"signature LRU: {again[1].sig_cache_hit} "
+                             f"hits for the repeated batch, expected "
+                             f"{BATCH_SIZE}")
+    if not np.array_equal(again[0], first[0]):
+        raise AssertionError("signature LRU: a cached batch answers "
+                             "other ids")
+    log(f"persist: repeated batch 0 on the loaded index: sig_cache_hit "
+        f"{first[1].sig_cache_hit} then {again[1].sig_cache_hit}, the same "
+        f"ids, no sketch_conv launch on the hit; encode stage "
+        f"{first[1].stage_us['encode']:.1f} us encoding, "
+        f"{again[1].stage_us['encode']:.1f} us on the hit")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ops_batch_stats(d, qs):
+    """(ids, stats) of one batched search through the library call."""
+    from repro_torch.serving.batched import ssh_search_batch
+    res = ssh_search_batch(qs, d.index, config=d.config)
+    return res.ids, res.stats
+
+
 def ssh_paths(args, counted, phases) -> list:
     """Paths a-d and the six SSH kernels (steps 2-5 of the docstring);
     returns their kernel entries.  Every tensor of the SSH state is freed
@@ -323,15 +586,20 @@ def ssh_paths(args, counted, phases) -> list:
                 f"{ {k: after[k] - before[k] for k in after} }")
         log(f"batched path: peak memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-        return db, results
+        return db, results, build_s
 
-    db, results = counted("batched", ("sketch_conv", "collision_count_batch",
-                                       "dtw_wavefront_pairs"), batched_path)
+    db, results, build_s = counted(
+        "batched", ("sketch_conv", "collision_count_batch",
+                    "dtw_wavefront_pairs"), batched_path)
 
     # -- b. sequential path ---------------------------------------------------
     rows0, qs0 = batches[0]
     seq_pick = list(range(SEQ_ROWS)) + list(range(half, half + SEQ_WARPED))
     db_local = TimeSeriesDB(db.index, cfg.replace(searcher="local"))
+    # the batched path left batch 0's multiprobe signatures in the index's
+    # LRU under the key the sequential encode reads: emptied, so this path
+    # encodes (and launches sketch_conv) as a cold query does
+    db.index.sig_cache = None
 
     def sequential_path():
         out, walls = [], []
@@ -490,7 +758,18 @@ def ssh_paths(args, counted, phases) -> list:
                                   "dtw_wavefront_pairs", "collision_count",
                                   "dtw_wavefront"), streaming_path)
 
+    # -- e. persistence, host buckets, the srp and ssh-multires encoders,
+    #    the launchers and the signature LRU ---------------------------------
+    persist_paths(args, counted, dict(
+        series=series, batches=batches, spec=spec, cfg=cfg, db=db,
+        results=results, build_s=build_s, db_cs=db_cs, seq_pick=seq_pick,
+        ucr_pick=ucr_pick, ucr_res=ucr_res, precs=precs))
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 4. kernels, on inputs recorded from one more run of each path ------
+    # batch 0 is in the LRU again: emptied, so the recorded run encodes
+    db.index.sig_cache = None
     with Recorder(ops, ("sketch_conv", "collision_count_batch",
                         "dtw_rerank_pairs")) as rec_b:
         ssh_search_batch(batches[0][1], db.index, config=db.config)

@@ -1,8 +1,6 @@
 """SSH on ECG (paper §5.1): W=80, δ=3, n=15, K=40, L=20 (counterpart of
 ``repro.configs.ssh_ecg``)."""
-import dataclasses
-from typing import Optional
-
+from repro_torch.configs.registry import SSHArch
 from repro_torch.db.config import SearchConfig
 from repro_torch.encoders import IndexSpec
 
@@ -20,12 +18,8 @@ SEARCH = SearchConfig(topk=10, top_c=512, band=6, multiprobe_offsets=3)
 # the paper's database: 20,971,520 ECG subsequences
 PAPER_N_SERIES = 20_971_520
 
+ARCH = SSHArch(name="ssh-ecg", config=CONFIG, smoke_config=SMOKE,
+               search_defaults=SEARCH)
 
-def search_config(length: Optional[int] = None, **overrides
-                  ) -> SearchConfig:
-    """``SEARCH`` at a series length (UCR 5% band: max(4, length // 20))
-    with per-call overrides."""
-    cfg = SEARCH
-    if length is not None:
-        cfg = dataclasses.replace(cfg, band=max(4, length // 20))
-    return cfg.replace(**overrides) if overrides else cfg.validate()
+#: ``SEARCH`` at a series length with per-call overrides
+search_config = ARCH.search_config

@@ -1,15 +1,20 @@
-"""Carry state across from the JAX package.
+"""Numpy arrays in, the port's tensors out: the one path from host
+arrays to an encoder and an index.
 
-``jax.random`` cannot be reproduced in torch, so holding the port against
-the reference on the same index needs the reference's random state and
-derived arrays as plain numpy arrays:
+It serves two callers.  ``jax.random`` cannot be reproduced in torch, so
+holding the port against the reference on the same index needs the
+reference's random state and derived arrays carried across; and
+``db.persistence`` loads a saved directory, written by either package,
+through the same functions:
 
-* :func:`encoder_state_from_arrays` takes the dict that the reference's
-  ``Encoder.arrays()`` returns (``filters`` and ``cws/{log_r, r, log_c,
-  beta}``; for ``"ssh-cs"`` also the uint32 hash coefficients
-  ``cs/{bucket_a, bucket_b, sign_a, sign_b}``, carried as int64 of the
-  same values, and the aggregate ``cs/agg``, with the CWS fields at dim
-  rows·width);
+* :func:`encoder_state_from_arrays` takes the dict that an encoder's
+  ``arrays()`` returns in either package: ``filters`` and ``cws/{log_r,
+  r, log_c, beta}`` for ``"ssh"`` and ``"ssh-multires"`` (the CWS fields
+  at the encoder's shingle dimension); for ``"ssh-cs"`` also the uint32
+  hash coefficients ``cs/{bucket_a, bucket_b, sign_a, sign_b}``, held as
+  int64 of the same values, and the aggregate ``cs/agg``; ``planes``
+  (m, K) for ``"srp"``;
+* :func:`encoder_from_arrays` adopts such a state;
 * :func:`index_from_arrays` adds the index arrays (``signatures``,
   ``keys``, ``series`` and, when cached, the envelopes);
 * :func:`lm_params_from_arrays` takes an LM's parameter pytree
@@ -29,8 +34,6 @@ from repro_torch.encoders import IndexSpec, encoder_class
 from repro_torch.kernels import ops
 from repro_torch.models import transformer
 
-LEAVES = ("filters", "cws/log_r", "cws/r", "cws/log_c", "cws/beta")
-
 
 def _leaf_tensor(a, dev) -> torch.Tensor:
     a = np.asarray(a)
@@ -46,19 +49,27 @@ def encoder_state_from_arrays(arrays: Mapping[str, np.ndarray],
     hash coefficients) as int64.  Refuses a leaf set other than that of
     ``spec``'s encoder (the ``"ssh"`` encoder's when no spec is given);
     shapes are checked against the spec by ``load_state``."""
-    leaves = (LEAVES if spec is None else
-              tuple(encoder_class(spec.encoder)(spec).expected_shapes()))
-    missing = sorted(set(leaves) - set(arrays))
-    unknown = sorted(set(arrays) - set(leaves))
-    if missing or unknown:
-        raise ValueError(f"encoder arrays: missing leaves {missing}, "
-                         f"unknown leaves {unknown}; expected {leaves}")
+    spec = spec if spec is not None else IndexSpec()
+    enc = encoder_class(spec.encoder)(spec)
+    enc._check_leaves(arrays, enc.expected_shapes())
     dev = ops.resolve_device(device)
-    return {k: _leaf_tensor(arrays[k], dev) for k in leaves}
+    return {k: _leaf_tensor(v, dev) for k, v in arrays.items()}
+
+
+def encoder_from_arrays(spec: IndexSpec,
+                        arrays: Mapping[str, np.ndarray], device=None):
+    """The encoder of ``spec`` holding the state ``arrays`` on
+    ``device``; refuses leaves or shapes the spec does not imply."""
+    return encoder_class(spec.encoder)(spec).load_arrays(arrays, device)
 
 
 def _tensor(a, dtype, dev) -> torch.Tensor:
-    return torch.tensor(np.asarray(a), device=dev).to(dtype)
+    """A copy of host array ``a`` as ``dtype`` on ``dev``, with one
+    transfer (no staging copy on the host)."""
+    a = np.asarray(a)
+    if not a.flags.writeable:        # torch.from_numpy needs a writable one
+        a = a.copy()
+    return torch.from_numpy(a).to(dev, dtype, copy=True)
 
 
 def index_from_arrays(spec: IndexSpec, encoder_arrays: Mapping[str,
@@ -70,7 +81,7 @@ def index_from_arrays(spec: IndexSpec, encoder_arrays: Mapping[str,
                       env_radius: Optional[int] = None,
                       build_backend: str = "cpu",
                       device=None) -> SSHIndex:
-    """An ``SSHIndex`` on ``device`` from the reference's arrays.
+    """An ``SSHIndex`` on ``device`` from host arrays.
 
     ``keys`` may be the reference's uint32 band keys: they are stored as
     the same 32-bit pattern in int32 (``repro/serving/batched.py:142-144``
@@ -78,8 +89,7 @@ def index_from_arrays(spec: IndexSpec, encoder_arrays: Mapping[str,
     signatures.
     """
     dev = ops.resolve_device(device)
-    enc = encoder_class(spec.encoder)(spec).load_state(
-        encoder_state_from_arrays(encoder_arrays, dev, spec=spec))
+    enc = encoder_from_arrays(spec, encoder_arrays, dev)
     keys = np.asarray(keys)
     if keys.dtype == np.uint32:
         keys = keys.view(np.int32)
@@ -91,6 +101,10 @@ def index_from_arrays(spec: IndexSpec, encoder_arrays: Mapping[str,
                    keys=_tensor(keys, torch.int32, dev),
                    series=_tensor(series, torch.float32, dev),
                    build_backend=build_backend)
+    if tuple(idx.keys.shape) != (sigs.shape[0], enc.num_tables):
+        raise ValueError(f"band keys have shape {tuple(idx.keys.shape)}, "
+                         f"the spec implies L={enc.num_tables} for "
+                         f"{sigs.shape[0]} rows")
     if env_upper is not None:
         idx.env_upper = _tensor(env_upper, torch.float32, dev)
         idx.env_lower = _tensor(env_lower, torch.float32, dev)

@@ -1,21 +1,24 @@
-"""SSH index — signatures, band keys, stored series and their envelopes
-(counterpart of ``repro.core.index``).
+"""SSH index — signatures, band keys, stored series, their envelopes and
+the paper's host hash tables (counterpart of ``repro.core.index``).
 
-Everything lives on one device: a CUDA index encodes its queries with
-the ``sketch_conv`` kernel (and ``cs_tables`` for ``"ssh-cs"``); a CPU
-index runs the plain versions.  The single-query encodes are those of
-the reference's ``query_*_cached`` without its LRU: a hit there returns
-the same bits, so ids cannot differ, and ``sig_cache_hit`` stays 0.
+Everything but the host tables lives on one device: a CUDA index encodes
+its queries with the ``sketch_conv`` kernel (and ``cs_tables`` for
+``"ssh-cs"``); a CPU index runs the plain versions.  Single-query and
+batch encodes go through a per-index LRU of signatures keyed by query
+content (``encoders.sigcache``): a hit returns the same bits, so answers
+cannot change.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import lower_bounds as lb
-from repro_torch.encoders import IndexSpec, SSHEncoder, make_encoder
+from repro_torch.encoders import Encoder, IndexSpec, make_encoder
+from repro_torch.encoders.sigcache import SignatureCache, row_bytes
 from repro_torch.kernels import ops
 
 _ENV_CHUNK = 65536       # rows per envelope pass (bounds the pooling temps)
@@ -28,19 +31,96 @@ def _envelopes_chunked(series: torch.Tensor, radius: int
     return torch.cat(ups), torch.cat(los)
 
 
+class HostBuckets:
+    """The paper's L hash tables on the host (``repro/core/index.py:
+    191-218``), for the paper-faithful probe (``use_host_buckets``).
+
+    The reference keeps a dict of id lists per table and ranks a query's
+    bucket members with ``Counter.most_common()``: by collision count,
+    ties in first-insertion order, that is by the first table whose
+    bucket holds the id and then the id's place in that bucket, which is
+    insertion order.  Here each table is its keys sorted stably with
+    their ids beside them, so a bucket is a contiguous run in insertion
+    order found by binary search, and the ranking is that order made
+    explicit; the lists are the reference's element for element.
+    """
+
+    def __init__(self, num_tables: int):
+        self.num_tables = int(num_tables)
+        self._keys: List[np.ndarray] = [np.empty(0, np.int32)
+                                        for _ in range(self.num_tables)]
+        self._ids: List[np.ndarray] = [np.empty(0, np.int64)
+                                       for _ in range(self.num_tables)]
+        # (keys, first id) of inserts not yet merged into the tables
+        self._pending: List[Tuple[np.ndarray, int]] = []
+
+    @staticmethod
+    def _host_keys(keys) -> np.ndarray:
+        """int32 host keys (the uint32 bit pattern) of a tensor or an
+        array."""
+        if isinstance(keys, torch.Tensor):
+            keys = keys.detach().cpu().numpy()
+        keys = np.asarray(keys)
+        return keys.view(np.int32) if keys.dtype == np.uint32 \
+            else keys.astype(np.int32)
+
+    def insert(self, keys, base_id: int = 0) -> None:
+        """Append rows ``base_id, base_id + 1, ...`` with (N, L) keys;
+        each goes after the members already in its bucket.  The rows wait
+        for the next probe, which merges every insert since in one pass a
+        table, so a run of small inserts costs one merge, not one each."""
+        self._pending.append((self._host_keys(keys), int(base_id)))
+
+    def merge(self) -> None:
+        """Fold the waiting inserts into the tables (``probe`` does it
+        first)."""
+        if not self._pending:
+            return
+        keys = np.concatenate([k for k, _ in self._pending])
+        ids = np.concatenate([base + np.arange(k.shape[0], dtype=np.int64)
+                              for k, base in self._pending])
+        self._pending = []
+        for t in range(self.num_tables):
+            order = np.argsort(keys[:, t], kind="stable")
+            k, i = keys[order, t], ids[order]
+            pos = np.searchsorted(self._keys[t], k, side="right")
+            self._keys[t] = np.insert(self._keys[t], pos, k)
+            self._ids[t] = np.insert(self._ids[t], pos, i)
+
+    def probe(self, query_keys) -> np.ndarray:
+        """Members of the query's L buckets (paper Alg. 2 lines 7-9) as
+        int64 ids: most collisions first, ties in first-insertion
+        order."""
+        self.merge()
+        q = self._host_keys(query_keys)
+        members = []
+        for t in range(self.num_tables):
+            lo, hi = np.searchsorted(self._keys[t], q[t], side="left"), \
+                np.searchsorted(self._keys[t], q[t], side="right")
+            members.append(self._ids[t][lo:hi])
+        seen = np.concatenate(members)
+        if seen.size == 0:
+            return np.empty(0, np.int64)
+        ids, first, counts = np.unique(seen, return_index=True,
+                                       return_counts=True)
+        return ids[np.lexsort((first, -counts))]
+
+
 @dataclasses.dataclass
 class SSHIndex:
     """An encoder plus the artifacts derived from the database.
 
     ``env_upper``/``env_lower`` cache the Sakoe-Chiba envelopes of every
     series at ``env_radius``, which makes the cascade's LB_Keogh2 a
-    gather and compare.  ``build_backend`` records the route that encoded
-    the signatures ("cuda": the ``sketch_conv`` kernel, "cpu": its plain
-    version); signature identity is fixed at build time
+    gather and compare.  ``host_buckets`` holds the paper's hash tables
+    when the config probes them.  ``build_backend`` records the route
+    that encoded the signatures ("cuda": the kernels, "cpu": their plain
+    versions); signature identity is fixed at build time
     (``repro/core/index.py:278-283``), and queries encode on the index's
-    own device.
+    own device.  ``sig_cache`` is the query-signature LRU, made at first
+    use; set it to None to empty it.
     """
-    encoder: SSHEncoder                # or its subclass for "ssh-cs"
+    encoder: Encoder
     signatures: torch.Tensor           # (N, K) int32
     keys: torch.Tensor                 # (N, L) int32 (uint32 bit pattern)
     series: torch.Tensor               # (N, m) float32
@@ -48,17 +128,31 @@ class SSHIndex:
     env_upper: Optional[torch.Tensor] = None
     env_lower: Optional[torch.Tensor] = None
     build_backend: str = "cuda"
+    host_buckets: Optional[HostBuckets] = None
+    sig_cache: Optional[SignatureCache] = None
 
     @classmethod
-    def build(cls, series, spec: IndexSpec, *, device=None) -> "SSHIndex":
-        """Paper Alg. 1: encode every series and fold band keys.  Runs on
-        CUDA unless ``device="cpu"``."""
+    def build(cls, series, spec: IndexSpec, *, device=None,
+              with_host_buckets: bool = False) -> "SSHIndex":
+        """Paper Alg. 1: encode every series and fold band keys (and fill
+        the host tables when asked).  Runs on CUDA unless
+        ``device="cpu"``."""
         dev = ops.resolve_device(device)
         series = torch.as_tensor(series, dtype=torch.float32).to(dev)
-        enc = make_encoder(spec, dev)
+        enc = make_encoder(spec, dev, length=int(series.shape[1]))
         sigs = enc.encode_chunked(series)
-        return cls(encoder=enc, signatures=sigs, keys=enc.band_keys(sigs),
-                   series=series, build_backend=dev.type)
+        idx = cls(encoder=enc, signatures=sigs, keys=enc.band_keys(sigs),
+                  series=series, build_backend=dev.type)
+        if with_host_buckets:
+            idx.build_host_buckets()
+        return idx
+
+    def build_host_buckets(self) -> HostBuckets:
+        """Fill the host tables from the stored band keys."""
+        self.host_buckets = HostBuckets(self.num_tables)
+        self.host_buckets.insert(self.keys)
+        self.host_buckets.merge()
+        return self.host_buckets
 
     @property
     def device(self) -> torch.device:
@@ -89,6 +183,50 @@ class SSHIndex:
         """(m,) -> (K,) int32 signature."""
         return self.encoder.encode_batch(q[None, :])[0]
 
+    def _sig_cache(self) -> SignatureCache:
+        if self.sig_cache is None:
+            self.sig_cache = SignatureCache()
+        return self.sig_cache
+
+    def _cached_encode(self, q: torch.Tensor, variant: str, compute,
+                       content: Optional[bytes] = None):
+        """(value, hit): the LRU's entry for ``q`` and ``variant`` when
+        there is one, else ``compute()`` stored (``repro/core/index.py:
+        363-401``).  ``content`` is ``q``'s row bytes
+        (``sigcache.row_bytes``) when the caller holds the query on the
+        host; without it ``q`` is read back."""
+        cache = self._sig_cache()
+        if content is None:
+            content = row_bytes(q)[0]
+        key = cache.key(content, self.encoder.spec, self.build_backend,
+                        variant)
+        val = cache.get(key)
+        if val is not None:
+            return val, True
+        val = compute()
+        cache.put(key, val)
+        return val, False
+
+    def query_signature_cached(self, q: torch.Tensor,
+                               content: Optional[bytes] = None):
+        """(signature, cache hit)."""
+        return self._cached_encode(q, "sig",
+                                   lambda: self.query_signature(q), content)
+
+    def query_keys_cached(self, q: torch.Tensor,
+                          content: Optional[bytes] = None):
+        """(band keys, cache hit)."""
+        return self._cached_encode(q, "keys", lambda: self.query_keys(q),
+                                   content)
+
+    def query_signatures_multiprobe_cached(self, q: torch.Tensor,
+                                           offsets: int,
+                                           content: Optional[bytes] = None):
+        """(per-offset signatures, cache hit)."""
+        return self._cached_encode(
+            q, f"mp{offsets}",
+            lambda: self.query_signatures_multiprobe(q, offsets), content)
+
     def query_keys(self, q: torch.Tensor) -> torch.Tensor:
         """(m,) -> (L,) int32 band keys."""
         return self.encoder.band_keys(self.query_signature(q))
@@ -110,7 +248,7 @@ class SSHIndex:
     # -- growth -------------------------------------------------------------
     def insert(self, series: torch.Tensor) -> None:
         """Append and encode (m,)-rows (data-independent hashing, nothing
-        to retrain); the envelope cache stays aligned
+        to retrain); the host tables and the envelope cache stay aligned
         (``repro/core/index.py:417-431``)."""
         series = torch.as_tensor(series, dtype=torch.float32).to(
             self.device)
@@ -136,9 +274,12 @@ class SSHIndex:
             raise ValueError("index stores raw series for re-ranking; "
                              "artifacts must include them")
         series = torch.as_tensor(series, dtype=torch.float32).to(dev)
+        base = int(self.signatures.shape[0])
         self.signatures = torch.cat([self.signatures, sigs])
         self.keys = torch.cat([self.keys, keys])
         self.series = torch.cat([self.series, series])
+        if self.host_buckets is not None:
+            self.host_buckets.insert(keys, base_id=base)
         if self.env_radius is not None and self.env_upper is not None:
             u, l = _envelopes_chunked(series, self.env_radius)
             self.env_upper = torch.cat([self.env_upper, u])

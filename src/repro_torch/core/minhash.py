@@ -176,3 +176,39 @@ def combine_bands(signatures: torch.Tensor, num_tables: int
                                          & _MASK32)
         acc = acc ^ (acc >> 15)
     return torch.where(acc >= 2 ** 31, acc - 2 ** 32, acc).to(torch.int32)
+
+
+# b-bit signature packing (Li & König, the paper's ref [30];
+# ``repro/core/minhash.py:141-174``): keep the low b bits of each hash,
+# 32/b hashes a 32-bit word.  Integer arithmetic, so exact.
+
+def pack_signatures(signatures: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """(..., K) int32 -> (..., K·bits/32) int32 packed b-bit sketches;
+    hash j of a word sits at bit (j mod 32/b)·b."""
+    if 32 % bits:
+        raise ValueError("bits must divide 32")
+    per_word = 32 // bits
+    k = signatures.shape[-1]
+    if k % per_word:
+        raise ValueError(f"K={k} not divisible by {per_word} hashes/word")
+    s = (signatures.to(torch.int64) & ((1 << bits) - 1)).reshape(
+        signatures.shape[:-1] + (k // per_word, per_word))
+    shifts = torch.arange(per_word, device=signatures.device) * bits
+    word = (s << shifts).sum(-1)                  # disjoint fields, < 2^32
+    return torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(
+        torch.int32)
+
+
+def packed_collisions(query_packed: torch.Tensor, db_packed: torch.Tensor,
+                      bits: int = 8) -> torch.Tensor:
+    """Agreement counts over b-bit lanes: query (W,), db (N, W) -> (N,)
+    int32."""
+    per_word = 32 // bits
+    mask = (1 << bits) - 1
+    x = db_packed ^ query_packed[None, :]                       # (N, W)
+    total = torch.zeros(db_packed.shape[:-1], dtype=torch.int32,
+                        device=db_packed.device)
+    for i in range(per_word):
+        lane = (x >> (i * bits)) & mask
+        total += (lane == 0).sum(-1, dtype=torch.int32)
+    return total

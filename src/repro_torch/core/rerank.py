@@ -57,7 +57,7 @@ class SearchStats:
     backend: str = "cuda"
     stage_seconds: Optional[Dict[str, float]] = None
     index_bytes: Optional[int] = None
-    sig_cache_hit: int = 0            # no signature LRU yet: always 0
+    sig_cache_hit: int = 0            # encodes served by the LRU
 
     @property
     def lb_pruned(self) -> int:

@@ -3,7 +3,8 @@ UCR-suite baseline and brute force (counterpart of ``repro.core.search``).
 
 ``ssh_search`` serves one query: ``hash_probe`` (single-query collision
 counts, one ``collision_count`` launch per multiprobe row, the max over
-rows and the lowest-id top-C) then ``core.rerank.rerank``.  The
+rows and the lowest-id top-C; or the host tables' members) then
+``core.rerank.rerank``.  The
 ``TimeSeriesDB`` facade routes here for ``searcher="local"``.
 ``ucr_search`` is the paper's exact baseline: an LB cascade over the
 whole database against the k-th best of a seed, then DTW of every
@@ -25,6 +26,7 @@ from repro_torch.core import rerank as rr
 from repro_torch.core.index import SSHIndex
 from repro_torch.core.rerank import SearchStats
 from repro_torch.db.config import SearchConfig
+from repro_torch.encoders.sigcache import row_bytes
 from repro_torch.kernels import ops, ref
 
 
@@ -64,33 +66,58 @@ def _as_tensor(x, device) -> torch.Tensor:
 
 def hash_probe(query: torch.Tensor, index: SSHIndex, top_c: int,
                rank_by_signature: bool = True, multiprobe_offsets: int = 1,
-               timer: StageTimer = DISABLED) -> torch.Tensor:
-    """Stage 1 of Alg. 2 for one (m,) query: at most ``top_c`` candidate
-    ids (int64, on the index's device) with a positive collision count,
-    most collisions first, ties to the lowest id; the first ``top_c`` ids
-    when nothing collides (``repro/core/search.py:44-114``)."""
+               use_host_buckets: bool = False, topk: int = 10,
+               timer: StageTimer = DISABLED,
+               probe_stats: Optional[dict] = None,
+               content: Optional[bytes] = None) -> torch.Tensor:
+    """Stage 1 of Alg. 2 for one (m,) query: candidate ids (int64, on
+    the index's device), most collisions first; the first ``top_c`` ids
+    when nothing collides (``repro/core/search.py:44-114``).
+
+    The device probe keeps at most ``top_c`` ids with a positive count,
+    ties to the lowest id.  With ``use_host_buckets`` (and tables built)
+    the members of the query's L buckets come from the host tables in
+    their order (``HostBuckets.probe``), cut to ``max(top_c, topk)``.
+    Encodes go through the index's signature LRU, keyed by ``content``,
+    the query's host bytes (``sigcache.row_bytes``; read back from
+    ``query`` when None); ``probe_stats`` receives
+    ``{"sig_cache_hit": 0 or 1}``."""
     n = int(index.keys.shape[0])
     c = min(top_c, n)
-    with timer.stage("encode") as sync:
-        if multiprobe_offsets > 1:
-            qk = index.query_signatures_multiprobe(query, multiprobe_offsets)
-            if not rank_by_signature:
-                qk = minhash.combine_bands(qk, index.num_tables)
-        elif rank_by_signature:
-            qk = index.query_signature(query)[None]
-        else:
-            qk = index.query_keys(query)[None]
-        db = index.signatures if rank_by_signature else index.keys
-        sync(None)
-    with timer.stage("probe") as sync:
-        # one launch per probe row, then the max over rows
-        counts = ops.collision_count(qk[0].contiguous(), db)
-        for row in qk[1:]:
-            counts = torch.maximum(counts,
-                                   ops.collision_count(row.contiguous(), db))
-        ids, vals = top_c_by_count(counts[None], c)
-        cand_ids = ids[0][vals[0] > 0]
-        sync(None)
+    if use_host_buckets and index.host_buckets is not None:
+        with timer.stage("encode") as sync:
+            qk, hit = index.query_keys_cached(query, content)
+            sync(None)
+        with timer.stage("probe") as sync:
+            ids = index.host_buckets.probe(qk)[:max(top_c, topk)]
+            cand_ids = torch.from_numpy(ids).to(index.device)
+            sync(None)
+    else:
+        with timer.stage("encode") as sync:
+            if multiprobe_offsets > 1:
+                qk, hit = index.query_signatures_multiprobe_cached(
+                    query, multiprobe_offsets, content)
+                if not rank_by_signature:
+                    qk = minhash.combine_bands(qk, index.num_tables)
+            elif rank_by_signature:
+                qk, hit = index.query_signature_cached(query, content)
+                qk = qk[None]
+            else:
+                qk, hit = index.query_keys_cached(query, content)
+                qk = qk[None]
+            db = index.signatures if rank_by_signature else index.keys
+            sync(None)
+        with timer.stage("probe") as sync:
+            # one launch per probe row, then the max over rows
+            counts = ops.collision_count(qk[0].contiguous(), db)
+            for row in qk[1:]:
+                counts = torch.maximum(
+                    counts, ops.collision_count(row.contiguous(), db))
+            ids, vals = top_c_by_count(counts[None], c)
+            cand_ids = ids[0][vals[0] > 0]
+            sync(None)
+    if probe_stats is not None:
+        probe_stats["sig_cache_hit"] = int(hit)
     if cand_ids.numel() == 0:            # degenerate: the first top_c ids
         cand_ids = torch.arange(c, device=index.device)
     return cand_ids
@@ -106,12 +133,17 @@ def ssh_search(query, index: SSHIndex,
     t0 = time.perf_counter()
     timer = StageTimer(enabled=config.stage_timings, prefill=STAGES,
                        device=dev)
+    with timer.stage("encode"):          # the LRU key, from the host copy
+        content = row_bytes(query)[0]
     query = torch.as_tensor(query, dtype=torch.float32).to(dev)
     n = int(index.keys.shape[0])
+    probe_stats: dict = {}
     cand_ids = hash_probe(query, index, config.top_c,
                           rank_by_signature=config.rank_by_signature,
                           multiprobe_offsets=config.multiprobe_offsets,
-                          timer=timer)
+                          use_host_buckets=config.use_host_buckets,
+                          topk=config.topk, timer=timer,
+                          probe_stats=probe_stats, content=content)
     n_hash = int(cand_ids.shape[0])
     ids, dists, stats = rr.rerank(query, cand_ids, index, config.topk,
                                   config.band,
@@ -120,6 +152,7 @@ def ssh_search(query, index: SSHIndex,
                                   early_abandon=config.early_abandon,
                                   timer=timer)
     stats.index_bytes = index.nbytes()
+    stats.sig_cache_hit = probe_stats["sig_cache_hit"]
     return SearchResult(
         ids=ids, dists=dists, n_candidates=stats.n_dtw, n_database=n,
         pruned_by_hash_frac=1.0 - n_hash / n,

@@ -1,31 +1,57 @@
-"""Encoder name -> class (counterpart of ``repro.encoders.registry``).
+"""Encoder registry — ``IndexSpec.encoder`` names how series are hashed
+(counterpart of ``repro.encoders.registry``).
 
-The port has a fixed set of encoders (``encoders.base.ENCODERS``); each
-class is imported at its first lookup, which keeps ``IndexSpec`` free of
-the kernel stack.
+The built-ins (``"ssh"``, ``"ssh-multires"``, ``"srp"``, ``"ssh-cs"``)
+register when their modules are imported, which happens at the first
+lookup, so ``IndexSpec`` stays free of the kernel stack.
+``register_encoder`` adds an encoder without touching the facade.
 """
 from __future__ import annotations
 
-import importlib
+from typing import Callable, Dict, List, Optional, Type
 
-#: encoder name -> (module, class)
-_CLASSES = {
-    "ssh": ("repro_torch.encoders.pipeline", "SSHEncoder"),
-    "ssh-cs": ("repro_torch.streaming.encoder", "StreamingSSHEncoder"),
-}
+_ENCODERS: Dict[str, Type] = {}
+_BUILTINS_LOADED = False
 
 
-def encoder_class(name: str):
+def _ensure_builtins() -> None:
+    """Import the built-in encoder modules once; the flag is set only on
+    success, so a failed import shows its own error at every lookup."""
+    global _BUILTINS_LOADED
+    if not _BUILTINS_LOADED:
+        import repro_torch.encoders.pipeline    # noqa: F401  ssh, multires
+        import repro_torch.encoders.srp         # noqa: F401  srp
+        import repro_torch.streaming.encoder    # noqa: F401  ssh-cs
+        _BUILTINS_LOADED = True
+
+
+def register_encoder(name: str) -> Callable[[Type], Type]:
+    """Class decorator: register an ``Encoder`` subclass under ``name``
+    (a later registration of the same name wins)."""
+    def deco(cls: Type) -> Type:
+        cls.name = name
+        _ENCODERS[name] = cls
+        return cls
+    return deco
+
+
+def available_encoders() -> List[str]:
+    _ensure_builtins()
+    return sorted(_ENCODERS)
+
+
+def encoder_class(name: str) -> Type:
     """The class that implements encoder ``name``."""
+    _ensure_builtins()
     try:
-        module, cls = _CLASSES[name]
+        return _ENCODERS[name]
     except KeyError:
-        raise ValueError(f"repro_torch implements encoders "
-                         f"{tuple(_CLASSES)}, got {name!r}") from None
-    return getattr(importlib.import_module(module), cls)
+        raise ValueError(f"unknown encoder {name!r}; registered: "
+                         f"{available_encoders()}") from None
 
 
-def make_encoder(spec, device=None):
-    """The materialised encoder named by ``spec.encoder``, on ``device``
-    (CUDA unless the caller asks for the CPU)."""
-    return encoder_class(spec.encoder)(spec).materialize(device)
+def make_encoder(spec, device=None, *, length: Optional[int] = None):
+    """The materialised encoder named by ``spec.encoder`` on ``device``
+    (CUDA unless the caller asks for the CPU); ``length`` is the series
+    length, read by encoders whose state is sized to it."""
+    return encoder_class(spec.encoder)(spec).materialize(device, length)

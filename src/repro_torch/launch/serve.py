@@ -1,19 +1,26 @@
-"""LM serving launcher (counterpart of the LM half of
-``repro.launch.serve``): step the KV-cache decode over a batch of
-prompts, generate greedily, and run one prefill of the same prompts.
+"""Serving launcher (counterpart of ``repro.launch.serve``): SSH query
+serving (paper Alg. 2) through the sequential ``local`` searcher, or LM
+KV-cache decode over a batch of prompts with one prefill of the same
+prompts.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch ssh-ecg \\
+        --sequential [--db-dir DIR] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --smoke --device cpu
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b
 
-Weights are random from ``--seed`` (no checkpoint is read).  Without
-``--device cpu`` it runs on CUDA and raises where there is none.  The
-SSH arches are not served here yet (ROADMAP.md §1, item 3: serving).
+SSH: ``--db-dir`` serves a database saved by either package (its search
+knobs kept, the serving ones overlaid) instead of building the smoke
+index over a synthetic ECG stream; queries are windows of that stream
+at the database's length.  The engine mode (dynamic batching) waits for
+``serving/engine`` (ROADMAP.md §1, item 3).  LM weights are random from
+``--seed`` (no checkpoint is read).  Without ``--device cpu`` it runs on
+CUDA and raises where there is none.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -121,6 +128,66 @@ def serve_lm(cfg: T.LMConfig, params: Optional[T.Params] = None,
                        prefill_s=timer.timings["prefill"])
 
 
+SERVE_LENGTH = 128
+
+
+def _ssh_db(arch, config, db_dir, device):
+    """(query pool, TimeSeriesDB): loaded from ``db_dir`` with the saved
+    search knobs and ``config``'s searcher and backend overlaid, else
+    built from the smoke spec over windows of a synthetic ECG stream
+    (``repro/launch/serve.py:27-67``)."""
+    from repro_torch.data.timeseries import (extract_subsequences,
+                                             synthetic_ecg)
+    from repro_torch.db import TimeSeriesDB, is_database_dir
+    from repro_torch.db.persistence import saved_config
+    tsdb = None
+    length = SERVE_LENGTH
+    if db_dir:
+        if not is_database_dir(db_dir):
+            raise FileNotFoundError(
+                f"--db-dir {db_dir}: no saved TimeSeriesDB there (build one "
+                "with repro_torch.launch.build_index)")
+        saved = saved_config(db_dir) or config
+        tsdb = TimeSeriesDB.load(db_dir, saved.replace(
+            searcher=config.searcher, backend=config.backend),
+            device=device)
+        length = tsdb.length
+        print(f"loaded database ({len(tsdb)} series of length {length}) "
+              f"from {db_dir}", flush=True)
+    stream = synthetic_ecg(8000, seed=5)
+    pool = extract_subsequences(stream, length, stride=1, znorm=True)
+    if tsdb is None:
+        tsdb = TimeSeriesDB.build(pool, arch.index_spec(smoke=True), config,
+                                  device=device)
+    return pool, tsdb
+
+
+def serve_ssh_sequential(arch, requests: int, backend: str = "auto",
+                         db_dir=None, device=None) -> list:
+    """One ``ssh_search`` a request through the ``local`` searcher;
+    prints each top-1 and the latency percentiles; returns the
+    results."""
+    dev = ops.resolve_device(device)
+    cfg = arch.search_config(length=SERVE_LENGTH, searcher="local",
+                             backend=backend)
+    pool, tsdb = _ssh_db(arch, cfg, db_dir, dev)
+    rng = np.random.default_rng(0)
+    lat, out = [], []
+    for i in rng.integers(0, pool.shape[0], requests):
+        t0 = time.perf_counter()
+        res = tsdb.search(pool[int(i)])
+        lat.append(time.perf_counter() - t0)
+        out.append(res)
+        print(f"req {i}: top1={res.ids[0]} pruned="
+              f"{res.pruned_total_frac:.1%} {lat[-1] * 1e3:.0f}ms",
+              flush=True)
+    lat = sorted(lat)
+    print(f"p50={lat[len(lat) // 2] * 1e3:.0f}ms p99={lat[-1] * 1e3:.0f}ms "
+          f"over {requests} requests ({requests / sum(lat):.1f} qps) on "
+          f"{dev}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
@@ -132,11 +199,25 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen-len", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sequential", action="store_true",
+                    help="ssh: one ssh_search per request (local searcher)")
+    ap.add_argument("--requests", type=int, default=4, help="ssh requests")
+    ap.add_argument("--db-dir", default=None,
+                    help="ssh: serve the TimeSeriesDB saved here")
+    ap.add_argument("--backend", default="auto",
+                    choices=("auto", "pallas", "jnp"),
+                    help="ssh: kernel backend knob of the query path")
     args = ap.parse_args(argv)
     if args.arch.startswith("ssh"):
-        raise NotImplementedError(
-            f"--arch {args.arch}: SSH serving is not ported to repro_torch "
-            "yet (ROADMAP.md §1, item 3: serving)")
+        from repro_torch.configs.registry import get_arch
+        if not args.sequential:
+            raise NotImplementedError(
+                f"--arch {args.arch}: the engine mode waits for "
+                "serving/engine (ROADMAP.md §1, item 3); pass --sequential")
+        serve_ssh_sequential(get_arch(args.arch), args.requests,
+                             backend=args.backend, db_dir=args.db_dir,
+                             device=args.device)
+        return 0
     if args.arch not in LM_ARCHS:
         ap.error(f"--arch {args.arch}: the port serves {sorted(LM_ARCHS)}")
     mod = LM_ARCHS[args.arch]

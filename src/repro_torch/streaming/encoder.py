@@ -29,6 +29,7 @@ import torch
 from repro_torch.core import minhash
 from repro_torch.encoders.base import IndexSpec
 from repro_torch.encoders.pipeline import SSHEncoder
+from repro_torch.encoders.registry import register_encoder
 from repro_torch.kernels import ops
 from repro_torch.streaming import count_sketch as cs
 
@@ -92,6 +93,7 @@ class CountSketchShingler:
                                      threshold=threshold)
 
 
+@register_encoder("ssh-cs")
 class StreamingSSHEncoder(SSHEncoder):
     """SSH with the count-sketch shingle stage and streaming sketch state.
 
@@ -149,11 +151,9 @@ class StreamingSSHEncoder(SSHEncoder):
         shapes["cs/agg"] = self.sketch_shape
         return shapes
 
-    def load_state(self, state) -> "StreamingSSHEncoder":
-        super().load_state(state)
+    def _adopt(self) -> None:
         self.shingler.params = cs.CSParams(
             *(self._state[f"cs/{f}"] for f in cs.CSParams._fields))
-        return self
 
     # -- encoding ---------------------------------------------------------
     def _hash_shingles(self, ids: torch.Tensor) -> torch.Tensor:

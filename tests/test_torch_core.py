@@ -23,7 +23,7 @@ from repro_torch import convert
 from repro_torch.configs import ssh_ecg
 from repro_torch.core import lower_bounds as lb
 from repro_torch.core import minhash, shingle, sketch
-from repro_torch.db import SearchConfig
+from repro_torch.db import SearchConfig, make_searcher
 from repro_torch.encoders import IndexSpec, SSHEncoder
 from repro_torch.kernels import ops
 
@@ -178,8 +178,11 @@ def test_config_and_spec_read_like_the_reference():
     with pytest.raises(ValueError):
         SearchConfig(top_c=5, topk=10).validate()
     SearchConfig(searcher="local").validate()
-    with pytest.raises(ValueError, match="serves searchers"):
-        SearchConfig(searcher="engine").validate()
+    # the name is checked by the registry, as the reference's: queued
+    # searchers are refused by make_searcher, not by validate
+    SearchConfig(searcher="engine").validate()
+    with pytest.raises(ValueError, match="queued in ROADMAP"):
+        make_searcher(None, SearchConfig(searcher="engine"))
     with pytest.raises(ValueError, match="backend must be one of"):
         SearchConfig(backend="cuda").validate()
     with pytest.raises(ValueError, match="device='cpu'"):

@@ -680,3 +680,34 @@ def test_lm_prefill_and_decode_cuda_match_cpu(cuda):
     serve.check_prefill_against_decode(on_gpu, 1e-5)
     with pytest.raises(ValueError, match="generator"):
         transformer.init_params(cfg, torch.Generator(), cuda)
+
+
+@pytest.mark.parametrize("encoder", ["ssh", "srp", "ssh-multires"])
+def test_save_load_round_trip_on_the_card(cuda, tmp_path, encoder):
+    """An index built on the card, saved and loaded back onto it, answers
+    with bit-identical ids and distances, and holds the same arrays; the
+    host-bucket probe of the loaded index finds the database rows."""
+    from repro_torch.encoders import IndexSpec
+    series = make_benchmark_db("ecg", 3000, 128, seed=5)
+    spec = (SMOKE if encoder == "ssh" else IndexSpec(
+        encoder=encoder, params={} if encoder == "srp" else dict(
+            window=24, step=3, ngrams=(6, 8))))
+    cfg = SearchConfig(topk=10, top_c=64, band=6, multiprobe_offsets=3)
+    db = TimeSeriesDB.build(series, spec, cfg)
+    want = db.search_batch(series[:32])
+    db.save(tmp_path)
+    loaded = TimeSeriesDB.load(tmp_path)
+    assert loaded.device.type == "cuda"
+    for name in ("signatures", "keys", "series", "env_upper", "env_lower"):
+        assert torch.equal(getattr(loaded.index, name),
+                           getattr(db.index, name)), name
+    ops.reset_launch_counts()
+    got = loaded.search_batch(series[:32])
+    assert ops.launch_counts()["collision_count_batch"] == 1
+    for g, w in zip(got, want):
+        assert np.array_equal(g.ids, w.ids)
+        assert np.array_equal(g.dists, w.dists)
+    hb = loaded.with_config(cfg.replace(searcher="local",
+                                        use_host_buckets=True))
+    assert [int(r.ids[0]) for r in hb.search_batch(series[:4])] == \
+        [0, 1, 2, 3]

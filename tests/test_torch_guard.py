@@ -8,6 +8,7 @@
   raises instead of carrying on on the CPU.
 """
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
@@ -28,6 +29,7 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+QUICKSTART = ROOT / "examples" / "torch_quickstart.py"
 
 _IMPORT_ALL = """
 import sys
@@ -45,7 +47,13 @@ for name in ("repro_torch.streaming.count_sketch",
              "repro_torch.encoders.registry", "repro_torch.kernels.count_sketch",
              "repro_torch.core.search", "repro_torch.kernels.flash_attention",
              "repro_torch.models.layers", "repro_torch.models.transformer",
-             "repro_torch.configs.granite_3_2b", "repro_torch.launch.serve"):
+             "repro_torch.configs.granite_3_2b", "repro_torch.launch.serve",
+             "repro_torch.checkpoint.checkpointer", "repro_torch.db.registry",
+             "repro_torch.db.persistence", "repro_torch.encoders.srp",
+             "repro_torch.encoders.sigcache", "repro_torch.core.srp",
+             "repro_torch.configs.registry",
+             "repro_torch.configs.ssh_randomwalk",
+             "repro_torch.launch.build_index"):
     assert name in names, name
 print(len(names), "modules")
 """
@@ -70,7 +78,9 @@ def _imported_roots(path: Path):
 
 
 def test_no_jax_or_reference_imports():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "attention_yardstick.py",
+                                          QUICKSTART]
     assert len(files) > 20
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f) if root in ("jax", "repro")}
@@ -169,3 +179,50 @@ def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
                          timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _quickstart():
+    spec = importlib.util.spec_from_file_location("torch_quickstart",
+                                                  QUICKSTART)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_persistence_entry_points_need_cuda_unless_cpu_is_asked(
+        monkeypatch, tmp_path):
+    from repro_torch.launch import build_index
+    quickstart = _quickstart()
+    series = np.random.default_rng(2).normal(size=(40, 64)).astype(
+        np.float32)
+    TimeSeriesDB.build(series, SMOKE, SearchConfig(top_c=16, band=4),
+                       device="cpu").save(tmp_path / "db")
+    argv = ["--points", "200", "--length", "64", "--out",
+            str(tmp_path / "built")]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: TimeSeriesDB.load(tmp_path / "db"),
+                 lambda: build_index.main(argv),
+                 lambda: quickstart.main([])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert len(TimeSeriesDB.load(tmp_path / "db", device="cpu")) == 40
+    assert not (tmp_path / "built").exists()
+    assert quickstart.main(["--device", "cpu"]) == 0
+
+
+def test_saved_jnp_backend_is_refused_on_cuda(monkeypatch, tmp_path):
+    """A database saved with backend='jnp' (the plain versions, CPU only)
+    loaded onto CUDA raises, naming both ways out, before any array is
+    read; the config= override is the first of them."""
+    series = np.random.default_rng(3).normal(size=(30, 64)).astype(
+        np.float32)
+    TimeSeriesDB.build(series, SMOKE, SearchConfig(
+        backend="jnp", top_c=16, band=4), device="cpu").save(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="config=.*device='cpu'"):
+        TimeSeriesDB.load(tmp_path, device="cuda")
+    with pytest.raises(ValueError, match="config=.*device='cpu'"):
+        TimeSeriesDB.load(tmp_path)
+    monkeypatch.undo()
+    db = TimeSeriesDB.load(tmp_path, device="cpu")
+    assert db.config.backend == "jnp"

@@ -176,7 +176,9 @@ def test_sshcs_port_builds_the_same_state_shapes():
         jnp.zeros((2, 128)), spec=JSPEC_CS).index.enc.arrays().items()}
     assert {k: tuple(v.shape) for k, v in enc.arrays().items()} == \
         jenc_shapes
-    assert enc.arrays()["cs/bucket_a"].dtype == np.int64
+    # int64 values on the device, the reference's uint32 on the host
+    assert enc._require_state()["cs/bucket_a"].dtype == torch.int64
+    assert enc.arrays()["cs/bucket_a"].dtype == np.uint32
     assert bool((enc.shingler.params.bucket_a % 2 == 1).all())
     assert float(enc.aggregate_sketch().abs().sum()) == 0.0
     with pytest.raises(ValueError, match="power of two"):
