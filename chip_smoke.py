@@ -96,7 +96,36 @@
    re-rank; launches per schedule per path.
 5. Cross-check: 8 queries through the plain CPU path on a CPU copy of the
    index; ids equal, distances within rtol 1e-5.
-6. LM serving (the SSH state freed first, so its peak memory is its own):
+6. Serving engine (phases ``engine*``, last of the SSH paths because
+   its insert grows the index): ``TimeSeriesDB(searcher="engine")`` on
+   the batched index at ``SEARCH`` with ``BatchPolicy(max_batch=8,
+   max_wait_ms=2.0)``, the signature LRU cut to one entry so that every
+   batch encodes.  Every bucket (1, 2, 4, 8) warmed through
+   ``engine.searcher``; a full batch's service time ``s8`` (median of
+   15) sets the capacity ``8 / s8`` qps and the SLO p99 <= max(100 ms,
+   4 s8).  Open-loop Poisson traces from ``repro_torch.loadgen`` (from
+   ``--seed``, length 512, topk 10) over batch 0's 64 queries, each
+   holding about 3 s of arrivals at its own load (at most 4096
+   requests): fixed 2 ms at 0.25, 0.5, 0.75 and 1.1 x capacity through
+   ``sweep``, adaptive at 0.5 x over the same trace as fixed's.
+   Logged: latency from arrival (p50, p95, p99), achieved against
+   offered qps and the trace's own rate (arrivals over its span), queue
+   depth p95, batch histogram, mean batch wait and occupancy, padded-row
+   share, stage us a batch and ``max_sustainable_qps`` for each policy.
+   The three kernels of the path are held to their plain versions as in
+   step 4 on the inputs of the engine's own batches, one of 8 and one of
+   1 through ``engine.searcher`` (every call checked, one of each
+   timed; the kernel entries' ``engine_shapes``).  Gates: fixed and
+   adaptive answer the trace alike (``LoadResult.same_answers``); every
+   answer's
+   ids and distances equal to ``ssh_search_batch`` on the 64 queries as
+   one block; database rows their own top-1; 64 requests submitted then
+   ``stop()``: every future resolved, answers equal; ``launch.serve
+   --arch ssh-ecg --requests 16`` as a subprocess in its default engine
+   mode, exit 0, every request its own top-1; one novel series inserted
+   through the running engine at 2^20 (insert ms and peak memory
+   logged) found at rank 1 as row N of N + 1.
+7. LM serving (the SSH state freed first, so its peak memory is its own):
    granite-3-2b CONFIG at full width in bf16, random weights from a
    ``torch.Generator`` seeded by ``--seed``.  First the flash library's
    build report: ptxas's registers, stack and spills of every flash
@@ -172,6 +201,19 @@ UCR_QUERIES, UCR_GOLD = 4, 2    # UCR scans, and how many brute force holds
 # stride 1 are the database, 69,489 series at length 512)
 LAUNCH_POINTS = 70_000
 STREAM_SHARDS, STREAM_BLOCKS = 2, 8
+# the engine phase: the reference's BatchPolicy defaults (max_batch 8,
+# 2 ms), offered loads as fractions of the measured full-batch capacity
+# (benchmarks/loadgen_bench.py:45-54), a Poisson trace a load holding
+# about ENGINE_TRACE_S seconds of arrivals at that load (at most
+# ENGINE_MAX_REQUESTS requests), and the SLO p99 <= max(100 ms, 4 x one
+# full batch's service time)
+ENGINE_MAX_BATCH, ENGINE_WAIT_MS = 8, 2.0
+ENGINE_LOAD_FRACS = (0.25, 0.5, 0.75, 1.1)
+ENGINE_ADAPTIVE_FRAC = 0.5
+ENGINE_TRACE_S, ENGINE_MAX_REQUESTS = 3.0, 4096
+ENGINE_S8_BATCHES = 15
+ENGINE_SLO_FLOOR_MS, ENGINE_SLO_MULT = 100.0, 4.0
+ENGINE_LAUNCHER_REQUESTS = 16
 BF16_TC_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 PREFILL_32K_BATCH = 32          # the prefill_32k cell's batch (cut to 1)
 LM_BATCH, LM_BATCH_LEN = 8, 2048                   # the batch prefill
@@ -202,16 +244,27 @@ def kernel_times(kernel_fn, library_fn=None):
     ``repro_torch.bench.device_time``) as ``ms`` and the call time (CUDA
     events around back-to-back calls) as ``call_ms``, of a kernel and of
     its library yardstick when there is one; whether the profiled window
-    kept every record."""
-    from repro_torch.bench.device_time import timed
+    kept every record, how many windows were profiled to get one that
+    kept any (``device_windows``; 1 unless a window came back empty), and
+    where the device time came from (``device_source``: ``"profiler"``,
+    or ``"events"`` when every window came back empty).  ``events_ms``
+    is the kernel's device time read by events alone
+    (``device_time.spun_ms``), the clock that stands in when the profiler
+    keeps nothing, held beside the profiler's in every run."""
+    from repro_torch.bench.device_time import spun_ms, timed
     k = timed(kernel_fn)
     out = dict(ms=k["device_ms"], call_ms=k["call_ms"],
-               device_window_complete=k["device_complete"])
+               events_ms=spun_ms(kernel_fn),
+               device_window_complete=k["device_complete"],
+               device_windows=k["device_windows"],
+               device_source=k["device_source"])
     if library_fn is not None:
         lib = timed(library_fn)
         out.update(library_ms=lib["device_ms"],
                    library_call_ms=lib["call_ms"],
-                   library_window_complete=lib["device_complete"])
+                   library_window_complete=lib["device_complete"],
+                   library_windows=lib["device_windows"],
+                   library_source=lib["device_source"])
     return out
 
 
@@ -491,6 +544,252 @@ def persist_paths(args, counted, ctx) -> None:
         f"{first[1].stage_us['encode']:.1f} us encoding, "
         f"{again[1].stage_us['encode']:.1f} us on the hit")
     shutil.rmtree(tmp, ignore_errors=True)
+
+
+def padded_share(hist, buckets) -> float:
+    """Share of the rows the engine searched that were bucket padding,
+    from its histogram of real batch sizes."""
+    real = sum(b * c for b, c in hist.items())
+    padded = sum(next(s for s in buckets if s >= b) * c
+                 for b, c in hist.items())
+    return (padded - real) / padded if padded else 0.0
+
+
+def engine_paths(args, counted, ctx) -> None:
+    """The dynamic-batching ``ServingEngine`` behind
+    ``TimeSeriesDB(searcher="engine")`` on the 2^20 index (step 6 of the
+    docstring).  Raises on any gate; a batch's exception reaches its
+    futures and ``run_trace`` re-raises it.  Returns the kernels' calls
+    recorded on one batch of 8 and one of 1, {size: {name: [(args,
+    kwargs)]}}."""
+    from repro_torch.data.timeseries import extract_subsequences, \
+        synthetic_ecg
+    from repro_torch.db import BatchPolicy, TimeSeriesDB
+    from repro_torch.encoders.sigcache import SignatureCache
+    from repro_torch.kernels import ops
+    from repro_torch.loadgen import (Mixture, WorkloadSpec, generate_trace,
+                                     run_trace, sweep)
+    from repro_torch.loadgen.harness import SUSTAINED_FRAC
+    from repro_torch.serving import ssh_search_batch
+
+    rows, pool = ctx["batches"][0]
+    cfg, index = ctx["cfg"], ctx["db"].index
+    n, m = ctx["series"].shape
+    half = len(rows) // 2
+    policy = BatchPolicy(max_batch=ENGINE_MAX_BATCH,
+                         max_wait_ms=ENGINE_WAIT_MS)
+    cfg_e = cfg.replace(searcher="engine", batch_policy=policy)
+    buckets = cfg_e.buckets()
+    # a one-entry signature LRU: the pool's 64 queries repeat within a
+    # trace, and a batch whose rows were all cached would skip the sketch;
+    # with one entry every batch of two or more rows encodes, as new
+    # traffic does (hits are counted and logged)
+    index.sig_cache = SignatureCache(capacity=1)
+    engines = []
+
+    def make(mode="fixed"):
+        tsdb = TimeSeriesDB(index, cfg_e.replace(
+            batch_policy=policy.replace(mode=mode)))
+        engines.append(tsdb.engine)
+        return engines[-1]
+
+    pools, sizes = {m: pool}, {m: len(pool)}
+    want = ssh_search_batch(pool, index, config=cfg_e)   # one block of 64
+    want = [want.per_query(i) for i in range(len(pool))]
+
+    def check_answers(res, trace, what):
+        for k, (ids, dists) in enumerate(zip(res.ids, res.dists)):
+            pid, topk = int(trace.pool_ids[k]), int(trace.topks[k])
+            w = want[pid]
+            if not (np.array_equal(ids, w.ids[:topk])
+                    and np.array_equal(dists, w.dists[:topk])):
+                raise AssertionError(
+                    f"engine {what}: request {k} (pool row {pid}) ids {ids} "
+                    f"dists {dists} != the block's {w.ids} {w.dists}")
+            if pid < half and int(ids[0]) != int(rows[pid]):
+                raise AssertionError(f"engine {what}: database row "
+                                     f"{rows[pid]} is not its own top-1")
+
+    def traffic():
+        # every bucket warmed through engine.searcher, outside the metrics
+        warm = make()
+        for size in buckets:
+            warm.searcher.search_batch(pool[:size])
+        service = {}                # bucket -> seconds a batch, each run
+        for size in buckets:
+            service[size] = []
+            for r in range(ENGINE_S8_BATCHES):
+                block = pool[(np.arange(size) + size * r) % len(pool)]
+                t = time.perf_counter()
+                warm.searcher.search_batch(block)  # ends with host arrays
+                service[size].append(time.perf_counter() - t)
+        s8s = service[ENGINE_MAX_BATCH]
+        s8 = float(np.median(s8s))
+        capacity = ENGINE_MAX_BATCH / s8
+        slo_ms = max(ENGINE_SLO_FLOOR_MS, ENGINE_SLO_MULT * s8 * 1e3)
+        log(f"engine: full batch of {ENGINE_MAX_BATCH} s8 median "
+            f"{s8 * 1e3:.3f} ms over {ENGINE_S8_BATCHES} (min "
+            f"{min(s8s) * 1e3:.3f}, max {max(s8s) * 1e3:.3f}); capacity "
+            f"{capacity:.1f} qps; SLO p99 <= {slo_ms:.1f} ms; median ms "
+            f"a batch by bucket { {b: round(float(np.median(v)) * 1e3, 3)
+                                   for b, v in service.items()} }")
+        base = WorkloadSpec(
+            process="poisson", rate_qps=capacity, seed=args.seed,
+            n_requests=32, lengths=Mixture((m,)), topks=Mixture((cfg.topk,)))
+        with warm:                  # first live replay's one-time costs
+            run_trace(warm, generate_trace(base.replace(
+                rate_qps=ENGINE_LOAD_FRACS[0] * capacity), sizes), pools)
+        points = []
+        for mode, fracs in (("fixed", ENGINE_LOAD_FRACS),
+                            ("adaptive", (ENGINE_ADAPTIVE_FRAC,))):
+            best = 0.0
+            for f in fracs:
+                # ~ENGINE_TRACE_S of arrivals at this load, so the drain
+                # after the last arrival is a small share of the window
+                load = f * capacity
+                spec = base.replace(n_requests=int(min(
+                    ENGINE_MAX_REQUESTS, max(16, round(
+                        load * ENGINE_TRACE_S)))))
+                (res,), b = sweep(lambda mode=mode: make(mode), spec, [load],
+                                  pools, slo_ms)
+                best = max(best, b)
+                points.append((mode, f, load, spec, res, engines[-1]))
+            log(f"engine {mode}: max_sustainable_qps {best:.1f} of offered "
+                f"{[round(f * capacity, 1) for f in fracs]} (SLO p99 <= "
+                f"{slo_ms:.1f} ms, achieved >= {SUSTAINED_FRAC} x offered)")
+        return points
+
+    points = counted("engine", ("sketch_conv", "collision_count_batch",
+                                "dtw_wavefront_pairs"), traffic)
+    by = {(mode, f): r for mode, f, _, _, r, _ in points}
+    if not by[("fixed", ENGINE_ADAPTIVE_FRAC)].same_answers(
+            by[("adaptive", ENGINE_ADAPTIVE_FRAC)]):
+        raise AssertionError("engine: fixed and adaptive batching answer the "
+                             "same trace differently")
+    for mode, frac, load, spec, res, eng in points:
+        # the trace sweep() replayed at this load
+        trace = generate_trace(spec.replace(rate_qps=float(load)), sizes)
+        check_answers(res, trace, f"{mode} {frac}")
+        snap = eng.metrics.snapshot()
+        log(f"engine {mode} {frac} x capacity: offered "
+            f"{res.offered_qps:.1f} (the trace's own rate "
+            f"{len(trace) / trace.duration_s:.1f}: {len(trace)} arrivals in "
+            f"{trace.duration_s:.3f} s) achieved {res.achieved_qps:.1f} qps, "
+            f"{res.n_requests} requests in {res.wall_s:.3f} s; latency from "
+            f"arrival p50 {res.latency_p50_ms:.3f} p95 "
+            f"{res.latency_p95_ms:.3f} p99 {res.latency_p99_ms:.3f} ms; "
+            f"queue depth p95 {res.queue_depth_p95:.0f} max "
+            f"{res.queue_depth_max:.0f}; batches "
+            f"{dict(sorted(res.batch_histogram.items()))} mean "
+            f"{res.batch_size_mean:.2f}, wait {res.batch_wait_ms_mean:.3f} "
+            f"ms, occupancy {res.batch_occupancy_mean:.3f}; padded rows "
+            f"{padded_share(res.batch_histogram, buckets):.3f}; stage_us a "
+            f"batch { {k: round(v, 1) for k, v in res.stage_us.items()} }; "
+            f"service EWMA {eng.service_ewma_s * 1e3:.3f} ms; sig-cache hits "
+            f"{snap['sig_cache_hits_total']}; answers equal to the block's")
+    log("engine: fixed and adaptive answers bit-identical over one trace")
+
+    # the kernels' inputs at the engine's own shapes: a full batch (4
+    # database rows, 4 warped copies) and a batch of one warped copy
+    # through the engine's searcher, each from an empty LRU so it encodes
+    # (held to the plain versions in ssh_paths)
+    recorded, searcher = {}, make().searcher
+    blocks = {ENGINE_MAX_BATCH: list(range(ENGINE_MAX_BATCH // 2))
+              + list(range(half, half + ENGINE_MAX_BATCH // 2)), 1: [half]}
+    for size, picks in blocks.items():
+        index.sig_cache = SignatureCache(capacity=1)
+        with Recorder(ops, ("sketch_conv", "collision_count_batch",
+                            "dtw_rerank_pairs")) as rec:
+            searcher.search_batch(pool[picks])
+        missing = [k for k, v in rec.calls.items() if not v]
+        if missing:
+            raise AssertionError(f"engine: a batch of {size} through the "
+                                 f"engine's searcher called no {missing}")
+        recorded[size] = rec.calls
+    index.sig_cache = SignatureCache(capacity=1)
+
+    # stop() with requests queued: every future resolves, answers right
+    def burst():
+        eng = make()
+        eng.start()
+        futs = [eng.submit(q) for q in pool]
+        eng.stop()
+        return eng, futs
+
+    eng, futs = counted("engine_stop", ("collision_count_batch",), burst)
+    if not all(f.done() for f in futs):
+        raise AssertionError(f"engine: {sum(not f.done() for f in futs)} "
+                             f"futures unresolved after stop()")
+    for i, f in enumerate(futs):
+        if not np.array_equal(f.result().ids, want[i].ids):
+            raise AssertionError(f"engine: pool row {i} answered "
+                                 f"{f.result().ids} around stop(), the "
+                                 f"block {want[i].ids}")
+    log(f"engine: {len(futs)} requests submitted then stop(): all resolved "
+        f"({eng.metrics.snapshot()['batches_total']} batches, histogram "
+        f"{dict(sorted(eng.metrics.batch_histogram().items()))})")
+
+    # the launcher as a user runs it, in its default engine mode
+    src = Path(__file__).resolve().parent / "src"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "ssh-ecg", "--requests", str(ENGINE_LAUNCHER_REQUESTS)]
+
+    def launcher():
+        t = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                           cwd=src.parent,
+                           env=dict(os.environ, PYTHONPATH=str(src)))
+        return p, time.perf_counter() - t
+
+    srv, srv_s = counted("engine_launcher", (), launcher)
+    reqs = [line for line in srv.stdout.splitlines()
+            if line.startswith("req ")]
+    bad = [line for line in reqs
+           if line.split(":")[0].split()[1] !=
+           line.split("top1=")[1].split()[0]]
+    if srv.returncode != 0 or len(reqs) != ENGINE_LAUNCHER_REQUESTS or bad \
+            or "engine: req=" not in srv.stdout:
+        raise AssertionError(f"serve --arch ssh-ecg exit {srv.returncode}, "
+                             f"{len(reqs)} request lines, not self-matched "
+                             f"{bad}: {srv.stdout[-2000:]} "
+                             f"{srv.stderr[-2000:]}")
+    log(f"engine: serve --arch ssh-ecg --requests "
+        f"{ENGINE_LAUNCHER_REQUESTS} {srv_s:.1f} s, every request its own "
+        f"top-1: {' | '.join(srv.stdout.strip().splitlines()[-2:])}")
+
+    # a novel series inserted through the running engine at 2^20
+    novel = extract_subsequences(synthetic_ecg(8 * m, seed=args.seed + 7),
+                                 m, stride=m, max_count=1, znorm=True)
+
+    def insert_path():
+        tsdb = TimeSeriesDB(index, cfg_e)
+        with tsdb:
+            tsdb.search(pool[0])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            tsdb.add(novel)
+            tsdb.engine.flush_inserts()
+            torch.cuda.synchronize()
+            insert_s = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated() - before
+            got = tsdb.search(novel[0])
+        return got, insert_s, peak, before
+
+    got, insert_s, peak, before = counted(
+        "engine_insert", ("sketch_conv", "collision_count_batch",
+                          "dtw_wavefront_pairs"), insert_path)
+    if int(got.ids[0]) != n or got.n_database != n + 1:
+        raise AssertionError(f"engine insert: the novel series is not found "
+                             f"at rank 1 as row {n} of {n + 1}: ids "
+                             f"{got.ids}, n_database {got.n_database}")
+    log(f"engine: one novel series inserted through the running engine at "
+        f"{n} series in {insert_s * 1e3:.1f} ms, peak {peak / 1e9:.2f} GB "
+        f"above the {before / 1e9:.2f} GB allocated; found at rank 1 as row "
+        f"{n} of {got.n_database}")
+    index.sig_cache = None
+    return recorded
 
 
 def ops_batch_stats(d, qs):
@@ -785,16 +1084,15 @@ def ssh_paths(args, counted, phases) -> list:
     # query encode (B·O rows of the multiprobe slices)
     xq, filt, step = rec_b.calls["sketch_conv"][0][0]
     xb = db.index.series[:4096]
-    w, f_ = filt.shape
 
-    def conv_at(x):
+    def conv_at(x, filt, step):
         wconv = filt.t().contiguous()[:, None, :]
         return lambda: torch.nn.functional.conv1d(
             x[:, None, :], wconv, stride=step).transpose(1, 2)
 
-    sk_report = sketch_build_report(_build)
-    sk = {}
-    for tag, x in (("build", xb), ("query", xq)):
+    def sketch_check(x, filt, step, tag):
+        """(kernel, plain, |err|) of one call, after holding it bit for
+        bit to the emulation and within the bound of the plain version."""
         kern = ops.sketch_conv(x, filt, step)
         emu = ref.sketch_conv_fma_ref(x, filt, step)
         if not torch.equal(kern, emu):
@@ -805,23 +1103,35 @@ def ssh_paths(args, counted, phases) -> list:
         plain = ref.sketch_conv_ref(x, filt, step)
         scale = ref.sketch_conv_ref(x.abs(), filt.abs(), step)
         err = (kern - plain).abs()
-        if not bool((err <= 2 * w * 2.0 ** -24 * scale).all()):
+        if not bool((err <= 2 * filt.shape[0] * 2.0 ** -24 * scale).all()):
             raise AssertionError(
                 f"sketch_conv ({tag} shape) disagrees with its plain version "
                 f"beyond the reordering bound: max err {float(err.max())}")
+        return kern, plain, err
+
+    def sketch_at(x, filt, step, tag):
+        """Check and time one call."""
+        kern, plain, err = sketch_check(x, filt, step, tag)
+        w, f_ = filt.shape
         bms, bkind = bound_ms(4 * (x.numel() + filt.numel() + kern.numel()),
                               2 * x.shape[0] * kern.shape[1] * f_ * w)
-        sk[tag] = dict(
+        out = dict(
             max_abs_err=float(err.max()),
             **kernel_times(lambda: ops.sketch_conv(x, filt, step),
-                           conv_at(x)),
+                           conv_at(x, filt, step)),
             plain_ms=cuda_time_ms(lambda: ref.sketch_conv_ref(x, filt, step)),
             bound_ms=bms, bound_by=bkind,
-            library_max_abs_err=float((conv_at(x)() - plain).abs().max()),
+            library_max_abs_err=float(
+                (conv_at(x, filt, step)() - plain).abs().max()),
             sign_flips=int(((kern >= 0) != (plain >= 0)).sum()),
             shape=f"x {tuple(x.shape)} filters {tuple(filt.shape)} "
                   f"step {step}")
-        sk[tag]["share_of_bound"] = bms / sk[tag]["ms"]
+        out["share_of_bound"] = bms / out["ms"]
+        return out
+
+    sk_report = sketch_build_report(_build)
+    sk = {tag: sketch_at(x, filt, step, tag)
+          for tag, x in (("build", xb), ("query", xq))}
     entries.append(dict(
         name="sketch_conv", route="cuda",
         source="src/repro_torch/csrc/sketch_conv.cu",
@@ -844,34 +1154,47 @@ def ssh_paths(args, counted, phases) -> list:
 
     # collision_count_batch: the probe of B·O signature rows
     cc_report = collision_build_report(_build)
-    qk, dbk = rec_b.calls["collision_count_batch"][0][0]
-    kern = ops.collision_count_batch(qk, dbk)
-    plain = ref.collision_count_batch_ref(qk, dbk)
-    if not torch.equal(kern, plain):
-        raise AssertionError("collision_count_batch is not exact: "
-                             f"{int((kern != plain).sum())} counts differ")
-    probe_split = probe_split_ms(qk, dbk, cfg)
-    k_ = qk.shape[1]
-    check_hash_range(qk, dbk)
 
-    def cdist_counts():
-        return k_ - torch.cdist(qk.float(), dbk.float(), p=0)
-    if not torch.equal(cdist_counts().to(torch.int32), plain):
-        raise AssertionError("cdist yardstick disagrees with the counts")
-    bms, bkind = bound_ms(4 * (qk.numel() + dbk.numel() + kern.numel()),
-                          2 * qk.shape[0] * dbk.shape[0] * k_,
-                          INT32_OPS_PER_S)
+    def counts_check(qk, dbk):
+        """The kernel's counts, after holding them exact."""
+        kern = ops.collision_count_batch(qk, dbk)
+        plain = ref.collision_count_batch_ref(qk, dbk)
+        if not torch.equal(kern, plain):
+            raise AssertionError(
+                f"collision_count_batch is not exact at {tuple(qk.shape)}: "
+                f"{int((kern != plain).sum())} counts differ")
+        return kern, plain
+
+    def counts_at(qk, dbk):
+        """Check and time one call, with its cdist yardstick."""
+        kern, plain = counts_check(qk, dbk)
+        check_hash_range(qk, dbk)
+        k_ = qk.shape[1]
+
+        def cdist_counts():
+            return k_ - torch.cdist(qk.float(), dbk.float(), p=0)
+        if not torch.equal(cdist_counts().to(torch.int32), plain):
+            raise AssertionError("cdist yardstick disagrees with the counts")
+        bms, bkind = bound_ms(4 * (qk.numel() + dbk.numel() + kern.numel()),
+                              2 * qk.shape[0] * dbk.shape[0] * k_,
+                              INT32_OPS_PER_S)
+        return dict(
+            max_abs_err=0.0,
+            **kernel_times(lambda: ops.collision_count_batch(qk, dbk),
+                           cdist_counts),
+            plain_ms=cuda_time_ms(
+                lambda: ref.collision_count_batch_ref(qk, dbk)),
+            bound_ms=bms, bound_by=bkind,
+            shape=f"queries {tuple(qk.shape)} db {tuple(dbk.shape)}")
+
+    qk, dbk = rec_b.calls["collision_count_batch"][0][0]
+    probe_split = probe_split_ms(qk, dbk, cfg)
     entries.append(dict(
         name="collision_count_batch", route="cuda",
         source="src/repro_torch/csrc/collision_count.cu",
         replaces="src/repro/kernels/collision_count.py:68",
-        launches=phases["batched"]["collision_count_batch"], max_abs_err=0.0,
-        **kernel_times(lambda: ops.collision_count_batch(qk, dbk),
-                       cdist_counts),
-        plain_ms=cuda_time_ms(
-            lambda: ref.collision_count_batch_ref(qk, dbk)),
-        bound_ms=bms, bound_by=bkind,
-        shape=f"queries {tuple(qk.shape)} db {tuple(dbk.shape)}",
+        launches=phases["batched"]["collision_count_batch"],
+        **counts_at(qk, dbk),
         tolerance="exact", library="K - torch.cdist(q, db, p=0)",
         probe_split=probe_split, sass=cc_report["sass"],
         registers=cc_report["registers"]))
@@ -1077,6 +1400,42 @@ def ssh_paths(args, counted, phases) -> list:
                                    atol=1e-6)
     log(f"cross-check: 8 queries on the plain CPU path ({cpu_s:.1f} s on "
         f"{cpu}) match the CUDA path: ids equal, distances within rtol 1e-5")
+
+    # -- 6. the serving engine (last: its insert grows the index) -----------
+    recorded = engine_paths(args, counted, dict(series=series,
+                                                batches=batches, cfg=cfg,
+                                                db=db))
+    # its three kernels on the inputs of its own batches of 8 and 1: every
+    # call held as above, the first of each kernel (the last DTW call,
+    # the survivors) timed
+    by_name = {e["name"]: e for e in entries}
+    for size, calls in recorded.items():
+        tag = f"engine batch {size}"
+        sk_calls = calls["sketch_conv"]
+        for (x, filt_e, step_e), _ in sk_calls[1:]:
+            sketch_check(x, filt_e, step_e, tag)
+        x, filt_e, step_e = sk_calls[0][0]
+        sk_e = sketch_at(x, filt_e, step_e, tag)
+        cc_calls = calls["collision_count_batch"]
+        for (qk_e, dbk_e), _ in cc_calls[1:]:
+            counts_check(qk_e, dbk_e)
+        cc_e = counts_at(*cc_calls[0][0])
+        dtw_e = dtw_shape("dtw_wavefront_pairs",
+                          calls["dtw_rerank_pairs"][-1], 2)
+        dtw_e.update(max_abs_err=0.0, calls_checked=dtw_calls_log(
+            "dtw_wavefront_pairs", calls["dtw_rerank_pairs"]))
+        for name, got, n_calls in (
+                ("sketch_conv", sk_e, len(sk_calls)),
+                ("collision_count_batch", cc_e, len(cc_calls)),
+                ("dtw_wavefront_pairs", dtw_e,
+                 len(calls["dtw_rerank_pairs"]))):
+            by_name[name].setdefault("engine_shapes", {})[
+                f"batch {size}"] = dict(got, calls_held=n_calls)
+            log(f"kernel {name} at the {tag} shape, {n_calls} calls held "
+                f"to the plain version: [{got['shape']}] device ms "
+                f"{got['ms']:.4f} call ms {got['call_ms']:.4f} plain_ms "
+                f"{got['plain_ms']:.4f} bound_ms {got['bound_ms']:.5f} "
+                f"max_err {got['max_abs_err']}")
     return entries
 
 
@@ -1465,16 +1824,22 @@ def lm_path(args, counted, phases) -> dict:
     decode_8()                                    # steady state first
     cache["length"].zero_()
     prof_decode = device_profile(decode_8)
-    log(f"lm device time: prefill {LM_BATCH} x {LM_BATCH_LEN} "
-        f"{prof_prefill['device_ms']:.1f} ms on the device in "
-        f"{prof_prefill['device_ops']} operations, flash_attention "
-        f"{prof_prefill['flash_ms']:.1f} ms of it, busy "
-        f"{prof_prefill['device_ms'] / (batch_s * 1e3):.3f} of the "
-        f"unprofiled {batch_s * 1e3:.1f} ms; decode at batch {SERVE_BATCH} "
-        f"{prof_decode['device_ms'] / 8:.3f} ms on the device a step in "
-        f"{prof_decode['device_ops'] / 8:.0f} operations, busy "
-        f"{prof_decode['device_ms'] / 8 / res.decode_ms_per_step:.3f} of "
-        f"the unprofiled {res.decode_ms_per_step:.3f} ms a step")
+    if not (prof_prefill["device_ops"] and prof_decode["device_ops"]):
+        log(f"lm device time: not measured, the profiler kept no device "
+            f"record (prefill {prof_prefill['device_ops']}, decode "
+            f"{prof_decode['device_ops']} operations)")
+    else:
+        log(f"lm device time: prefill {LM_BATCH} x {LM_BATCH_LEN} "
+            f"{prof_prefill['device_ms']:.1f} ms on the device in "
+            f"{prof_prefill['device_ops']} operations, flash_attention "
+            f"{prof_prefill['flash_ms']:.1f} ms of it, busy "
+            f"{prof_prefill['device_ms'] / (batch_s * 1e3):.3f} of the "
+            f"unprofiled {batch_s * 1e3:.1f} ms; decode at batch "
+            f"{SERVE_BATCH} "
+            f"{prof_decode['device_ms'] / 8:.3f} ms on the device a step in "
+            f"{prof_decode['device_ops'] / 8:.0f} operations, busy "
+            f"{prof_decode['device_ms'] / 8 / res.decode_ms_per_step:.3f} of "
+            f"the unprofiled {res.decode_ms_per_step:.3f} ms a step")
 
     # -- kernel against its plain version, on layer 0's own inputs ---------
     with Recorder(ops, ("flash_attention",), stop_after=1) as rec:
@@ -1697,7 +2062,13 @@ def main() -> int:
             f"({e['bound_by']}, {e['bound_ms'] / e['ms']:.3f} of it) "
             f"launches {e['launches']} max_err {e['max_abs_err']} "
             f"[{e['shape']}]")
-        for extra in ("query_shape", "sequential_shape", "long_shape"):
+        log(f"kernel {e['name']}: profiled windows {e.get('device_windows')}"
+            f" (library {e.get('library_windows')}), every record kept "
+            f"{e.get('device_window_complete')}, device time from "
+            f"{e.get('device_source')} (library {e.get('library_source')}),"
+            f" by events alone {e.get('events_ms')} ms")
+        for extra in ("query_shape", "sequential_shape", "long_shape",
+                      "engine_shapes"):
             if extra in e:
                 log(f"kernel {e['name']} at the {extra.split('_')[0]} shape: "
                     f"{e[extra]}")

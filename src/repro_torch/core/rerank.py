@@ -65,6 +65,15 @@ class SearchStats:
                 + self.pruned_improved)
 
     @property
+    def lb_pruned_frac(self) -> float:
+        return self.lb_pruned / self.n_in if self.n_in else 0.0
+
+    @property
+    def dtw_abandoned_frac(self) -> float:
+        """Share of the DTW stage's pairs the threshold abandoned."""
+        return self.dtw_abandoned / self.n_dtw if self.n_dtw else 0.0
+
+    @property
     def stage_us(self) -> Optional[Dict[str, float]]:
         if self.stage_seconds is None:
             return None

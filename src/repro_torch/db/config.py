@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from repro_torch.kernels import ops
 
@@ -24,7 +24,6 @@ _BATCH_MODES = ("fixed", "adaptive")
 
 #: knob -> the tier that would serve it, queued in ROADMAP.md §1
 QUEUED = {
-    "batch_policy": "the serving engine's dynamic batcher",
     "replication": "the fleet", "fleet_workers": "the fleet",
     "hedge_policy": "the fleet", "hedge_ms": "the fleet",
     "subseq_window": "subsequence search",
@@ -50,9 +49,9 @@ class BatchPolicy:
     ``mode`` "fixed" closes a batch at ``max_batch`` requests or
     ``max_wait_ms``; "adaptive" waits between ``min_wait_ms`` and
     ``max_wait_ms`` by queue depth and an EWMA (weight ``ewma_alpha``)
-    of batch service time scaled by ``gain``.  The port has no batcher
-    yet (ROADMAP.md §1, serving); the policy is carried as data so a
-    saved config keeps it."""
+    of batch service time scaled by ``gain``.  The ``ServingEngine``
+    (``repro_torch.serving.engine``) reads it: :meth:`wait_budget_s` is
+    the adaptive control law, :meth:`buckets` the padded batch sizes."""
 
     mode: str = "fixed"
     max_batch: int = 8
@@ -81,6 +80,52 @@ class BatchPolicy:
                 f"ewma_alpha must be in (0, 1], got {self.ewma_alpha}")
         return self
 
+    def replace(self, **changes: Any) -> "BatchPolicy":
+        """``dataclasses.replace`` + ``validate`` in one step."""
+        return dataclasses.replace(self, **changes).validate()
+
+    def buckets(self) -> List[int]:
+        """Padded batch sizes of the dynamic batcher: the powers of two
+        below ``max_batch``, then ``max_batch``."""
+        out, b = [], 1
+        while b < self.max_batch:
+            out.append(b)
+            b *= 2
+        out.append(self.max_batch)
+        return out
+
+    def wait_budget_s(self, have: int, depth: int,
+                      service_ewma_s: Optional[float],
+                      engine_idle: bool = True,
+                      arrival_gap_s: Optional[float] = None) -> float:
+        """Seconds the batcher keeps a ``have``-request batch open with
+        ``depth`` queued behind it (``repro/db/config.py:104-153``).
+
+        Fixed mode returns ``max_wait_ms``.  Adaptive mode: 0 when the
+        queue covers the batch; ``min_wait_ms`` when the batch opened
+        while the engine was busy; ``max_wait_ms`` before the first
+        service-time sample; else ``clip(gain * S * (1 - fill), min,
+        max)`` with ``fill = (have + depth) / max_batch`` and ``S`` the
+        EWMA of batch service seconds, unless the EWMA of arrival gaps
+        exceeds that, when waiting would coalesce nothing
+        (``min_wait_ms``).  The same operations in the same order as the
+        reference, so the same float comes out."""
+        if self.mode == "fixed":
+            return self.max_wait_ms / 1e3
+        if have + depth >= self.max_batch:
+            return 0.0
+        if not engine_idle:
+            return self.min_wait_ms / 1e3
+        if service_ewma_s is None:
+            return self.max_wait_ms / 1e3
+        fill = (have + depth) / self.max_batch
+        budget = min(max(self.gain * service_ewma_s * (1.0 - fill),
+                         self.min_wait_ms / 1e3),
+                     self.max_wait_ms / 1e3)
+        if arrival_gap_s is not None and arrival_gap_s > budget:
+            return self.min_wait_ms / 1e3
+        return budget
+
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
@@ -101,7 +146,8 @@ class SearchConfig:
     ``use_lb_cascade``, ``seed_size``, ``early_abandon``.  Execution:
     ``backend`` ("auto"/"pallas": the CUDA kernels on the card, plain
     versions on the CPU; "jnp": plain versions, CPU only), ``searcher``
-    (a name in ``repro_torch.db.registry``).  ``batch_policy``, the fleet
+    (a name in ``repro_torch.db.registry``), ``batch_policy`` (the
+    ``"engine"`` searcher's batcher).  The fleet
     (``replication``, ``fleet_workers``, ``hedge_policy``, ``hedge_ms``)
     and subsequence (``subseq_window``, ``subseq_hop``,
     ``exclusion_zone``) knobs round-trip through the dict form, but their
@@ -200,6 +246,11 @@ class SearchConfig:
 
     def replace(self, **changes: Any) -> "SearchConfig":
         return dataclasses.replace(self, **changes).validate()
+
+    def buckets(self) -> List[int]:
+        """Padded batch sizes of the dynamic batcher
+        (``batch_policy.buckets()``)."""
+        return self.batch_policy.buckets()
 
     def to_dict(self) -> Dict[str, Any]:
         """JSON-ready dict; ``batch_policy`` nests as its own dict."""

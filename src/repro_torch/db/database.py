@@ -15,7 +15,9 @@ names the searcher in ``repro_torch.db.registry`` that answers queries,
 made at first use: ``"batched"`` (default) through
 ``serving.batched.ssh_search_batch``, whose per-query results carry no
 ``stats``; ``"local"`` through one ``core.search.ssh_search`` per query,
-each with its own ``stats``.  A saved directory is the reference's
+each with its own ``stats``; ``"engine"`` through the dynamic-batching
+``serving.engine.ServingEngine`` (:attr:`TimeSeriesDB.engine`), which
+also takes ``add`` between batches.  A saved directory is the reference's
 format: either package loads what the other saved.
 """
 from __future__ import annotations
@@ -147,12 +149,14 @@ class TimeSeriesDB:
         return self.searcher.search_batch(queries)
 
     def submit(self, query) -> Future:
-        """Search ``query`` and return a resolved future."""
+        """Asynchronous search: queued on the ``"engine"`` searcher, a
+        resolved future on the others."""
         return self.searcher.submit(query)
 
     # -- mutation -----------------------------------------------------------
     def add(self, series) -> None:
-        """Insert and encode (m,) or (B, m) series now."""
+        """Insert and encode (m,) or (B, m) series: now, or through the
+        live searcher (the engine applies it before its next batch)."""
         series = torch.as_tensor(series, dtype=torch.float32)
         series = series[None, :] if series.dim() == 1 else series
         if self._searcher is not None:
@@ -232,7 +236,8 @@ class TimeSeriesDB:
 
     # -- lifecycle ----------------------------------------------------------
     def close(self) -> None:
-        """Close the searcher (the next query makes a new one)."""
+        """Close the searcher, stopping the engine's thread (the next
+        query makes a new one); idempotent."""
         if self._searcher is not None:
             self._searcher.close()
             self._searcher = None
@@ -242,3 +247,13 @@ class TimeSeriesDB:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    @property
+    def engine(self):
+        """The ``ServingEngine`` of the ``"engine"`` searcher."""
+        searcher = self.searcher
+        if not hasattr(searcher, "engine"):
+            raise AttributeError(
+                f"searcher {self.config.searcher!r} has no engine; "
+                "use SearchConfig(searcher='engine')")
+        return searcher.engine

@@ -3,18 +3,20 @@
 
 A searcher turns (index, config) into answers: ``search`` gives a
 ``SearchResult``, ``search_batch`` one a query, ``insert`` grows the
-index.  The port registers two:
+index.  The port registers three:
 
 * ``"local"`` — one ``core.search.ssh_search`` per query; the only one
   that probes the host buckets (``use_host_buckets``);
 * ``"batched"`` — ``serving.batched.ssh_search_batch`` over the whole
   block (the default); per-query results carry no ``stats``, as the
-  reference's.
+  reference's;
+* ``"engine"`` — the dynamic-batching ``serving.engine.ServingEngine``
+  (a batcher thread, bucketed padding, inserts between batches), which
+  adds a ``submit`` whose future resolves when the batch is served.
 
-The reference's ``"engine"``, ``"distributed"`` and ``"fleet"`` are
-queued (ROADMAP.md §1, items 3 and 6); :func:`make_searcher` refuses
-them by name.  ``register_searcher`` adds a backend without touching
-the facade.
+The reference's ``"distributed"`` and ``"fleet"`` are queued
+(ROADMAP.md §1, item 6); :func:`make_searcher` refuses them by name.
+``register_searcher`` adds a backend without touching the facade.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from repro_torch.db.config import SearchConfig
 _FACTORIES: Dict[str, Callable] = {}
 
 #: the reference's searchers that the port does not serve yet
-QUEUED = ("distributed", "engine", "fleet")
+QUEUED = ("distributed", "fleet")
 
 
 def register_searcher(name: str) -> Callable:
@@ -115,3 +117,53 @@ class BatchedSearcher(_SearcherBase):
 
     def search(self, query):
         return self.search_batch(_queries(query, self.index)[None, :])[0]
+
+
+@register_searcher("engine")
+class EngineSearcher(_SearcherBase):
+    """The ``ServingEngine`` behind the facade
+    (``repro/db/registry.py:240-288``): the batcher thread starts at the
+    first query (or at ``start()``), ``close()`` drains and stops it,
+    ``submit`` is the asynchronous path and ``metrics`` the engine's
+    counters."""
+
+    def __init__(self, index, config: SearchConfig):
+        super().__init__(index, config)
+        from repro_torch.serving.engine import ServingEngine
+        self.engine = ServingEngine(index, config)
+
+    @property
+    def metrics(self):
+        return self.engine.metrics
+
+    def start(self) -> "EngineSearcher":
+        self.engine.start()
+        return self
+
+    def search(self, query):
+        self._ensure_started()
+        return self.engine.search(query)
+
+    def search_batch(self, queries) -> List:
+        self._ensure_started()
+        return self.engine.search_batch(queries)
+
+    def submit(self, query) -> Future:
+        self._ensure_started()
+        return self.engine.submit(query)
+
+    def insert(self, series) -> None:
+        self.engine.insert(series)
+
+    def apply_artifacts(self, artifacts) -> None:
+        self.engine.apply_artifacts(artifacts)
+
+    def flush(self) -> None:
+        self.engine.flush_inserts()
+
+    def close(self) -> None:
+        self.engine.stop()
+
+    def _ensure_started(self) -> None:
+        if self.engine._thread is None and self.engine._state != "stopped":
+            self.engine.start()

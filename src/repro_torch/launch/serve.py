@@ -1,8 +1,11 @@
 """Serving launcher (counterpart of ``repro.launch.serve``): SSH query
-serving (paper Alg. 2) through the sequential ``local`` searcher, or LM
-KV-cache decode over a batch of prompts with one prefill of the same
-prompts.
+serving (paper Alg. 2) through the dynamic-batching ``engine`` searcher
+(the default) or the sequential ``local`` one, or LM KV-cache decode
+over a batch of prompts with one prefill of the same prompts.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch ssh-ecg \\
+        [--requests 16] [--batch-size 8] [--wait-ms 2] \\
+        [--batch-mode fixed|adaptive] [--db-dir DIR] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch ssh-ecg \\
         --sequential [--db-dir DIR] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
@@ -11,10 +14,11 @@ prompts.
 SSH: ``--db-dir`` serves a database saved by either package (its search
 knobs kept, the serving ones overlaid) instead of building the smoke
 index over a synthetic ECG stream; queries are windows of that stream
-at the database's length.  The engine mode (dynamic batching) waits for
-``serving/engine`` (ROADMAP.md §1, item 3).  LM weights are random from
-``--seed`` (no checkpoint is read).  Without ``--device cpu`` it runs on
-CUDA and raises where there is none.
+at the database's length.  The fleet options (``--replication``,
+``--fleet-workers``, ``--hedge-ms``) are accepted at their defaults
+only: the fleet tier is queued (ROADMAP.md §1, item 6).  LM weights are
+random from ``--seed`` (no checkpoint is read).  Without ``--device
+cpu`` it runs on CUDA and raises where there is none.
 """
 from __future__ import annotations
 
@@ -149,8 +153,8 @@ def _ssh_db(arch, config, db_dir, device):
                 "with repro_torch.launch.build_index)")
         saved = saved_config(db_dir) or config
         tsdb = TimeSeriesDB.load(db_dir, saved.replace(
-            searcher=config.searcher, backend=config.backend),
-            device=device)
+            searcher=config.searcher, backend=config.backend,
+            batch_policy=config.batch_policy), device=device)
         length = tsdb.length
         print(f"loaded database ({len(tsdb)} series of length {length}) "
               f"from {db_dir}", flush=True)
@@ -160,6 +164,47 @@ def _ssh_db(arch, config, db_dir, device):
         tsdb = TimeSeriesDB.build(pool, arch.index_spec(smoke=True), config,
                                   device=device)
     return pool, tsdb
+
+
+def serve_ssh(arch, requests: int, batch_size: int = 8,
+              wait_ms: float = 2.0, backend: str = "auto", db_dir=None,
+              batch_mode: str = "fixed", device=None) -> list:
+    """Engine serving (``repro/launch/serve.py:70-124``): every padded
+    bucket warmed through ``engine.searcher`` (outside the metrics), then
+    the requests submitted one at a time through ``TimeSeriesDB.submit``
+    and batched by the ``BatchPolicy``; prints each top-1 and the
+    engine's metrics line; returns the results in request order."""
+    from repro_torch.db import BatchPolicy
+    dev = ops.resolve_device(device)
+    policy = BatchPolicy(mode=batch_mode, max_batch=batch_size,
+                         max_wait_ms=wait_ms)
+    cfg = arch.search_config(length=SERVE_LENGTH, searcher="engine",
+                             backend=backend, batch_policy=policy)
+    pool, tsdb = _ssh_db(arch, cfg, db_dir, dev)
+    engine = tsdb.engine
+    qids = np.random.default_rng(0).integers(0, pool.shape[0], requests)
+    for size in cfg.buckets():
+        engine.searcher.search_batch(pool[np.resize(qids, size)])
+    out = []
+    t0 = time.perf_counter()
+    with tsdb:
+        futs = [(int(i), tsdb.submit(pool[int(i)])) for i in qids]
+        for i, fut in futs:
+            res = fut.result(timeout=600)
+            out.append(res)
+            print(f"req {i}: top1={res.ids[0]} pruned="
+                  f"{res.pruned_total_frac:.1%}", flush=True)
+        wall = time.perf_counter() - t0
+        snap = engine.metrics.snapshot()
+    print(f"engine: {engine.metrics.format()}", flush=True)
+    print(f"served {requests} requests in {wall:.2f}s "
+          f"({requests / wall:.1f} qps end-to-end, avg batch "
+          f"{snap['batch_size_mean']:.1f}) on {dev}", flush=True)
+    return out
+
+
+#: the fleet options and their defaults, the only values accepted
+FLEET_DEFAULTS = {"replication": 1, "fleet_workers": None, "hedge_ms": 30.0}
 
 
 def serve_ssh_sequential(arch, requests: int, backend: str = "auto",
@@ -200,8 +245,24 @@ def main(argv=None) -> int:
     ap.add_argument("--gen-len", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sequential", action="store_true",
-                    help="ssh: one ssh_search per request (local searcher)")
+                    help="ssh: one ssh_search per request (local searcher) "
+                         "instead of the engine")
     ap.add_argument("--requests", type=int, default=4, help="ssh requests")
+    ap.add_argument("--batch-size", type=int, default=8,
+                    help="ssh: the dynamic batcher's max batch")
+    ap.add_argument("--wait-ms", type=float, default=2.0,
+                    help="ssh: the dynamic batcher's max wait")
+    ap.add_argument("--batch-mode", default="fixed",
+                    choices=("fixed", "adaptive"),
+                    help="ssh: fixed deadline, or the wait from queue depth "
+                         "and the service-time EWMA")
+    ap.add_argument("--replication", type=int, default=1,
+                    help="ssh: fleet replicas (1 only; the fleet is queued)")
+    ap.add_argument("--fleet-workers", type=int, default=None,
+                    help="ssh: fleet size (unset only; the fleet is queued)")
+    ap.add_argument("--hedge-ms", type=float, default=30.0,
+                    help="ssh: hedging deadline (30 only; the fleet is "
+                         "queued)")
     ap.add_argument("--db-dir", default=None,
                     help="ssh: serve the TimeSeriesDB saved here")
     ap.add_argument("--backend", default="auto",
@@ -210,13 +271,20 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.arch.startswith("ssh"):
         from repro_torch.configs.registry import get_arch
-        if not args.sequential:
-            raise NotImplementedError(
-                f"--arch {args.arch}: the engine mode waits for "
-                "serving/engine (ROADMAP.md §1, item 3); pass --sequential")
-        serve_ssh_sequential(get_arch(args.arch), args.requests,
-                             backend=args.backend, db_dir=args.db_dir,
-                             device=args.device)
+        fleet = [f"--{k.replace('_', '-')} {getattr(args, k)}"
+                 for k, v in FLEET_DEFAULTS.items() if getattr(args, k) != v]
+        if fleet:
+            ap.error(f"{', '.join(fleet)}: the fleet tier is not ported yet "
+                     "(queued in ROADMAP.md §1, item 6); leave the fleet "
+                     "options at their defaults")
+        arch = get_arch(args.arch)
+        if args.sequential:
+            serve_ssh_sequential(arch, args.requests, backend=args.backend,
+                                 db_dir=args.db_dir, device=args.device)
+        else:
+            serve_ssh(arch, args.requests, args.batch_size, args.wait_ms,
+                      backend=args.backend, db_dir=args.db_dir,
+                      batch_mode=args.batch_mode, device=args.device)
         return 0
     if args.arch not in LM_ARCHS:
         ap.error(f"--arch {args.arch}: the port serves {sorted(LM_ARCHS)}")

@@ -180,9 +180,9 @@ def test_config_and_spec_read_like_the_reference():
     SearchConfig(searcher="local").validate()
     # the name is checked by the registry, as the reference's: queued
     # searchers are refused by make_searcher, not by validate
-    SearchConfig(searcher="engine").validate()
+    SearchConfig(searcher="distributed").validate()
     with pytest.raises(ValueError, match="queued in ROADMAP"):
-        make_searcher(None, SearchConfig(searcher="engine"))
+        make_searcher(None, SearchConfig(searcher="distributed"))
     with pytest.raises(ValueError, match="backend must be one of"):
         SearchConfig(backend="cuda").validate()
     with pytest.raises(ValueError, match="device='cpu'"):

@@ -711,3 +711,120 @@ def test_save_load_round_trip_on_the_card(cuda, tmp_path, encoder):
                                         use_host_buckets=True))
     assert [int(r.ids[0]) for r in hb.search_batch(series[:4])] == \
         [0, 1, 2, 3]
+
+
+def test_engine_on_the_card_matches_the_block_and_the_cpu(cuda):
+    """The engine's batcher thread serves a CUDA index: queued host rows
+    and CUDA-tensor queries answer as ``ssh_search_batch`` on the block
+    and as the CPU engine (these raw windows need not find themselves at
+    top_c 64); the three SSH kernels launch from the worker thread; an
+    insert through the running engine is found at rank 1."""
+    from repro_torch.db import BatchPolicy
+    from repro_torch.serving import ServingEngine, ssh_search_batch
+    series = make_benchmark_db("ecg", 2000, 128, seed=13)
+    cfg = SearchConfig(topk=10, top_c=64, band=6, multiprobe_offsets=3,
+                       searcher="engine", batch_policy=BatchPolicy(
+                           max_batch=4, max_wait_ms=20.0))
+    gpu = TimeSeriesDB.build(series, SMOKE, cfg)
+    cpu = TimeSeriesDB.build(series, SMOKE, cfg, device="cpu")
+    qids = [0, 5, 77, 301, 999, 1500, 1999]
+    block = ssh_search_batch(series[qids], gpu.index, config=cfg)
+    gpu.index.sig_cache = None           # so that the engine's batches encode
+    engine = gpu.engine
+    assert isinstance(engine, ServingEngine)
+    futs = [engine.submit(series[q]) for q in qids[:4]]
+    futs += [engine.submit(torch.as_tensor(series[q], device=cuda))
+             for q in qids[4:]]
+    ops.reset_launch_counts()
+    with gpu:
+        engine.start()
+        got = [f.result(timeout=300) for f in futs]
+        counts = ops.launch_counts()
+        hist = engine.metrics.batch_histogram()
+        novel = make_benchmark_db("ecg", 1, 128, seed=99)[0]
+        gpu.add(novel)
+        found = gpu.search(novel)
+    assert min(counts[k] for k in ("sketch_conv", "collision_count_batch",
+                                   "dtw_wavefront_pairs")) >= 1
+    assert hist == {4: 1, 3: 1}
+    with cpu:
+        want = cpu.search_batch(series[qids])
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert isinstance(g.ids, np.ndarray)
+        np.testing.assert_array_equal(g.ids, block.per_query(i).ids)
+        np.testing.assert_array_equal(g.dists, block.per_query(i).dists)
+        np.testing.assert_array_equal(g.ids, w.ids)
+        np.testing.assert_array_equal(g.dists, w.dists)
+    assert found.ids[0] == len(series) and found.n_database == len(series) + 1
+
+
+def test_engine_facade_on_the_card_adaptive(cuda):
+    """The facade's engine on the card under the adaptive policy: every
+    row finds itself and futures resolve to host arrays."""
+    from repro_torch.db import BatchPolicy
+    series = make_benchmark_db("ecg", 500, 128, seed=14)
+    cfg = SearchConfig(topk=5, top_c=32, band=6, searcher="engine",
+                       batch_policy=BatchPolicy(mode="adaptive",
+                                                max_batch=8))
+    db = TimeSeriesDB.build(series, SMOKE, cfg, device=cuda)
+    with db:
+        res = [db.submit(series[i]).result(timeout=300) for i in range(6)]
+        engine = db.engine
+    assert [int(r.ids[0]) for r in res] == list(range(6))
+    assert all(isinstance(r.dists, np.ndarray) for r in res)
+    assert engine._state == "stopped" and engine.service_ewma_s > 0
+    assert engine.metrics.snapshot()["requests_total"] == 6
+
+
+def test_spun_events_read_the_profilers_device_time(cuda):
+    """``spun_ms`` (events, the stream held by a spin while the host
+    dispatches) reads a kernel's device time as the profiler does: a
+    small sketch call, whose host work outlasts its kernel, is read as
+    the kernel's time and not as the dispatch's."""
+    from repro_torch.bench.device_time import device_ms, spun_ms
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.normal(size=(512, 512)), dtype=torch.float32,
+                     device=cuda)
+    filt = torch.tensor(rng.normal(size=(80, 1)), dtype=torch.float32,
+                        device=cuda)
+    prof = device_ms(lambda: ops.sketch_conv(x, filt, 3), calls=20)
+    ev = spun_ms(lambda: ops.sketch_conv(x, filt, 3), calls=20)
+    assert prof["source"] == "profiler"
+    assert 0.5 * prof["ms"] < ev < 2.0 * prof["ms"] + 0.02
+
+
+def test_device_ms_reads_events_when_the_profiler_keeps_nothing(
+        cuda, monkeypatch):
+    """Every profiled window empty: ``device_ms`` reads the call by
+    events after ``WINDOWS`` windows and says so, instead of raising."""
+    import torch.profiler as tp
+    from repro_torch.bench import device_time
+
+    class Empty:
+        def __init__(self, **_):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *_):
+            return False
+
+        def key_averages(self):
+            return []
+
+    monkeypatch.setattr(tp, "profile", Empty)
+    a = torch.randn(1024, 1024, device=cuda)
+    got = device_time.device_ms(lambda: a @ a, calls=5)
+    assert got["source"] == "events" and got["windows"] == \
+        device_time.WINDOWS
+    assert got["ms"] > 0 and got["launches"] is None
+
+
+def test_spun_ms_refuses_a_call_that_synchronises(cuda):
+    """A call that waits for the card outlasts every spin, so its device
+    time cannot be read by events: ``spun_ms`` raises."""
+    from repro_torch.bench.device_time import spun_ms
+    a = torch.randn(256, 256, device=cuda)
+    with pytest.raises(RuntimeError, match="synchronises"):
+        spun_ms(lambda: float((a @ a).sum()), calls=2, doublings=2)

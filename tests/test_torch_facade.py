@@ -113,7 +113,7 @@ def test_search_config_dict_form_matches_the_reference():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(batch_policy=BatchPolicy(max_batch=16)), dict(replication=2),
+    dict(hedge_policy="off"), dict(replication=2),
     dict(fleet_workers=3), dict(hedge_policy="fixed"), dict(hedge_ms=10.0),
     dict(subseq_window=64), dict(subseq_hop=2), dict(exclusion_zone=0)])
 def test_queued_knobs_round_trip_but_are_refused(knob):
@@ -132,9 +132,9 @@ def test_queued_knobs_round_trip_but_are_refused(knob):
 
 def test_searcher_registry(pair, queries):
     _, index = pair
-    assert available_searchers() == ["batched", "local"]
+    assert available_searchers() == ["batched", "engine", "local"]
     assert set(available_searchers()) < set(jax_searchers())
-    for name in ("engine", "distributed", "fleet"):
+    for name in ("distributed", "fleet"):
         with pytest.raises(ValueError, match="queued in ROADMAP"):
             make_searcher(index, SearchConfig(searcher=name))
     with pytest.raises(ValueError, match="unknown searcher"):

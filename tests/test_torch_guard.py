@@ -53,7 +53,10 @@ for name in ("repro_torch.streaming.count_sketch",
              "repro_torch.encoders.sigcache", "repro_torch.core.srp",
              "repro_torch.configs.registry",
              "repro_torch.configs.ssh_randomwalk",
-             "repro_torch.launch.build_index"):
+             "repro_torch.launch.build_index", "repro_torch.serving.engine",
+             "repro_torch.serving.metrics", "repro_torch.bench.schema",
+             "repro_torch.loadgen.arrivals", "repro_torch.loadgen.workload",
+             "repro_torch.loadgen.harness"):
     assert name in names, name
 print(len(names), "modules")
 """
@@ -226,3 +229,31 @@ def test_saved_jnp_backend_is_refused_on_cuda(monkeypatch, tmp_path):
     monkeypatch.undo()
     db = TimeSeriesDB.load(tmp_path, device="cpu")
     assert db.config.backend == "jnp"
+
+
+def test_engine_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch,
+                                                           capsys):
+    """The ``"engine"`` searcher and the launcher's engine mode raise
+    without CUDA unless ``device="cpu"`` is passed, as every entry point;
+    the launcher refuses the fleet's options at any value but their
+    defaults."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    series = np.random.default_rng(5).normal(size=(40, 64)).astype(
+        np.float32)
+    cfg = SearchConfig(searcher="engine", top_c=16, band=4)
+    for call in (lambda: TimeSeriesDB.build(series, SMOKE, cfg),
+                 lambda: serve.main(["--arch", "ssh-ecg", "--requests",
+                                     "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    db = TimeSeriesDB.build(series, SMOKE, cfg, device="cpu")
+    with db:
+        assert db.search(series[3]).ids[0] == 3
+        assert db.engine._state == "running"
+    assert db.device == torch.device("cpu")
+    for opt in (["--replication", "2"], ["--fleet-workers", "4"],
+                ["--hedge-ms", "10"]):
+        with pytest.raises(SystemExit):
+            serve.main(["--arch", "ssh-ecg", "--device", "cpu", *opt])
+        assert "ROADMAP.md §1, item 6" in capsys.readouterr().err

@@ -375,7 +375,9 @@ def test_serve_cli_on_cpu(capsys):
                        "3"]) == 0
     out = capsys.readouterr().out
     assert "granite-3-2b (smoke) on cpu" in out and "sample: [" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "ssh-ecg", "--device", "cpu"])
+    with pytest.raises(SystemExit):         # the fleet is queued
+        serve.main(["--arch", "ssh-ecg", "--device", "cpu",
+                    "--replication", "2"])
+    assert "ROADMAP" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         serve.main(["--arch", "phi3-mini", "--device", "cpu"])
