@@ -1,7 +1,7 @@
 """End-to-end check of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--n-series 1048576] [--length 512]
-                          [--lm-prompt 32768]
+                          [--lm-prompt 32768] [--subseq-points 20972031]
 
 1. Set-up: the card's name and power limit, the torch and CUDA versions,
    and the build of the CUDA kernels from ``src/repro_torch/csrc`` (one
@@ -125,7 +125,47 @@
    mode, exit 0, every request its own top-1; one novel series inserted
    through the running engine at 2^20 (insert ms and peak memory
    logged) found at rank 1 as row N of N + 1.
-7. LM serving (the SSH state freed first, so its peak memory is its own):
+7. Subsequence search (the 2^20 index freed first; phases ``subseq``,
+   ``subseq_extend``, ``subseq_hop6``, ``subseq_exact``): one
+   synthetic-ECG stream of ``--subseq-points`` points from ``--seed``
+   (20,971,520 windows of ``--length`` at hop 1, the paper's count), two
+   random-walk patterns planted in its first 2^18 windows; the full
+   ``ssh-ecg`` config, ``SEARCH`` at the 5 % band, ``searcher="local"``,
+   exclusion zone L//2, raw windows.  The sketch at the stream shape
+   first: one (1, n) row at stride 1 and 3 and a suffix view 12 bytes
+   past a 16-byte boundary, bit for bit against
+   ``ref.sketch_conv_fma_ref``; device, call, plain and ``F.conv1d``
+   times at stride 1 (the kernel entry's ``stream_shape``).  Then
+   ``TimeSeriesDB.build_stream`` at hop 1 (stride-1 sketch, windows'
+   bits gathered) and 16 queries (8 windows cut at offsets from
+   ``--seed``, 8 warped copies); ``extend_stream`` of a 4,096-point tail
+   with a third pattern planted in it, which must come back at rank 1,
+   distance 0; the same build and queries at hop 6 (the aligned route,
+   stride 3).  At each hop one warped copy is searched again from an
+   empty LRU with its kernel calls recorded: every ``collision_count``
+   call (over all the windows' keys) held exact to
+   ``ref.collision_count_ref`` and every DTW call bit for bit to
+   ``ref.dtw_wavefront_ref`` through the rule and each schedule; the
+   first probe row and the survivors' DTW timed with their bounds (the
+   kernel entries' ``stream_shape``).  Gates: rolling signatures and
+   keys equal ``encode_batch`` of the materialised windows on 65,536
+   windows (the
+   first and last 4,096, 57,344 drawn) at each hop and on every new
+   window of the tail; every answer's top-1 is the float64 DP's minimum
+   over its probe pool, offsets are ids x hop, pairwise >= L//2.
+   Logged: build s and windows/s beside the per-window encode rate
+   (the median of 5 warm ``encode_chunked`` calls on the sample),
+   us a query and stage us (``encode_amortized`` among them), cut copies
+   at rank 1 and whether top-C ties left the others out, extend us a
+   window, peak memory.  ``subseq_exact``, the first 2^18 windows at
+   hops 1 and 6: signatures equal ``TimeSeriesDB.build`` of the
+   windows; 18 answers equal ``ssh_search`` over those windows at the
+   oversampled topk followed by the same greedy pick, ids and distances
+   bit for bit; the two planted patterns at rank 1, distance 0, as
+   ``brute_force_topk`` over every window in chunks; save under
+   ``build/`` (removed once read), load: answers bit-identical, and the
+   loaded database grows as the original.
+8. LM serving (the SSH state freed first, so its peak memory is its own):
    granite-3-2b CONFIG at full width in bf16, random weights from a
    ``torch.Generator`` seeded by ``--seed``.  First the flash library's
    build report: ptxas's registers, stack and spills of every flash
@@ -226,6 +266,24 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 128, 32  # the serve loop
 # residual layers of random weights carry the differences on: twice
 # that, 10 %.  A wrong mask moves the logits by their own size.
 GATE_REL_TOL = {"bfloat16": 0.10, "float32": 1e-4}
+# the subsequence phases: one stream whose windows of 512 at hop 1 are
+# the paper's 20,971,520 (configs/ssh_ecg.py's PAPER_N_SERIES), indexed
+# at hop 1 (stride-1 sketch) and hop 6 (aligned, stride 3); gate 2's
+# sample (the first and last SUBSEQ_EDGE windows and SUBSEQ_DRAWN drawn
+# from --seed: 65,536); 8 cut and 8 warped queries; a tail for
+# extend_stream with a pattern planted in it; two patterns planted in
+# the first 2^18 windows, where subseq_exact compares every answer with
+# the fixed-length path and the planted ones with brute force
+SUBSEQ_POINTS = 20_972_031
+SUBSEQ_HOPS = (1, 6)
+SUBSEQ_EDGE, SUBSEQ_DRAWN = 4096, 57_344
+SUBSEQ_CUT, SUBSEQ_WARPED = 8, 8
+SUBSEQ_TAIL, SUBSEQ_TAIL_PLANT = 4096, 1200
+SUBSEQ_PLANT = (6_000, 240_000)
+SUBSEQ_SUFFIX = 1_000_003        # 12 bytes past a 16-byte boundary
+SUBSEQ_EXACT_WINDOWS = 1 << 18
+SUBSEQ_BRUTE_CHUNK = 1 << 17
+SUBSEQ_ENC_REPEATS = 5           # timed per-window encodes of the sample
 
 
 def log(*a):
@@ -312,6 +370,121 @@ def arg(call, i, name):
     """Positional argument ``i`` or keyword ``name`` of a recorded call."""
     args, kw = call
     return args[i] if len(args) > i else kw.get(name)
+
+
+def check_hash_range(qk, dbk):
+    if int(max(qk.max(), dbk.max())) >= 1 << 24 or int(qk.min()) < 0:
+        raise AssertionError("hash values outside [0, 2^24): the float "
+                             "yardstick would not be exact")
+
+
+def collision_check(q1, dbk1):
+    """Hold one ``collision_count`` call exact to its plain version."""
+    from repro_torch.kernels import ops, ref
+    got = ops.collision_count(q1, dbk1)
+    want = ref.collision_count_ref(q1, dbk1)
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"collision_count is not exact at db {tuple(dbk1.shape)}: "
+            f"{int((got != want).sum())} counts differ")
+    return want
+
+
+def collision_at(q1, dbk1):
+    """Check and time one ``collision_count`` call, with its bound and
+    its cdist yardstick."""
+    from repro_torch.kernels import ops, ref
+    plain = collision_check(q1, dbk1)
+    check_hash_range(q1, dbk1)
+    k1 = q1.shape[0]
+
+    def cdist_one():
+        return k1 - torch.cdist(q1[None].float(), dbk1.float(), p=0)[0]
+    if not torch.equal(cdist_one().to(torch.int32), plain):
+        raise AssertionError("cdist yardstick disagrees with the counts")
+    del plain
+    bms, bkind = bound_ms(4 * (q1.numel() + dbk1.numel() + dbk1.shape[0]),
+                          2 * dbk1.shape[0] * k1, INT32_OPS_PER_S)
+    return dict(
+        max_abs_err=0.0,
+        **kernel_times(lambda: ops.collision_count(q1, dbk1), cdist_one),
+        plain_ms=cuda_time_ms(lambda: ref.collision_count_ref(q1, dbk1)),
+        bound_ms=bms, bound_by=bkind,
+        shape=f"query {tuple(q1.shape)} db {tuple(dbk1.shape)}")
+
+
+DTW_BOUND_NOTE = ("6 operations a DP cell (a subtract, a multiply, an add "
+                  "and three mins; none fuses) at 33.5e12 non-fused f32 "
+                  "operations a second (132 SMs x 128 lanes x 1.98 GHz); "
+                  "cells as the plain wavefront counts them "
+                  "(core.dtw.dtw_pairs_work)")
+
+
+def dtw_call(kernel, call):
+    """(q, c, r, thr, plain) of a recorded DTW call, after checking it
+    through the rule and each schedule that takes its radius, bit for
+    bit against the plain version; the rule's schedule too."""
+    from repro_torch.core import dtw as core_dtw
+    from repro_torch.kernels import dtw_wavefront as kd
+    from repro_torch.kernels import ref
+    q, c, band = call[0][:3]
+    thr = arg(call, 3, "threshold")
+    n_, m_ = c.shape
+    r = core_dtw.radius(band, m_)
+    pairs = kernel == "dtw_wavefront_pairs"
+    plain = (ref.dtw_pairs_ref(q, c, band, thr) if pairs
+             else ref.dtw_wavefront_ref(q, c, band, thr))
+    fn = kd.dtw_wavefront_pairs if pairs else kd.dtw_wavefront
+    for sched in (None, *dtw_schedules_for(r)):
+        got = fn(q, c, r, thr, schedule=sched)
+        if not torch.equal(got, plain):
+            raise AssertionError(
+                f"{kernel} ({sched or 'rule'}) is not bit-identical on "
+                f"{int((got != plain).sum())} of {n_} pairs "
+                f"({n_}, {m_}) radius {r}")
+    return q, c, r, thr, plain, kd.dtw_schedule(n_, m_, r)
+
+
+def dtw_shape(kernel, call, min_plain_iters):
+    """Times, bound, rate and schedules of one recorded DTW call."""
+    from repro_torch.core import dtw as core_dtw
+    from repro_torch.kernels import dtw_wavefront as kd
+    from repro_torch.kernels import ref
+    q, c, r, thr, plain, rule = dtw_call(kernel, call)
+    pairs = kernel == "dtw_wavefront_pairs"
+    fn = kd.dtw_wavefront_pairs if pairs else kd.dtw_wavefront
+    cells = int(core_dtw.dtw_pairs_work(
+        q if pairs else q.expand_as(c), c, r, thr)[1].sum())
+    bms, bkind = bound_ms(4 * (q.numel() + c.numel() + 2 * c.shape[0]),
+                          6 * cells, F32_NONFUSED_OPS_PER_S)
+    per_sched = {s: float(np.mean(v)) for s, v in in_turns(
+        {s: (lambda s=s: fn(q, c, r, thr, schedule=s))
+         for s in dtw_schedules_for(r)}).items()}
+    times = kernel_times(lambda: fn(q, c, r, thr, schedule=rule))
+    ms = times["ms"]
+    plain_fn = ((lambda: ref.dtw_pairs_ref(q, c, r, thr)) if pairs
+                else (lambda: ref.dtw_wavefront_ref(q, c, r, thr)))
+    return dict(
+        **times,
+        plain_ms=cuda_time_ms(plain_fn, min_iters=min_plain_iters),
+        bound_ms=bms, bound_by=bkind, schedule=rule,
+        schedule_call_ms=per_sched, cells=cells,
+        gcells_per_s=cells / ms / 1e6, share_of_bound=bms / ms,
+        shape=f"{'pairs' if pairs else 'query'} {tuple(q.shape)} "
+              f"candidates {tuple(c.shape)} radius {r} threshold "
+              f"{thr is not None}; "
+              f"{int((plain >= core_dtw.BIG * 0.5).sum())} abandoned; "
+              f"{cells} cells run")
+
+
+def dtw_calls_log(kernel, calls):
+    """The rule's schedule of every recorded call, in order (each call
+    checked by ``dtw_call``)."""
+    from repro_torch.core import dtw as core_dtw
+    return [f"({c[0][1].shape[0]}, {c[0][1].shape[1]}) r "
+            f"{core_dtw.radius(c[0][2], c[0][1].shape[1])} thr "
+            f"{arg(c, 3, 'threshold') is not None}: "
+            f"{dtw_call(kernel, c)[5]}" for c in calls]
 
 
 def dir_bytes(path: Path) -> int:
@@ -1147,11 +1320,6 @@ def ssh_paths(args, counted, phases) -> list:
         sass=sk_report["sass"], registers=sk_report["registers"],
         library="F.conv1d(stride=step), cudnn.allow_tf32=False"))
 
-    def check_hash_range(qk, dbk):
-        if int(max(qk.max(), dbk.max())) >= 1 << 24 or int(qk.min()) < 0:
-            raise AssertionError("hash values outside [0, 2^24): the float "
-                                 "yardstick would not be exact")
-
     # collision_count_batch: the probe of B·O signature rows
     cc_report = collision_build_report(_build)
 
@@ -1201,21 +1369,8 @@ def ssh_paths(args, counted, phases) -> list:
 
     # collision_count: one probe row of a sequential query
     cc_calls = rec_s.calls["collision_count"]
-    for (q1, dbk1), _ in cc_calls:
-        if not torch.equal(ops.collision_count(q1, dbk1),
-                           ref.collision_count_ref(q1, dbk1)):
-            raise AssertionError("collision_count is not exact")
-    q1, dbk1 = cc_calls[0][0]
-    check_hash_range(q1, dbk1)
-    k1 = q1.shape[0]
-
-    def cdist_one():
-        return k1 - torch.cdist(q1[None].float(), dbk1.float(), p=0)[0]
-    if not torch.equal(cdist_one().to(torch.int32),
-                       ref.collision_count_ref(q1, dbk1)):
-        raise AssertionError("cdist yardstick disagrees with the counts")
-    bms, bkind = bound_ms(4 * (q1.numel() + dbk1.numel() + dbk1.shape[0]),
-                          2 * dbk1.shape[0] * k1, INT32_OPS_PER_S)
+    for (q1, dbk1), _ in cc_calls[1:]:
+        collision_check(q1, dbk1)
     entries.append(dict(
         name="collision_count", route="cuda",
         source="src/repro_torch/csrc/collision_count.cu",
@@ -1223,80 +1378,16 @@ def ssh_paths(args, counted, phases) -> list:
         launches=phases["sequential"]["collision_count"],
         launches_by_phase={p: c["collision_count"]
                            for p, c in phases.items()},
-        max_abs_err=0.0,
-        **kernel_times(lambda: ops.collision_count(q1, dbk1), cdist_one),
-        plain_ms=cuda_time_ms(lambda: ref.collision_count_ref(q1, dbk1)),
-        bound_ms=bms, bound_by=bkind,
-        shape=f"query {tuple(q1.shape)} db {tuple(dbk1.shape)}; "
-              f"{len(cc_calls)} calls (one per probe row) checked",
+        **collision_at(*cc_calls[0][0]),
         tolerance="exact", library="K - torch.cdist(q[None], db, p=0)"))
+    entries[-1]["shape"] += (f"; {len(cc_calls)} calls (one per probe row) "
+                             "checked")
 
     # DTW: every recorded call through the rule and through each schedule
     # that takes its radius, bit for bit against the plain version; timed
     # (both schedules in turns) at the batched survivors, the UCR scan and
     # a sequential re-rank
     dtw_report = dtw_build_report(_build)
-
-    def dtw_call(kernel, call):
-        """(q, c, r, thr, plain) of a recorded call, after checking it
-        through the rule and each schedule; the rule's schedule too."""
-        q, c, band = call[0][:3]
-        thr = arg(call, 3, "threshold")
-        n_, m_ = c.shape
-        r = core_dtw.radius(band, m_)
-        pairs = kernel == "dtw_wavefront_pairs"
-        plain = (ref.dtw_pairs_ref(q, c, band, thr) if pairs
-                 else ref.dtw_wavefront_ref(q, c, band, thr))
-        fn = kd.dtw_wavefront_pairs if pairs else kd.dtw_wavefront
-        for sched in (None, *dtw_schedules_for(r)):
-            got = fn(q, c, r, thr, schedule=sched)
-            if not torch.equal(got, plain):
-                raise AssertionError(
-                    f"{kernel} ({sched or 'rule'}) is not bit-identical on "
-                    f"{int((got != plain).sum())} of {n_} pairs "
-                    f"({n_}, {m_}) radius {r}")
-        return q, c, r, thr, plain, kd.dtw_schedule(n_, m_, r)
-
-    def dtw_shape(kernel, call, min_plain_iters):
-        """Times, bound, rate and schedules of one recorded call."""
-        q, c, r, thr, plain, rule = dtw_call(kernel, call)
-        pairs = kernel == "dtw_wavefront_pairs"
-        fn = kd.dtw_wavefront_pairs if pairs else kd.dtw_wavefront
-        cells = int(core_dtw.dtw_pairs_work(
-            q if pairs else q.expand_as(c), c, r, thr)[1].sum())
-        bms, bkind = bound_ms(4 * (q.numel() + c.numel() + 2 * c.shape[0]),
-                              6 * cells, F32_NONFUSED_OPS_PER_S)
-        per_sched = {s: float(np.mean(v)) for s, v in in_turns(
-            {s: (lambda s=s: fn(q, c, r, thr, schedule=s))
-             for s in dtw_schedules_for(r)}).items()}
-        times = kernel_times(lambda: fn(q, c, r, thr, schedule=rule))
-        ms = times["ms"]
-        plain_fn = ((lambda: ref.dtw_pairs_ref(q, c, r, thr)) if pairs
-                    else (lambda: ref.dtw_wavefront_ref(q, c, r, thr)))
-        return dict(
-            **times,
-            plain_ms=cuda_time_ms(plain_fn, min_iters=min_plain_iters),
-            bound_ms=bms, bound_by=bkind, schedule=rule,
-            schedule_call_ms=per_sched, cells=cells,
-            gcells_per_s=cells / ms / 1e6, share_of_bound=bms / ms,
-            shape=f"{'pairs' if pairs else 'query'} {tuple(q.shape)} "
-                  f"candidates {tuple(c.shape)} radius {r} threshold "
-                  f"{thr is not None}; "
-                  f"{int((plain >= core_dtw.BIG * 0.5).sum())} abandoned; "
-                  f"{cells} cells run")
-
-    def dtw_calls_log(kernel, calls):
-        """The rule's schedule of every recorded call, in order."""
-        return [f"({c[0][1].shape[0]}, {c[0][1].shape[1]}) r "
-                f"{core_dtw.radius(c[0][2], c[0][1].shape[1])} thr "
-                f"{arg(c, 3, 'threshold') is not None}: "
-                f"{dtw_call(kernel, c)[5]}" for c in calls]
-
-    bound_note = ("6 operations a DP cell (a subtract, a multiply, an add "
-                  "and three mins; none fuses) at 33.5e12 non-fused f32 "
-                  "operations a second (132 SMs x 128 lanes x 1.98 GHz); "
-                  "cells as the plain wavefront counts them "
-                  "(core.dtw.dtw_pairs_work)")
     dtw_calls = rec_b.calls["dtw_rerank_pairs"]
     pairs_calls = dtw_calls_log("dtw_wavefront_pairs", dtw_calls)
     survivors = dtw_shape("dtw_wavefront_pairs", dtw_calls[-1], 2)
@@ -1309,7 +1400,7 @@ def ssh_paths(args, counted, phases) -> list:
         launches_by_schedule={s: phases["batched"][
             f"dtw_wavefront_pairs:{s}"] for s in kd.SCHEDULES},
         calls_checked=pairs_calls, tolerance="bit-identical",
-        bound_note=bound_note, sass=dtw_report["sass"]))
+        bound_note=DTW_BOUND_NOTE, sass=dtw_report["sass"]))
 
     one_calls = rec_s.calls["dtw_rerank"] + rec_u.calls["dtw_rerank"]
     one_log = dtw_calls_log("dtw_wavefront", one_calls)
@@ -1328,7 +1419,7 @@ def ssh_paths(args, counted, phases) -> list:
                               for p in ("sequential", "ucr")},
         max_abs_err=0.0, **ucr_big, library_ms=None,
         sequential_shape=seq_surv, tolerance="bit-identical",
-        calls_checked=one_log, bound_note=bound_note))
+        calls_checked=one_log, bound_note=DTW_BOUND_NOTE))
     for e in entries[-2:]:
         log(f"dtw {e['name']}: schedules of the recorded calls "
             f"{e['calls_checked']}; launches by schedule "
@@ -1437,6 +1528,481 @@ def ssh_paths(args, counted, phases) -> list:
                 f"{got['plain_ms']:.4f} bound_ms {got['bound_ms']:.5f} "
                 f"max_err {got['max_abs_err']}")
     return entries
+
+
+def dtw64_pairs(q, x, band):
+    """Float64 banded squared DTW of row-aligned pairs, (P, m) x (P, m)
+    -> (P,): an anti-diagonal DP over the cells, written apart from the
+    port's DTW; the reference the subsequence gates hold answers to."""
+    p, m = q.shape
+    q, x = q.double(), x.double()
+    r = m - 1 if band is None else int(band)
+    i = torch.arange(m, device=q.device)
+    inf = torch.full((p, 1), float("inf"), dtype=torch.float64,
+                     device=q.device)
+    prev2 = inf.expand(p, m).clone()
+    prev1 = prev2.clone()
+    for d in range(2 * m - 1):
+        j = d - i                           # cell (i, d - i) of diagonal d
+        ok = (j >= 0) & (j < m) & ((i - j).abs() <= r)
+        cost = (q - x[:, j.clamp(0, m - 1)]) ** 2
+        up = torch.cat([inf, prev1[:, :-1]], 1)        # (i - 1, j)
+        diag = torch.cat([inf, prev2[:, :-1]], 1)      # (i - 1, j - 1)
+        best = torch.minimum(torch.minimum(up, prev1), diag)  # prev1: (i, j-1)
+        if d == 0:
+            best = torch.zeros_like(best)
+        prev2, prev1 = prev1, torch.where(ok, cost + best, float("inf"))
+    return prev1[:, m - 1]
+
+
+def subseq_paths(args, counted, phases) -> dict:
+    """Paths ``subseq*`` and ``subseq_exact`` (step 7 of the docstring);
+    returns the ``stream_shape`` entries of ``sketch_conv``,
+    ``collision_count`` and ``dtw_wavefront`` by kernel name.  Every
+    tensor is freed when this returns, and the saved directory is
+    removed."""
+    import shutil
+    import tempfile
+    import torch.nn.functional as F
+    from repro_torch.configs import ssh_ecg
+    from repro_torch.core import search
+    from repro_torch.data.timeseries import synthetic_ecg, warp_series
+    from repro_torch.db import TimeSeriesDB
+    from repro_torch.encoders import make_encoder
+    from repro_torch.kernels import ops, ref
+    from repro_torch.subseq import num_windows
+    from repro_torch.subseq.index import exclusion_pick
+
+    dev = torch.device("cuda")
+    m, spec = args.length, ssh_ecg.CONFIG
+    w_ = spec.params["window"]
+    excl = m // 2                            # the default exclusion zone
+    kernels = ("sketch_conv", "collision_count", "dtw_wavefront")
+
+    # -- data: one stream, two planted patterns, queries ---------------------
+    t = time.perf_counter()
+    stream = synthetic_ecg(args.subseq_points, seed=args.seed)
+    rng = np.random.default_rng(args.seed + 11)
+
+    def pattern():
+        """A random walk at the stream's scale: unlike any ECG window."""
+        walk = rng.normal(size=m).cumsum()
+        return ((walk - walk.mean()) / walk.std()
+                * stream.std()).astype(np.float32)
+    planted = [pattern() for _ in SUBSEQ_PLANT]
+    for off, pat in zip(SUBSEQ_PLANT, planted):
+        stream[off:off + m] = pat
+    n_pts = len(stream)
+    nw = {h: num_windows(n_pts, m, h) for h in SUBSEQ_HOPS}
+    log(f"subseq: one synthetic-ECG stream of {n_pts} points from seed "
+        f"{args.seed} ({stream.nbytes / 1e9:.3f} GB, made in "
+        f"{time.perf_counter() - t:.1f} s): {nw[1]} windows of {m} at hop "
+        f"1 (the paper's database is {ssh_ecg.PAPER_N_SERIES}), {nw[6]} at "
+        f"hop 6; two random-walk patterns planted at {SUBSEQ_PLANT}")
+
+    def cut_and_warped(limit):
+        """8 windows cut at offsets (multiples of 6, below ``limit``) and
+        8 warped copies of others."""
+        offs = [6 * int(o) for o in rng.integers(0, limit // 6, SUBSEQ_CUT)]
+        qs = [stream[o:o + m].copy() for o in offs]
+        for o in rng.integers(0, limit // 6, SUBSEQ_WARPED):
+            o = 6 * int(o)
+            qs.append(warp_series(stream[o:o + m], shift=int(rng.integers(
+                1, 4)), stretch=1.02, seed=o, noise=0.02))
+        return offs, qs
+    cut_offs, queries = cut_and_warped(n_pts - m)
+
+    # -- gate 1: the sketch at the stream shape --------------------------------
+    filt = make_encoder(spec, dev)._require_state()["filters"]
+    xs = torch.as_tensor(stream, device=dev)
+    suffix = xs[SUBSEQ_SUFFIX:]
+    if suffix.data_ptr() % 16 == 0:
+        raise AssertionError("the suffix view should start off a 16-byte "
+                             "boundary")
+    checked = []
+    for x, g, tag in ((xs, 1, "stream, stride 1 (hop 1)"),
+                      (xs, 3, "stream, stride 3 (hop 6)"),
+                      (suffix, 1, f"suffix from point {SUBSEQ_SUFFIX}, "
+                                  "stride 1")):
+        kern = ops.sketch_conv(x[None], filt, g)
+        emu = ref.sketch_conv_fma_ref(x[None], filt, g)
+        if not torch.equal(kern, emu):
+            raise AssertionError(
+                f"sketch_conv at the stream shape ({tag}) is not "
+                f"bit-identical to sketch_conv_fma_ref: "
+                f"{int((kern != emu).sum())} outputs differ")
+        checked.append(f"{tag}: {tuple(kern.shape)} bit-identical")
+        del kern, emu
+    x1 = xs[None]
+    kern = ops.sketch_conv(x1, filt, 1)
+    plain = ref.sketch_conv_ref(x1, filt, 1)
+    scale = ref.sketch_conv_ref(x1.abs(), filt.abs(), 1)
+    err = (kern - plain).abs()
+    if not bool((err <= 2 * w_ * 2.0 ** -24 * scale).all()):
+        raise AssertionError(f"sketch_conv at the stream shape disagrees "
+                             f"with its plain version beyond the "
+                             f"reordering bound: max err {float(err.max())}")
+    wconv = filt.t().contiguous()[:, None, :]
+
+    def conv(x, g):
+        return lambda: F.conv1d(x[:, None, :], wconv, stride=g).transpose(
+            1, 2)
+    bms, bkind = bound_ms(4 * (x1.numel() + filt.numel() + kern.numel()),
+                          2 * kern.shape[1] * w_)
+    stream_shape = dict(
+        shape=f"x {tuple(x1.shape)} filters {tuple(filt.shape)} step 1",
+        **kernel_times(lambda: ops.sketch_conv(x1, filt, 1), conv(x1, 1)),
+        plain_ms=cuda_time_ms(lambda: ref.sketch_conv_ref(x1, filt, 1),
+                              min_iters=2),
+        bound_ms=bms, bound_by=bkind, max_abs_err=float(err.max()),
+        library_max_abs_err=float((conv(x1, 1)() - plain).abs().max()),
+        bit_identical=True, checked=checked,
+        stride3=dict(kernel_times(lambda: ops.sketch_conv(x1, filt, 3),
+                                  conv(x1, 3)),
+                     bound_ms=bound_ms(
+                         4 * (x1.numel() + filt.numel()
+                              + (n_pts - w_) // 3 + 1),
+                         2 * ((n_pts - w_) // 3 + 1) * w_)[0]))
+    stream_shape["share_of_bound"] = bms / stream_shape["ms"]
+    del kern, plain, scale, err, xs, x1, suffix
+    log(f"subseq: sketch_conv at the stream shape: {stream_shape}")
+
+    def sample_ids(n_windows):
+        """Gate 2's windows: the first and last SUBSEQ_EDGE and
+        SUBSEQ_DRAWN drawn from --seed."""
+        mid = rng.choice(np.arange(SUBSEQ_EDGE, n_windows - SUBSEQ_EDGE),
+                         size=SUBSEQ_DRAWN, replace=False)
+        return np.sort(np.concatenate([
+            np.arange(SUBSEQ_EDGE), mid,
+            np.arange(n_windows - SUBSEQ_EDGE, n_windows)]))
+
+    def rolling_equals_per_window(db, rows, what):
+        """Gate 2: the rows' signatures and keys equal ``encode_batch`` of
+        the materialised windows.  Returns the seconds of
+        ``SUBSEQ_ENC_REPEATS`` more per-window encodes of the sample (the
+        checked one warms them up)."""
+        sub, enc = db.subseq, db.index.encoder
+        idx = torch.as_tensor(rows, device=dev)
+        wins = sub.stream.unfold(0, m, sub.hop)[idx]
+        sigs = enc.encode_chunked(wins)
+        bad = int((sigs != db.index.signatures[idx]).any(1).sum())
+        bad_keys = int((enc.band_keys(sigs) != db.index.keys[idx])
+                       .any(1).sum())
+        if bad or bad_keys:
+            raise AssertionError(f"{what}: {bad} of {len(rows)} rolling "
+                                 f"signatures and {bad_keys} key rows differ "
+                                 f"from the per-window encode")
+        enc_s = []
+        for _ in range(SUBSEQ_ENC_REPEATS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            enc.encode_chunked(wins)
+            torch.cuda.synchronize()
+            enc_s.append(time.perf_counter() - t)
+        return enc_s
+
+    def check_answers(db, qs, res, what):
+        """Gate 3: top-1 is the float64 DP's minimum over the probe pool,
+        offsets are ids x hop, pairwise at least the zone apart.  Returns
+        whether each query's own window was in its pool."""
+        sub, cfg = db.subseq, db.config
+        in_pool = []
+        for qi, (q, r) in enumerate(zip(qs, res)):
+            q_t = torch.as_tensor(q, device=dev)
+            cand = search.hash_probe(
+                q_t, db.index, cfg.top_c,
+                rank_by_signature=cfg.rank_by_signature,
+                multiprobe_offsets=cfg.multiprobe_offsets)
+            wins = sub.stream[cand[:, None] * sub.hop
+                              + torch.arange(m, device=dev)]
+            dp = dtw64_pairs(q_t.expand_as(wins), wins, cfg.band)
+            dmin = float(dp.min())
+            tol = 1e-5 * dmin + 1e-6
+            ties = set(cand[dp <= dmin + tol].tolist())
+            if abs(float(r.dists[0]) - dmin) > tol or int(r.ids[0]) not in ties:
+                raise AssertionError(
+                    f"{what} query {qi}: top-1 {int(r.ids[0])} at "
+                    f"{float(r.dists[0])!r} is not the float64 minimum "
+                    f"{dmin!r} over its {len(cand)} pooled windows "
+                    f"(at {sorted(ties)[:4]})")
+            if not np.array_equal(r.offsets, r.ids * sub.hop):
+                raise AssertionError(f"{what} query {qi}: offsets "
+                                     f"{r.offsets} != ids x {sub.hop}")
+            gap = np.abs(r.offsets[:, None] - r.offsets[None, :])
+            np.fill_diagonal(gap, excl)
+            if not (1 <= len(r.ids) <= cfg.topk and gap.min() >= excl
+                    and np.all(np.isfinite(r.dists))
+                    and np.all(np.diff(r.dists) >= 0)):
+                raise AssertionError(f"{what} query {qi}: {len(r.ids)} "
+                                     f"answers at offsets {r.offsets}, "
+                                     f"distances {r.dists}: malformed or "
+                                     f"closer than {excl}")
+            if qi < len(cut_offs):
+                in_pool.append(cut_offs[qi] // sub.hop in set(
+                    cand.tolist()))
+        return in_pool
+
+    def search_all(db, qs):
+        out, walls = [], []
+        for q in qs:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out.append(db.search_subsequence(q))
+            walls.append(time.perf_counter() - t)
+        return out, walls
+
+    def report(hop, build_s, res, walls, in_pool, enc_s, n_sample):
+        n_w = nw[hop]
+        stage = {k: round(float(np.mean([r.stats.stage_us[k]
+                                         for r in res[1:]])), 3)
+                 for k in res[0].stats.stage_us}
+        hits = [int(r.offsets[0]) == o and float(r.dists[0]) == 0.0
+                for r, o in zip(res, cut_offs)]
+        per_window = [n_sample / e for e in enc_s]
+        log(f"subseq hop {hop}: build {build_s:.2f} s, {n_w / build_s:.0f} "
+            f"windows/s rolling (signatures and keys) against "
+            f"{np.median(per_window):.0f} windows/s per-window encode_batch "
+            f"(signatures alone; median of {len(enc_s)} warm calls on the "
+            f"{n_sample}-window sample, from {min(per_window):.0f} to "
+            f"{max(per_window):.0f}; {n_sample} windows equal, signatures "
+            f"and keys); "
+            f"us_per_query {np.mean(walls[1:]) * 1e6:.1f} (mean of queries "
+            f"2-{len(walls)}; the first {walls[0] * 1e6:.1f}) stage_us "
+            f"{stage}; n_dtw {[r.stats.n_dtw for r in res]}; cut copies "
+            f"at rank 1 and distance 0: {sum(hits)} of {len(hits)}; the "
+            f"others' own window in the top-{res[0].stats.n_in} probe pool "
+            f"(else top-C ties left it out): "
+            f"{[p for p, h in zip(in_pool, hits) if not h]}")
+        return dict(build_s=build_s, windows_per_s=n_w / build_s,
+                    per_window_encode_per_s=float(np.median(per_window)),
+                    per_window_encode_per_s_all=per_window,
+                    us_per_query=float(np.mean(walls[1:]) * 1e6),
+                    stage_us=stage, cut_hits=sum(hits))
+
+    # -- phase subseq: hop 1, the paper's count ------------------------------
+    cfg1 = ssh_ecg.search_config(length=m).replace(
+        searcher="local", subseq_window=m, subseq_hop=1)
+    log(f"subseq: spec {spec.to_dict()}; search {cfg1.to_dict()}")
+    tail = synthetic_ecg(SUBSEQ_TAIL, seed=args.seed + 13)
+    tail_pat = pattern()
+    tail[SUBSEQ_TAIL_PLANT:SUBSEQ_TAIL_PLANT + m] = tail_pat
+
+    def hop1_path():
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        db = TimeSeriesDB.build_stream(stream, spec, cfg1)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        stream_shape["launches"] = ops.launch_counts()["sketch_conv"]
+        log(f"subseq hop 1: index {db.subseq.nbytes() / 1e9:.2f} GB on "
+            f"{dev}, build peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        return (db, build_s) + search_all(db, queries)
+
+    def kernels_at_stream(db, phase):
+        """The probe's and the re-rank's kernels at this index's shapes:
+        one warped copy searched from an empty LRU under a Recorder
+        (outside the counted phase), every ``collision_count`` call held
+        exact and every DTW call bit-identical through the rule and each
+        schedule; the first probe row and the survivors' DTW timed."""
+        db.index.sig_cache = None
+        with Recorder(ops, ("collision_count", "dtw_rerank")) as rec:
+            db.search_subsequence(queries[SUBSEQ_CUT])
+        cc, dt = rec.calls["collision_count"], rec.calls["dtw_rerank"]
+        for (q1, dbk1), _ in cc[1:]:
+            collision_check(q1, dbk1)
+        cc_at = dict(collision_at(*cc[0][0]), calls_held=len(cc),
+                     launches=phases[phase]["collision_count"])
+        dtw_at = dict(dtw_shape("dtw_wavefront", dt[-1], 2), max_abs_err=0.0,
+                      calls_checked=dtw_calls_log("dtw_wavefront", dt),
+                      launches=phases[phase]["dtw_wavefront"])
+        del rec, cc, dt
+        for name, got in (("collision_count", cc_at),
+                          ("dtw_wavefront", dtw_at)):
+            shapes[name][f"hop {db.subseq.hop}"] = got
+            log(f"kernel {name} at the subseq hop {db.subseq.hop} shape, "
+                f"every call held to the plain version: [{got['shape']}] "
+                f"device ms {got['ms']:.4f} ({got['device_source']}) call "
+                f"ms {got['call_ms']:.4f} plain_ms {got['plain_ms']:.4f} "
+                f"library ms {got.get('library_ms')} bound_ms "
+                f"{got['bound_ms']:.5f} ({got['bound_by']}) launches in "
+                f"{phase} {got['launches']}")
+
+    shapes = {"sketch_conv": stream_shape, "collision_count": {},
+              "dtw_wavefront": {}}
+    db, build_s, res, walls = counted("subseq", kernels, hop1_path)
+    in_pool = check_answers(db, queries, res, "subseq hop 1")
+    kernels_at_stream(db, "subseq")
+    rows = sample_ids(nw[1])
+    enc_s = rolling_equals_per_window(db, rows, "subseq hop 1")
+    summary = {1: report(1, build_s, res, walls, in_pool, enc_s, len(rows))}
+
+    # -- phase subseq_extend: growth -------------------------------------------
+    def extend_path():
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n_new = db.extend_stream(tail)
+        torch.cuda.synchronize()
+        ext_s = time.perf_counter() - t
+        return n_new, ext_s, db.search_subsequence(tail_pat)
+
+    n_new, ext_s, found = counted("subseq_extend", kernels, extend_path)
+    if n_new != num_windows(n_pts + SUBSEQ_TAIL, m, 1) - nw[1]:
+        raise AssertionError(f"extend_stream: {n_new} new windows")
+    new = torch.arange(nw[1], nw[1] + n_new, device=dev)
+    enc = db.index.encoder
+    own = enc.encode_chunked(db.subseq.stream.unfold(0, m, 1)[new])
+    if not (torch.equal(own, db.index.signatures[nw[1]:])
+            and torch.equal(enc.band_keys(own), db.index.keys[nw[1]:])):
+        raise AssertionError("extend_stream: the new windows' signatures or "
+                             "keys differ from the per-window encode")
+    want_off = n_pts + SUBSEQ_TAIL_PLANT
+    if int(found.offsets[0]) != want_off or float(found.dists[0]) != 0.0:
+        raise AssertionError(f"extend_stream: the window planted at "
+                             f"{want_off} came back at {found.offsets[0]} "
+                             f"({found.dists[0]})")
+    log(f"subseq extend: {n_new} windows from a {SUBSEQ_TAIL}-point tail in "
+        f"{ext_s * 1e3:.1f} ms ({ext_s / n_new * 1e6:.2f} us a window, the "
+        f"concatenation of every signature and key included), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; signatures and "
+        f"keys equal the per-window encode; the planted window found at "
+        f"rank 1, distance 0")
+    summary["extend_us_per_window"] = ext_s / n_new * 1e6
+    del db, res, own, new, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase subseq_hop6: the aligned route -----------------------------------
+    cfg6 = cfg1.replace(subseq_hop=6)
+
+    def hop6_path():
+        t = time.perf_counter()
+        db = TimeSeriesDB.build_stream(stream, spec, cfg6)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        stream_shape["stride3"]["launches"] = \
+            ops.launch_counts()["sketch_conv"]
+        return (db, build_s) + search_all(db, queries)
+
+    db, build_s, res, walls = counted("subseq_hop6", kernels, hop6_path)
+    in_pool = check_answers(db, queries, res, "subseq hop 6")
+    kernels_at_stream(db, "subseq_hop6")
+    rows = sample_ids(nw[6])
+    enc_s = rolling_equals_per_window(db, rows, "subseq hop 6")
+    summary[6] = report(6, build_s, res, walls, in_pool, enc_s, len(rows))
+    del db, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase subseq_exact: the first 2^18 windows against fixed length --------
+    ex_offs, ex_queries = cut_and_warped(SUBSEQ_EXACT_WINDOWS)
+    ex_queries += planted
+    dbs = {}
+
+    def exact_path():
+        out = {}
+        for hop in SUBSEQ_HOPS:
+            pts = (SUBSEQ_EXACT_WINDOWS - 1) * hop + m
+            db = TimeSeriesDB.build_stream(stream[:pts], spec,
+                                           cfg1.replace(subseq_hop=hop))
+            dbs[hop] = db
+            out[hop] = search_all(db, ex_queries)[0]
+        return out
+
+    ex_res = counted("subseq_exact", kernels, exact_path)
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    for hop in SUBSEQ_HOPS:
+        db_s, res_s = dbs[hop], ex_res[hop]
+        cfg = db_s.config
+        wins = db_s.subseq.stream.unfold(0, m, hop).contiguous()
+        db_w = TimeSeriesDB.build(wins, spec, cfg)
+        if not torch.equal(db_w.index.signatures, db_s.index.signatures):
+            bad = (db_w.index.signatures != db_s.index.signatures).any(1)
+            raise AssertionError(
+                f"subseq_exact hop {hop}: {int(bad.sum())} window "
+                "signatures of the rolling build differ from "
+                "TimeSeriesDB.build of the windows")
+        oversample = max(2, excl // hop + 1)
+        for qi, (q, got) in enumerate(zip(ex_queries, res_s)):
+            cand = search.hash_probe(
+                torch.as_tensor(q, device=dev), db_w.index, cfg.top_c,
+                rank_by_signature=cfg.rank_by_signature,
+                multiprobe_offsets=cfg.multiprobe_offsets)
+            k_eff = min(len(cand), cfg.topk * oversample)
+            r = search.ssh_search(q, db_w.index, cfg.replace(topk=k_eff))
+            sel = exclusion_pick(r.ids * hop, excl, cfg.topk)
+            if not (np.array_equal(got.ids, r.ids[sel])
+                    and np.array_equal(got.dists, r.dists[sel])):
+                raise AssertionError(
+                    f"subseq_exact hop {hop} query {qi}: ids {got.ids} "
+                    f"dists {got.dists} != ssh_search over the windows "
+                    f"{r.ids[sel]} {r.dists[sel]}")
+        t = time.perf_counter()
+        for qi, (off, pat) in enumerate(zip(SUBSEQ_PLANT, planted)):
+            q_t = torch.as_tensor(pat, device=dev)
+            best = (float("inf"), -1)
+            for lo in range(0, SUBSEQ_EXACT_WINDOWS, SUBSEQ_BRUTE_CHUNK):
+                ids, d = search.brute_force_topk(
+                    q_t, wins[lo:lo + SUBSEQ_BRUTE_CHUNK], 1, cfg.band)
+                best = min(best, (float(d[0]), lo + int(ids[0])))
+            got = res_s[len(ex_offs) + SUBSEQ_WARPED + qi]
+            if best != (0.0, off // hop) or int(got.ids[0]) != best[1] \
+                    or float(got.dists[0]) != 0.0:
+                raise AssertionError(
+                    f"subseq_exact hop {hop}: the pattern planted at {off} "
+                    f"came back at {int(got.offsets[0])} "
+                    f"({float(got.dists[0])}), brute force at window "
+                    f"{best[1]} ({best[0]})")
+        brute_s = time.perf_counter() - t
+        del db_w, wins
+        # persistence: save, load, the same answers and the same growth
+        tmp = Path(tempfile.mkdtemp(prefix="subseq_", dir=root))
+        try:
+            t = time.perf_counter()
+            db_s.save(tmp)
+            save_s = time.perf_counter() - t
+            t = time.perf_counter()
+            loaded = TimeSeriesDB.load(tmp)
+            load_s = time.perf_counter() - t
+            nbytes = dir_bytes(tmp)
+        finally:
+            shutil.rmtree(tmp)
+        for qi, (q, want) in enumerate(zip(ex_queries, res_s)):
+            got = loaded.search_subsequence(q)
+            if not (np.array_equal(got.ids, want.ids)
+                    and np.array_equal(got.dists, want.dists)):
+                raise AssertionError(f"subseq_exact hop {hop}: the loaded "
+                                     f"database answers query {qi} with "
+                                     f"{got.ids} {got.dists}, not "
+                                     f"{want.ids} {want.dists}")
+        grown = [d.extend_stream(tail) for d in (db_s, loaded)]
+        if grown[0] != grown[1] or not (
+                torch.equal(db_s.index.signatures, loaded.index.signatures)
+                and torch.equal(db_s.index.keys, loaded.index.keys)):
+            raise AssertionError(f"subseq_exact hop {hop}: extend_stream "
+                                 "of the loaded database differs")
+        hits = sum(int(r.offsets[0]) == o and float(r.dists[0]) == 0.0
+                   for r, o in zip(res_s, ex_offs))
+        log(f"subseq_exact hop {hop}: {SUBSEQ_EXACT_WINDOWS} windows; "
+            f"signatures equal TimeSeriesDB.build of the windows; "
+            f"{len(ex_queries)} answers equal ssh_search at the "
+            f"oversampled topk ({cfg.topk} x {oversample}) then the same "
+            f"pick, ids and distances bit for bit; the {len(planted)} "
+            f"planted patterns at rank 1, distance 0, as brute force over "
+            f"every window ({brute_s:.1f} s of plain DTW in chunks of "
+            f"{SUBSEQ_BRUTE_CHUNK}); cut copies at rank 1: {hits} of "
+            f"{len(ex_offs)}; saved ({nbytes / 1e6:.1f} MB) in {save_s:.2f} "
+            f"s, loaded in {load_s:.2f} s, answers bit-identical, "
+            f"{grown[0]} windows grown alike")
+        del loaded
+    dbs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("subseq summary: " + json.dumps({str(k): v
+                                          for k, v in summary.items()}))
+    return shapes
 
 
 def causal_pairs(s, t):
@@ -2000,6 +2566,8 @@ def main() -> int:
     ap.add_argument("--length", type=int, default=512)
     ap.add_argument("--lm-prompt", type=int, default=32768,
                     help="tokens of the long LM prefill")
+    ap.add_argument("--subseq-points", type=int, default=SUBSEQ_POINTS,
+                    help="points of the subsequence phases' stream")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2053,6 +2621,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"SSH state freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         f"still allocated")
+    t = time.perf_counter()
+    shapes = subseq_paths(args, counted, phases)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"subsequence phases: {time.perf_counter() - t:.1f} s; state "
+        f"freed, {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+        f"allocated")
+    for e in entries:
+        if "launches_by_phase" in e:
+            e["launches_by_phase"].update(
+                {p: c[e["name"]] for p, c in phases.items()
+                 if p.startswith("subseq")})
+    for e in entries:
+        if e["name"] in shapes:
+            e["stream_shape"] = shapes[e["name"]]
     entries.extend(lm_path(args, counted, phases))
 
     for e in entries:
@@ -2068,7 +2651,7 @@ def main() -> int:
             f"{e.get('device_source')} (library {e.get('library_source')}),"
             f" by events alone {e.get('events_ms')} ms")
         for extra in ("query_shape", "sequential_shape", "long_shape",
-                      "engine_shapes"):
+                      "engine_shapes", "stream_shape"):
             if extra in e:
                 log(f"kernel {e['name']} at the {extra.split('_')[0]} shape: "
                     f"{e[extra]}")

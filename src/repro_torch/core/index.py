@@ -118,12 +118,14 @@ class SSHIndex:
     versions); signature identity is fixed at build time
     (``repro/core/index.py:278-283``), and queries encode on the index's
     own device.  ``sig_cache`` is the query-signature LRU, made at first
-    use; set it to None to empty it.
+    use; set it to None to empty it.  ``series`` is None for the inner
+    index of a ``subseq.SubsequenceIndex``, whose rows are the windows
+    of a stream it keeps itself.
     """
     encoder: Encoder
     signatures: torch.Tensor           # (N, K) int32
     keys: torch.Tensor                 # (N, L) int32 (uint32 bit pattern)
-    series: torch.Tensor               # (N, m) float32
+    series: Optional[torch.Tensor]     # (N, m) float32, or None
     env_radius: Optional[int] = None
     env_upper: Optional[torch.Tensor] = None
     env_lower: Optional[torch.Tensor] = None
@@ -156,7 +158,7 @@ class SSHIndex:
 
     @property
     def device(self) -> torch.device:
-        return self.series.device
+        return self.signatures.device
 
     @property
     def num_tables(self) -> int:
@@ -170,6 +172,8 @@ class SSHIndex:
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(upper, lower) envelopes of every series at ``radius``; cached,
         recomputed when the radius changes."""
+        if self.series is None:
+            raise ValueError("candidate envelopes require stored series")
         stale = (self.env_radius != radius or self.env_upper is None
                  or int(self.env_upper.shape[0]) != int(self.series.shape[0]))
         if stale:
@@ -255,10 +259,12 @@ class SSHIndex:
         sigs = self.encoder.encode_chunked(series)
         self.insert_encoded(series, sigs, self.encoder.band_keys(sigs))
 
-    def insert_encoded(self, series: torch.Tensor, signatures: torch.Tensor,
+    def insert_encoded(self, series: Optional[torch.Tensor],
+                       signatures: torch.Tensor,
                        keys: torch.Tensor) -> None:
         """Fold pre-encoded rows (a ``StreamIngestor`` fold) into the
-        index with no re-hashing (``repro/core/index.py:433-469``)."""
+        index with no re-hashing (``repro/core/index.py:433-469``);
+        ``series`` may be None only when the index stores none."""
         dev = self.device
         sigs = torch.as_tensor(signatures).to(dev, torch.int32)
         keys = torch.as_tensor(keys).to(dev, torch.int32)
@@ -270,17 +276,20 @@ class SSHIndex:
             raise ValueError(
                 f"artifact keys have L={int(keys.shape[-1])}, "
                 f"index expects L={self.num_tables}")
-        if series is None:
-            raise ValueError("index stores raw series for re-ranking; "
-                             "artifacts must include them")
-        series = torch.as_tensor(series, dtype=torch.float32).to(dev)
+        if self.series is not None:
+            if series is None:
+                raise ValueError("index stores raw series for re-ranking; "
+                                 "artifacts must include them")
+            series = torch.as_tensor(series, dtype=torch.float32).to(dev)
         base = int(self.signatures.shape[0])
         self.signatures = torch.cat([self.signatures, sigs])
         self.keys = torch.cat([self.keys, keys])
-        self.series = torch.cat([self.series, series])
+        if self.series is not None:
+            self.series = torch.cat([self.series, series])
         if self.host_buckets is not None:
             self.host_buckets.insert(keys, base_id=base)
-        if self.env_radius is not None and self.env_upper is not None:
+        if (self.env_radius is not None and self.env_upper is not None
+                and self.series is not None):
             u, l = _envelopes_chunked(series, self.env_radius)
             self.env_upper = torch.cat([self.env_upper, u])
             self.env_lower = torch.cat([self.env_lower, l])

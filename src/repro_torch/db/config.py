@@ -26,9 +26,6 @@ _BATCH_MODES = ("fixed", "adaptive")
 QUEUED = {
     "replication": "the fleet", "fleet_workers": "the fleet",
     "hedge_policy": "the fleet", "hedge_ms": "the fleet",
-    "subseq_window": "subsequence search",
-    "subseq_hop": "subsequence search",
-    "exclusion_zone": "subsequence search",
 }
 
 
@@ -147,13 +144,14 @@ class SearchConfig:
     ``backend`` ("auto"/"pallas": the CUDA kernels on the card, plain
     versions on the CPU; "jnp": plain versions, CPU only), ``searcher``
     (a name in ``repro_torch.db.registry``), ``batch_policy`` (the
-    ``"engine"`` searcher's batcher).  The fleet
-    (``replication``, ``fleet_workers``, ``hedge_policy``, ``hedge_ms``)
-    and subsequence (``subseq_window``, ``subseq_hop``,
-    ``exclusion_zone``) knobs round-trip through the dict form, but their
-    tiers are queued in ROADMAP.md §1: ``validate`` checks them as the
-    reference does and then refuses any value but the default.
-    ``stage_timings`` records per-stage seconds."""
+    ``"engine"`` searcher's batcher).  Subsequence search
+    (``TimeSeriesDB.build_stream``): ``subseq_window`` (the window length
+    L), ``subseq_hop``, ``exclusion_zone`` (default L//2).  The fleet
+    knobs (``replication``, ``fleet_workers``, ``hedge_policy``,
+    ``hedge_ms``) round-trip through the dict form, but their tier is
+    queued in ROADMAP.md §1: ``validate`` checks them as the reference
+    does and then refuses any value but the default.  ``stage_timings``
+    records per-stage seconds."""
 
     topk: int = 10
     top_c: int = 256

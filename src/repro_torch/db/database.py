@@ -10,6 +10,11 @@
     db.save("/data/ssh_ecg")                                    # persist
     db2 = TimeSeriesDB.load("/data/ssh_ecg")                    # restart
 
+    cfg = SearchConfig(band=25, subseq_window=512, subseq_hop=1)
+    sdb = TimeSeriesDB.build_stream(stream, spec, cfg)  # every window
+    res = sdb.search_subsequence(query)                 # res.offsets
+    sdb.extend_stream(tail)                             # grow
+
 Runs on CUDA unless ``device="cpu"`` is passed.  ``config.searcher``
 names the searcher in ``repro_torch.db.registry`` that answers queries,
 made at first use: ``"batched"`` (default) through
@@ -17,8 +22,12 @@ made at first use: ``"batched"`` (default) through
 ``stats``; ``"local"`` through one ``core.search.ssh_search`` per query,
 each with its own ``stats``; ``"engine"`` through the dynamic-batching
 ``serving.engine.ServingEngine`` (:attr:`TimeSeriesDB.engine`), which
-also takes ``add`` between batches.  A saved directory is the reference's
-format: either package loads what the other saved.
+also takes ``add`` between batches.  A stream-built database
+(``build_stream``, ``repro_torch.subseq``) indexes every sliding window
+of one stream and answers through ``search_subsequence``; the
+fixed-length verbs and the stream verbs refuse each other's databases.
+A saved directory is the reference's format: either package loads what
+the other saved.
 """
 from __future__ import annotations
 
@@ -55,6 +64,7 @@ class TimeSeriesDB:
         self.config = config
         self._searcher = None
         self._ingestor = None        # lazy shard-local StreamIngestor
+        self._subseq = None          # set by build_stream and a stream load
         self._prepare_index()
 
     @staticmethod
@@ -69,7 +79,8 @@ class TimeSeriesDB:
 
     def _prepare_index(self) -> None:
         cfg = self.config
-        if cfg.band is not None and cfg.use_lb_cascade:
+        if cfg.band is not None and cfg.use_lb_cascade \
+                and self.index.series is not None:
             self.index.candidate_envelopes(cfg.band)
         if cfg.use_host_buckets and self.index.host_buckets is None:
             self.index.build_host_buckets()
@@ -87,6 +98,38 @@ class TimeSeriesDB:
         return cls(SSHIndex.build(series, spec, device=dev,
                                   with_host_buckets=config.use_host_buckets),
                    config)
+
+    @classmethod
+    def build_stream(cls, stream, spec: IndexSpec,
+                     config: Optional[SearchConfig] = None, *,
+                     device=None) -> "TimeSeriesDB":
+        """Index every sliding window of one long stream
+        (``repro_torch.subseq``; ``repro/db/database.py:108-139``):
+        ``config.subseq_window`` (required) is the window length L,
+        ``config.subseq_hop`` the start spacing.  One rolling encode, the
+        windows never materialised; queries go through
+        :meth:`search_subsequence`, growth through :meth:`extend_stream`.
+        CUDA unless ``device="cpu"``."""
+        config = (config if config is not None else SearchConfig()) \
+            .validate()
+        if config.subseq_window is None:
+            raise ValueError(
+                "build_stream needs config.subseq_window (the sliding-"
+                "window length L to index)")
+        dev = ops.resolve_device(device)
+        ops.check_backend(config.backend, dev)
+        from repro_torch.subseq import SubsequenceIndex
+        sub = SubsequenceIndex.build(stream, spec,
+                                     length=config.subseq_window,
+                                     hop=config.subseq_hop, device=dev)
+        return cls._over_stream(sub, config)
+
+    @classmethod
+    def _over_stream(cls, sub, config: Optional[SearchConfig]
+                     ) -> "TimeSeriesDB":
+        db = cls(sub.inner, config)
+        db._subseq = sub
+        return db
 
     # -- search policy ----------------------------------------------------
     @property
@@ -125,7 +168,10 @@ class TimeSeriesDB:
 
     @property
     def length(self) -> int:
-        """Series length m, what a query must measure."""
+        """Series length m, what a query must measure: the window length
+        L on a stream-built database."""
+        if self._subseq is not None:
+            return int(self._subseq.length)
         return int(self.index.series.shape[1])
 
     def __len__(self) -> int:
@@ -138,15 +184,49 @@ class TimeSeriesDB:
                 f"searcher={self.config.searcher!r}, "
                 f"backend={self.config.backend!r}, device={self.device})")
 
+    # -- stream / fixed-length guards ---------------------------------------
+    def _reject_subseq(self, verb: str) -> None:
+        if self._subseq is not None:
+            raise ValueError(
+                f"{verb}() serves fixed-length databases; this one "
+                "indexes sliding windows of a single stream — use "
+                "search_subsequence() to query it and extend_stream() "
+                "to grow it")
+
+    def _require_subseq(self, verb: str):
+        if self._subseq is None:
+            raise ValueError(
+                f"{verb}() needs a stream-built database "
+                "(TimeSeriesDB.build_stream); this one indexes "
+                "fixed-length series — use search()/add()")
+        return self._subseq
+
+    @property
+    def subseq(self):
+        """The ``SubsequenceIndex`` of a stream-built database."""
+        return self._require_subseq("subseq")
+
     # -- queries ------------------------------------------------------------
     def search(self, query) -> SearchResult:
         """Top-k for one (m,) query through the configured searcher."""
+        self._reject_subseq("search")
         return self.searcher.search(query)
 
     def search_batch(self, queries) -> List[SearchResult]:
         """Per-query top-k for a (B, m) block; the same answers as
         ``search`` on each row."""
+        self._reject_subseq("search_batch")
         return self.searcher.search_batch(queries)
+
+    def search_subsequence(self, query,
+                           config: Optional[SearchConfig] = None):
+        """Top-k stream windows by banded DTW, offsets pairwise at least
+        ``config.exclusion_zone`` apart (default L//2), as a
+        ``SubsequenceResult`` whose ``offsets`` are the match starts;
+        ``config`` replaces the database's policy for this call."""
+        sub = self._require_subseq("search_subsequence")
+        return sub.search(query, config if config is not None
+                          else self.config)
 
     def submit(self, query) -> Future:
         """Asynchronous search: queued on the ``"engine"`` searcher, a
@@ -157,6 +237,7 @@ class TimeSeriesDB:
     def add(self, series) -> None:
         """Insert and encode (m,) or (B, m) series: now, or through the
         live searcher (the engine applies it before its next batch)."""
+        self._reject_subseq("add")
         series = torch.as_tensor(series, dtype=torch.float32)
         series = series[None, :] if series.dim() == 1 else series
         if self._searcher is not None:
@@ -171,10 +252,17 @@ class TimeSeriesDB:
         its stream position ``seq``; with ``"ssh-cs"`` the pending sketch
         merges into ``cs/agg`` at the flush
         (``repro/db/database.py:243-263``)."""
+        self._reject_subseq("add_stream")
         if self._ingestor is None:
             from repro_torch.streaming import StreamIngestor
             self._ingestor = StreamIngestor(self.index.encoder, shard=shard)
         self._ingestor.append(series, seq=seq)
+
+    def extend_stream(self, tail) -> int:
+        """Append points to a stream-built database; the windows they
+        complete are rolling-encoded (signatures equal to a full
+        rebuild's) and folded in.  Returns how many."""
+        return self._require_subseq("extend_stream").extend_stream(tail)
 
     def flush(self) -> None:
         """Fold pending :meth:`add_stream` appends into the index (no-op
@@ -206,7 +294,10 @@ class TimeSeriesDB:
     def save(self, directory: str | Path) -> Path:
         """Persist the index and the config; pending ``add_stream``
         appends are folded in first, so the ``"ssh-cs"`` aggregate saved
-        under ``encoder/cs/agg`` holds every append."""
+        under ``encoder/cs/agg`` holds every append.  A stream-built
+        database saves in the reference's subsequence format."""
+        if self._subseq is not None:
+            return self._subseq.save(directory, self.config)
         self.flush()
         if self._searcher is not None:
             self._searcher.flush()
@@ -222,15 +313,22 @@ class TimeSeriesDB:
         saved ``backend="jnp"`` names the plain versions, which run only
         on the CPU: loading it onto CUDA raises rather than rewrite the
         knob."""
+        from repro_torch import subseq
         dev = ops.resolve_device(device)
+        stream = subseq.is_subseq_dir(directory)
         if config is None:
-            cfg = persistence.saved_config(directory)
+            cfg = (subseq.persistence.saved_config(directory) if stream
+                   else persistence.saved_config(directory))
             if cfg is not None and cfg.backend == "jnp" \
                     and dev.type != "cpu":
                 raise ValueError(
                     f"{directory} was saved with backend='jnp', the plain "
                     "versions, which run only on the CPU: pass config= "
                     "with another backend, or device='cpu'")
+        if stream:
+            sub, saved = subseq.load_subseq(directory, device=dev)
+            return cls._over_stream(
+                sub, config if config is not None else saved)
         index, saved = persistence.load_database(directory, device=dev)
         return cls(index, config if config is not None else saved)
 

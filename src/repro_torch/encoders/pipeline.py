@@ -132,9 +132,21 @@ class SSHEncoder(Encoder):
         """(R, m) series -> (R, S) int64 shingle ids over every length;
         ``valid_bits`` (R,) masks each row to the shingles inside its
         first valid bits (masked ids are the sentinel ``shingle_dim``)."""
+        return self._ids_from_bits(self._sketch_bits(xs), valid_bits)
+
+    def _sketch_bits(self, xs: torch.Tensor) -> torch.Tensor:
+        """The sketch stage: (R, m) series -> (R, N_B, F) uint8 sign bits
+        of the filter bank's projections at stride ``step``."""
         st = self._require_state()
         xs = xs.to(device=st["filters"].device, dtype=torch.float32)
-        bits = ops.sketch_bits(xs.contiguous(), st["filters"], self.step)
+        return ops.sketch_bits(xs.contiguous(), st["filters"], self.step)
+
+    def _ids_from_bits(self, bits: torch.Tensor,
+                       valid_bits: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        """(R, N_B, F) sign bits -> (R, S) int64 shingle ids over every
+        length (the rolling encode of ``repro_torch.subseq`` feeds the
+        bits of windows it gathered from one shared sketch)."""
         if len(self.ngrams) == 1:
             return shingle.shingle_ids(bits, self.ngram, valid_bits)
         out, off = [], 0

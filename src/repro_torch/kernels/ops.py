@@ -85,6 +85,17 @@ def sketch_bits(x: torch.Tensor, filters: torch.Tensor, step: int
     return (sketch_conv(x, filters, step) >= 0).to(torch.uint8)
 
 
+def sketch_bits_stream(stream: torch.Tensor, filters: torch.Tensor,
+                       stride: int) -> torch.Tensor:
+    """Sign bits of every stride-``stride`` filter projection of one long
+    stream, (n,) x (W, F) -> (P, F) uint8 with P = (n - W) // stride + 1
+    (``repro/kernels/ops.py:69-87``).  The projection at stream position
+    p does not depend on which sliding window reads it, so a subsequence
+    index (``repro_torch.subseq``) runs the sketch once over the stream
+    at the gcd stride and gathers each window's taps from this grid."""
+    return sketch_bits(stream[None, :], filters, stride)[0]
+
+
 def collision_count_batch(query_keys: torch.Tensor, db_keys: torch.Tensor
                           ) -> torch.Tensor:
     """Batched signature agreement counts (B, K) x (N, K) -> (B, N)."""

@@ -114,6 +114,52 @@ def test_sketch_conv_kernel_path_shapes_and_views(cuda):
             w, f, step)
 
 
+@pytest.mark.parametrize("w", [80, 24])
+@pytest.mark.parametrize("step", [1, 2, 3])
+def test_sketch_conv_single_long_row_bit_identical(cuda, w, step):
+    """The rolling encode's shape (``subseq.rolling``): one (1, n) row of
+    a stream at stride gcd(hop, δ).  n % 4 != 0 (scalar segment loads),
+    a suffix view starting 20 bytes into the stream (off every 16-byte
+    boundary, as ``extend_stream`` rolls it) and a 16-byte aligned slice
+    with n % 4 == 0 (vector loads); ``ops.sketch_bits_stream`` gives the
+    emulation's signs."""
+    rng = np.random.default_rng(w + step)
+    base = torch.tensor(rng.normal(size=200_007).cumsum() * 0.05,
+                        dtype=torch.float32, device=cuda)
+    filt = torch.tensor(rng.normal(size=(w, 1)), dtype=torch.float32,
+                        device=cuda)
+    views = (base, base[5:], base[4:100_004])
+    assert [v.data_ptr() % 16 for v in views][1:] == [4, 0]
+    for x in views:
+        got = ops.sketch_conv(x[None], filt, step)
+        _sketch_bits_equal(got, x[None], filt, step)
+        bits = ops.sketch_bits_stream(x, filt, step)
+        assert torch.equal(bits, (ref.sketch_conv_fma_ref(
+            x[None], filt, step)[0] >= 0).to(torch.uint8))
+
+
+@pytest.mark.parametrize("params,length", [
+    (dict(), 512),
+    (dict(window=24, step=3, ngram=8, num_hashes=20, num_tables=20), 128)])
+@pytest.mark.parametrize("hop", [1, 4, 6])
+def test_rolling_signatures_cuda_match_per_window_encode(cuda, params,
+                                                         length, hop):
+    """The rolling encode on the card (stride-gcd sketch of one row, then
+    the windows' CWS) equals ``encode_batch`` of the materialised windows
+    on the card, which sketches them at the encoder's stride."""
+    from repro_torch.configs import ssh_ecg
+    from repro_torch.data.timeseries import synthetic_ecg
+    from repro_torch.encoders import make_encoder
+    from repro_torch.subseq import rolling_signatures
+    enc = make_encoder(ssh_ecg.CONFIG.with_params(**params), cuda)
+    stream = torch.as_tensor(synthetic_ecg(20_003, seed=hop), device=cuda)
+    ops.reset_launch_counts()
+    got = rolling_signatures(stream, enc, length, hop, chunk=1000)
+    assert ops.launch_counts()["sketch_conv"] == 1
+    want = enc.encode_chunked(stream.unfold(0, length, hop))
+    assert torch.equal(got, want), int((got != want).any(1).sum())
+
+
 @pytest.mark.parametrize("k", [20, 40, 64])
 def test_collision_count_kernel_exact(cuda, k):
     rng = np.random.default_rng(k)

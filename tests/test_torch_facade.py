@@ -115,7 +115,7 @@ def test_search_config_dict_form_matches_the_reference():
 @pytest.mark.parametrize("knob", [
     dict(hedge_policy="off"), dict(replication=2),
     dict(fleet_workers=3), dict(hedge_policy="fixed"), dict(hedge_ms=10.0),
-    dict(subseq_window=64), dict(subseq_hop=2), dict(exclusion_zone=0)])
+    dict(replication=3), dict(fleet_workers=2), dict(hedge_ms=5.0)])
 def test_queued_knobs_round_trip_but_are_refused(knob):
     """A knob whose tier the port lacks keeps its value through the dict
     form (a saved config loads) but is refused when the config is used,

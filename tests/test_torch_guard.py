@@ -56,7 +56,9 @@ for name in ("repro_torch.streaming.count_sketch",
              "repro_torch.launch.build_index", "repro_torch.serving.engine",
              "repro_torch.serving.metrics", "repro_torch.bench.schema",
              "repro_torch.loadgen.arrivals", "repro_torch.loadgen.workload",
-             "repro_torch.loadgen.harness"):
+             "repro_torch.loadgen.harness", "repro_torch.subseq",
+             "repro_torch.subseq.rolling", "repro_torch.subseq.index",
+             "repro_torch.subseq.persistence"):
     assert name in names, name
 print(len(names), "modules")
 """
@@ -257,3 +259,28 @@ def test_engine_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch,
         with pytest.raises(SystemExit):
             serve.main(["--arch", "ssh-ecg", "--device", "cpu", *opt])
         assert "ROADMAP.md §1, item 6" in capsys.readouterr().err
+
+
+def test_stream_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch,
+                                                           tmp_path):
+    """``build_stream``, ``SubsequenceIndex.build`` and the load of a
+    saved stream database raise without CUDA unless ``device="cpu"`` is
+    passed."""
+    from repro_torch.subseq import SubsequenceIndex
+    stream = np.random.default_rng(6).normal(size=600).astype(np.float32)
+    cfg = SearchConfig(searcher="local", top_c=16, band=4,
+                       subseq_window=64, subseq_hop=2)
+    TimeSeriesDB.build_stream(stream, SMOKE, cfg, device="cpu").save(
+        tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: TimeSeriesDB.build_stream(stream, SMOKE, cfg),
+                 lambda: SubsequenceIndex.build(stream, SMOKE, length=64),
+                 lambda: SubsequenceIndex.load(tmp_path),
+                 lambda: TimeSeriesDB.load(tmp_path)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    sub = SubsequenceIndex.build(stream, SMOKE, length=64, hop=2,
+                                 device="cpu")
+    assert sub.device == sub.stream.device == torch.device("cpu")
+    db = TimeSeriesDB.load(tmp_path, device="cpu")
+    assert len(db) == sub.num_windows and db.length == 64
