@@ -96,6 +96,39 @@
    re-rank; launches per schedule per path.
 5. Cross-check: 8 queries through the plain CPU path on a CPU copy of the
    index; ids equal, distances within rtol 1e-5.
+5b. Distributed and fleet tiers (phases ``dist``, ``fleet``,
+   ``fleet_faulty``, ``fleet_drain``, ``fleet_launcher``; before the
+   engine, whose insert makes the index N + 1 rows, which no longer
+   divides a mesh), on the 2^20 index at ``SEARCH`` with
+   ``multiprobe_offsets=1`` (the tier is single-probe):
+   ``searcher="distributed"`` answers batch 0 on the default mesh (one
+   shard a visible card) and on the card repeated 4 times (4 row shards,
+   local_c 128), µs a query logged; one shard must answer as
+   ``ssh_search_batch`` (ids equal, distances within rtol 1e-5) for every
+   query with at least top_c positive counts, and as near or nearer at
+   every rank for the others (its candidate set holds the batched one:
+   the shard probe keeps zero counts, as ``lax.top_k``).  ``searcher=
+   "fleet"`` with ``benchmarks/dist_bench.py``'s settings (R 2, W 4,
+   adaptive hedging >= 5 ms; artifacts under ``build/``, after a check
+   that the disk there holds two sets): publish and fetch seconds, bytes
+   on the card a worker and peak memory; batch 0 warms it and must equal
+   the 4-shard answers bit for bit, then 50 single-query calls (p50, p99,
+   mean µs), each equal to them.  ``fleet_faulty``: the primary of shard
+   0 killed and a primary of a shard it does not hold delayed by 10x the
+   healthy mean shard time: 50 calls bit-identical to the healthy ones,
+   hedges and failovers both > 0, ``p99_ratio`` logged beside the
+   reference CI's bar of 3.0.  ``fleet_drain``: a ``ServingEngine`` on
+   the fleet config (``BatchPolicy(max_batch=4, max_wait_ms=1.0)``), 50
+   requests submitted, ``drain(w0)`` mid-stream: every future resolves,
+   every answer the healthy one; then ``resize(6)`` and ``resize(3)``,
+   answers unchanged, shards moved logged against ceil(shards /
+   workers); ``launch.serve --arch ssh-ecg --replication 2
+   --fleet-workers 4 --hedge-ms 5 --requests 16`` as a subprocess: exit
+   0, every request its own top-1, a ``fleet:`` line.  One fleet query's
+   kernel calls, recorded from the pool's threads, are held to their
+   plain versions as in step 4 and timed (the ``fleet_shapes``
+   sub-entries of ``sketch_conv``, ``collision_count`` and
+   ``dtw_wavefront``).
 6. Serving engine (phases ``engine*``, last of the SSH paths because
    its insert grows the index): ``TimeSeriesDB(searcher="engine")`` on
    the batched index at ``SEARCH`` with ``BatchPolicy(max_batch=8,
@@ -284,6 +317,15 @@ SUBSEQ_SUFFIX = 1_000_003        # 12 bytes past a 16-byte boundary
 SUBSEQ_EXACT_WINDOWS = 1 << 18
 SUBSEQ_BRUTE_CHUNK = 1 << 17
 SUBSEQ_ENC_REPEATS = 5           # timed per-window encodes of the sample
+# the fleet phases: dist_bench's settings (benchmarks/dist_bench.py:43-51):
+# R = 2 replicas over W = 4 workers, adaptive hedging at >= 5 ms, 50
+# single-query calls a scenario, the slow worker 10x the healthy mean
+# shard time; the distributed path's second mesh repeats the card 4 times;
+# the reference CI's bar on p99 under failure (.github/workflows/ci.yml:138)
+FLEET_REPLICATION, FLEET_WORKERS, FLEET_HEDGE_MS = 2, 4, 5.0
+FLEET_CALLS, FLEET_SLOW_X, FLEET_DIST_SHARDS = 50, 10.0, 4
+FLEET_LAUNCHER_REQUESTS = 16
+FLEET_P99_BAR = 3.0
 
 
 def log(*a):
@@ -965,6 +1007,341 @@ def engine_paths(args, counted, ctx) -> None:
     return recorded
 
 
+class Timings:
+    """Pass-through around module functions that sums the seconds each
+    spends (the fleet's ``publish_shard`` and ``fetch_shard``)."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.seconds = {n: 0.0 for n in names}
+        self.calls = {n: 0 for n in names}
+        self.saved = {}
+
+    def __enter__(self):
+        for n in self.names:
+            fn = getattr(self.module, n)
+            self.saved[n] = fn
+
+            def timed_fn(*args, _fn=fn, _n=n, **kw):
+                t = time.perf_counter()
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    self.seconds[_n] += time.perf_counter() - t
+                    self.calls[_n] += 1
+            setattr(self.module, n, timed_fn)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+        return False
+
+
+def fleet_paths(args, counted, ctx) -> dict:
+    """The distributed and fleet tiers on the 2^20 index (step 5b of the
+    docstring): phases ``dist``, ``fleet``, ``fleet_faulty``,
+    ``fleet_drain`` and ``fleet_launcher``.  Raises on any gate.  Returns
+    the kernels' calls recorded on one fleet query, {name: [(args,
+    kwargs)]}.  The fleets' artifacts live under ``build/`` and are
+    removed when each fleet closes."""
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.db import BatchPolicy, TimeSeriesDB
+    from repro_torch.fleet import searcher as fleet_searcher
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ssh_search_batch
+
+    rows, pool = ctx["batches"][0]
+    index = ctx["db"].index
+    n, m = ctx["series"].shape
+    half = len(rows) // 2
+    kernels = ("sketch_conv", "collision_count", "dtw_wavefront")
+    cfg = ctx["cfg"].replace(multiprobe_offsets=1)     # the tier's probe
+    cfg_d = cfg.replace(searcher="distributed")
+    cfg_f = cfg.replace(searcher="fleet", replication=FLEET_REPLICATION,
+                        fleet_workers=FLEET_WORKERS, hedge_policy="adaptive",
+                        hedge_ms=FLEET_HEDGE_MS)
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="fleet_", dir=root))
+    set_bytes = (index.series.numel() * index.series.element_size()
+                 + index.signatures.numel()
+                 * index.signatures.element_size())
+    free = shutil.disk_usage(tmp).free
+    log(f"fleet: artifacts under {tmp}, {free / 1e9:.1f} GB free there; one "
+        f"set of shard artifacts is {set_bytes / 1e9:.2f} GB, two are alive "
+        f"at once")
+    if free < 2 * set_bytes:
+        raise AssertionError(f"fleet: {free / 1e9:.1f} GB free under {tmp}, "
+                             f"fewer than two artifact sets "
+                             f"({2 * set_bytes / 1e9:.2f} GB)")
+    saved_tempdir, tempfile.tempdir = tempfile.tempdir, str(tmp)
+
+    def same(got_ids, got_d, want_ids, want_d, what):
+        if not (np.array_equal(got_ids, want_ids)
+                and np.array_equal(got_d, want_d)):
+            raise AssertionError(f"{what}: ids {got_ids} dists {got_d} != "
+                                 f"{want_ids} {want_d}")
+
+    def self_matched(ids, what):
+        bad = [int(rows[i]) for i in range(half)
+               if int(ids[i][0]) != int(rows[i])]
+        if bad:
+            raise AssertionError(f"{what}: database rows {bad} are not "
+                                 f"their own top-1")
+
+    try:
+        # -- dist: one shard a visible card, then four on this card -------
+        want = ssh_search_batch(pool, index, config=cfg)
+
+        def dist_path():
+            out = {}
+            for label, mesh in (("1 shard", None),
+                                (f"{FLEET_DIST_SHARDS} shards",
+                                 [index.device] * FLEET_DIST_SHARDS)):
+                tsdb = TimeSeriesDB(index, cfg_d, mesh=mesh)
+                tsdb.search_batch(pool[:2])             # warm
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = tsdb.search_batch(pool)
+                wall = time.perf_counter() - t
+                out[label] = (np.stack([r.ids for r in res]),
+                              np.stack([r.dists for r in res]), wall,
+                              len(tsdb.searcher.mesh))
+            return out
+
+        dist = counted("dist", kernels, dist_path)
+        one_ids, one_d = dist["1 shard"][:2]
+        four_ids, four_d = dist[f"{FLEET_DIST_SHARDS} shards"][:2]
+        # the batched path re-ranks the top_c candidates with a positive
+        # count; the shard probe the top_c by count, zeros included (the
+        # reference's lax.top_k).  With top_c positives the sets are one
+        # and the answers must agree; with fewer, the shard's set holds the
+        # batched one and its k-th best can only be nearer
+        qsig = index.encoder.encode_batch(torch.as_tensor(pool).to(
+            index.device))
+        positive = (ops.collision_count_batch(qsig, index.signatures)
+                    > 0).sum(1).cpu().numpy()
+        full = positive >= cfg.top_c
+        for i in np.flatnonzero(full):
+            if not np.array_equal(one_ids[i], want.ids[i]):
+                raise AssertionError(
+                    f"dist 1 shard query {i}: ids {one_ids[i]} != "
+                    f"ssh_search_batch's {want.ids[i]}")
+            np.testing.assert_allclose(one_d[i], want.dists[i], rtol=1e-5,
+                                       atol=1e-6)
+        for i in np.flatnonzero(~full):
+            w = want.dists[i][want.ids[i] >= 0]
+            if not np.all(one_d[i][:len(w)] <= w * (1 + 1e-5) + 1e-6):
+                raise AssertionError(
+                    f"dist 1 shard query {i} ({positive[i]} positive "
+                    f"counts): dists {one_d[i]} worse than the batched "
+                    f"{w} over a candidate set that holds its")
+        log(f"dist 1 shard against ssh_search_batch (single probe): "
+            f"{int(full.sum())} of {len(pool)} queries with >= top_c "
+            f"{cfg.top_c} positive counts answer alike (ids equal, "
+            f"distances within rtol 1e-5); the other "
+            f"{int((~full).sum())} (fewest positive counts "
+            f"{int(positive.min())}) as near or nearer at every rank")
+        for label, (ids, d, wall, shards) in dist.items():
+            self_matched(ids, f"dist {label}")
+            if not (np.all(np.isfinite(d))
+                    and np.all(np.diff(d, axis=1) >= 0)):
+                raise AssertionError(f"dist {label}: malformed distances")
+            log(f"dist {label} (mesh of {shards}, local_c "
+                f"{max(cfg.topk, cfg.top_c // shards)}): "
+                f"{wall / len(pool) * 1e6:.1f} us a query over "
+                f"{len(pool)} queries; queries whose ids equal "
+                f"ssh_search_batch's {int((ids == want.ids).all(1).sum())} "
+                f"of {len(pool)}")
+
+        # -- fleet: healthy, dist_bench's settings -------------------------
+        calls = [pool[i % len(pool)] for i in range(FLEET_CALLS)]
+
+        def run_calls(tsdb):
+            ids, dists, lat = [], [], []
+            for q in calls:
+                t = time.perf_counter()
+                r = tsdb.search(q)
+                lat.append((time.perf_counter() - t) * 1e6)
+                ids.append(r.ids)
+                dists.append(r.dists)
+            return np.stack(ids), np.stack(dists), lat
+
+        def fleet_path():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            tsdb = TimeSeriesDB(index, cfg_f)
+            with Timings(fleet_searcher, ("publish_shard", "fetch_shard")) \
+                    as tm:
+                t = time.perf_counter()
+                fleet = tsdb.searcher.fleet
+                place_s = time.perf_counter() - t
+            warm = fleet.search_batch(pool)             # seeds the EWMAs
+            out = run_calls(tsdb)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            return tsdb, fleet, warm, out, tm, place_s, peak
+
+        tsdb_f, fleet, warm, healthy, tm, place_s, peak = counted(
+            "fleet", kernels, fleet_path)
+        same(warm.ids, warm.dists, four_ids, four_d,
+             f"fleet against dist {FLEET_DIST_SHARDS} shards")
+        h_ids, h_d, h_lat = healthy
+        for i, q_ids in enumerate(h_ids):
+            j = i % len(pool)
+            same(q_ids, h_d[i], four_ids[j], four_d[j], f"fleet call {i}")
+        per_worker = fleet.nbytes()
+        h_p50, h_p99 = np.percentile(h_lat, 50), np.percentile(h_lat, 99)
+        log(f"fleet healthy (R={FLEET_REPLICATION}, W={FLEET_WORKERS}, "
+            f"{fleet.n_shards} shards, hedge adaptive >= {FLEET_HEDGE_MS} "
+            f"ms): {FLEET_CALLS} single-query calls p50 {h_p50:.1f} p99 "
+            f"{h_p99:.1f} mean {np.mean(h_lat):.1f} us; warm batch of "
+            f"{len(pool)} {warm.wall_seconds / len(pool) * 1e6:.1f} us a "
+            f"query; publish {tm.seconds['publish_shard']:.2f} s "
+            f"({tm.calls['publish_shard']} shards), fetch "
+            f"{tm.seconds['fetch_shard']:.2f} s ({tm.calls['fetch_shard']} "
+            f"replicas), placement {place_s:.2f} s; bytes on the card per "
+            f"worker {per_worker}; peak {peak / 1e9:.2f} GB above the "
+            f"allocated; hedged {fleet.hedged_total} failovers "
+            f"{fleet.failovers_total}; ids and distances bit-identical to "
+            f"dist {FLEET_DIST_SHARDS} shards")
+
+        # the kernels' inputs at the fleet's shapes, from the pool's threads
+        index.sig_cache = None
+        with Recorder(ops, ("sketch_conv", "collision_count",
+                            "dtw_rerank")) as rec:
+            fleet.search_batch(pool[half:half + 1])
+        missing = [k for k, v in rec.calls.items() if not v]
+        if missing:
+            raise AssertionError(f"fleet: a query called no {missing}")
+
+        # -- fleet_faulty: one dead primary, one 10x-slow primary ----------
+        mean_shard_s = float(np.mean(list(fleet.policy.ewma.values())))
+        dead = fleet.plan.primary(0)
+        slow = next((fleet.plan.primary(s) for s in range(fleet.n_shards)
+                     if dead not in fleet.plan.replicas(s)),
+                    next(w for w in sorted(fleet.workers) if w != dead))
+        delay_ms = FLEET_SLOW_X * mean_shard_s * 1e3
+        hedged0, failovers0 = fleet.hedged_total, fleet.failovers_total
+
+        def faulty_path():
+            fleet.injector.kill(dead)
+            fleet.injector.delay(slow, delay_ms)
+            try:
+                return run_calls(tsdb_f)
+            finally:
+                fleet.injector.clear()
+
+        f_ids, f_d, f_lat = counted("fleet_faulty", kernels, faulty_path)
+        same(f_ids, f_d, h_ids, h_d, "fleet_faulty against fleet")
+        hedged = fleet.hedged_total - hedged0
+        failovers = fleet.failovers_total - failovers0
+        if not (hedged > 0 and failovers > 0):
+            raise AssertionError(f"fleet_faulty: hedged {hedged} failovers "
+                                 f"{failovers}; both must be > 0")
+        f_p99 = np.percentile(f_lat, 99)
+        log(f"fleet faulty (dead {dead}, slow {slow} by {delay_ms:.3f} ms = "
+            f"{FLEET_SLOW_X} x the healthy mean shard time "
+            f"{mean_shard_s * 1e3:.3f} ms): p50 {np.percentile(f_lat, 50):.1f} "
+            f"p99 {f_p99:.1f} mean {np.mean(f_lat):.1f} us; p99_ratio "
+            f"{f_p99 / h_p99:.3f} (the reference CI's bar "
+            f"{FLEET_P99_BAR}, logged, not gated); hedged {hedged} "
+            f"failovers {failovers}; ids and distances bit-identical to the "
+            f"healthy run")
+        tsdb_f.close()
+        del fleet, tsdb_f
+        gc.collect()
+
+        # -- fleet_drain: the engine's fleet route, drain and resize --------
+        cfg_e = cfg_f.replace(searcher="engine", batch_policy=BatchPolicy(
+            max_batch=4, max_wait_ms=1.0))
+
+        def drain_path():
+            tsdb = TimeSeriesDB(index, cfg_e)
+            engine = tsdb.engine
+            engine.searcher.search_batch(pool[:4])      # warm
+            with tsdb:
+                engine.start()
+                futs = [engine.submit(q) for q in calls]
+                victim = sorted(engine.searcher.workers)[0]
+                t = time.perf_counter()
+                moved = engine.drain(victim)
+                drain_s = time.perf_counter() - t
+                results = [f.result(timeout=600) for f in futs]
+                after = {}
+                for w in (6, 3):
+                    before = engine.searcher.n_shards, len(
+                        engine.searcher.workers)
+                    t = time.perf_counter()
+                    k = engine.resize(w)
+                    after[w] = (k, time.perf_counter() - t, before,
+                                engine.search_batch(pool[:8]))
+                snap = engine.metrics.snapshot()
+            return victim, moved, drain_s, results, after, snap
+
+        victim, moved, drain_s, results, after, snap = counted(
+            "fleet_drain", kernels, drain_path)
+        if len(results) != FLEET_CALLS:
+            raise AssertionError(f"fleet_drain: {FLEET_CALLS - len(results)}"
+                                 f" queries lost")
+        for i, r in enumerate(results):
+            same(r.ids, r.dists, h_ids[i], h_d[i], f"fleet_drain request {i}")
+        for w, (k, secs, (shards, workers), res) in after.items():
+            for i, r in enumerate(res):
+                same(r.ids, r.dists, four_ids[i], four_d[i],
+                     f"fleet_drain after resize({w}) query {i}")
+            log(f"fleet_drain: resize({w}) from {workers} workers moved {k} "
+                f"shards in {secs:.2f} s (ceil(shards / workers) = "
+                f"{math.ceil(shards / w)}); 8 answers unchanged")
+        log(f"fleet_drain: {FLEET_CALLS} requests through the engine "
+            f"(max_batch 4, 1 ms), drain({victim}) mid-stream moved {moved} "
+            f"shards in {drain_s:.2f} s; 0 lost, every answer equal to the "
+            f"healthy fleet's; engine hedged {snap['hedged_total']:.0f} "
+            f"failovers {snap['failovers_total']:.0f} rebalanced "
+            f"{snap['rebalanced_shards_total']:.0f}; batches "
+            f"{snap['batches_total']:.0f}")
+
+        # the launcher through the fleet, as a user runs it
+        src = Path(__file__).resolve().parent / "src"
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               "ssh-ecg", "--replication", str(FLEET_REPLICATION),
+               "--fleet-workers", str(FLEET_WORKERS), "--hedge-ms",
+               str(FLEET_HEDGE_MS), "--requests",
+               str(FLEET_LAUNCHER_REQUESTS)]
+
+        def launcher():
+            t = time.perf_counter()
+            p = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=600, cwd=src.parent,
+                               env=dict(os.environ, PYTHONPATH=str(src)))
+            return p, time.perf_counter() - t
+
+        srv, srv_s = counted("fleet_launcher", (), launcher)
+        reqs = [line for line in srv.stdout.splitlines()
+                if line.startswith("req ")]
+        bad = [line for line in reqs
+               if line.split(":")[0].split()[1] !=
+               line.split("top1=")[1].split()[0]]
+        fleet_line = [line for line in srv.stdout.splitlines()
+                      if line.startswith("fleet: hedged=")]
+        if srv.returncode != 0 or len(reqs) != FLEET_LAUNCHER_REQUESTS \
+                or bad or not fleet_line:
+            raise AssertionError(f"serve --replication exit "
+                                 f"{srv.returncode}, {len(reqs)} request "
+                                 f"lines, not self-matched {bad}: "
+                                 f"{srv.stdout[-2000:]} {srv.stderr[-2000:]}")
+        log(f"fleet_launcher: {' '.join(cmd[2:])} {srv_s:.1f} s, every "
+            f"request its own top-1: {fleet_line[0]}")
+    finally:
+        tempfile.tempdir = saved_tempdir
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec.calls
+
+
 def ops_batch_stats(d, qs):
     """(ids, stats) of one batched search through the library call."""
     from repro_torch.serving.batched import ssh_search_batch
@@ -1491,6 +1868,42 @@ def ssh_paths(args, counted, phases) -> list:
                                    atol=1e-6)
     log(f"cross-check: 8 queries on the plain CPU path ({cpu_s:.1f} s on "
         f"{cpu}) match the CUDA path: ids equal, distances within rtol 1e-5")
+
+    # -- 5b. the distributed and fleet tiers (before the engine: its insert
+    #    makes the index N + 1 rows, which no longer divides a mesh) -------
+    del idx_cpu, enc_cpu
+    gc.collect()
+    fleet_calls = fleet_paths(args, counted, dict(series=series,
+                                                  batches=batches, cfg=cfg,
+                                                  db=db))
+    # its three kernels on the inputs of one fleet query, recorded from
+    # the pool's threads: every call held as in step 4, one of each timed
+    by_name = {e["name"]: e for e in entries}
+    fleet_phases = [p for p in phases if p.startswith(("dist", "fleet"))]
+    sk_calls = fleet_calls["sketch_conv"]
+    for (x, filt_f, step_f), _ in sk_calls[1:]:
+        sketch_check(x, filt_f, step_f, "fleet")
+    shapes = {"sketch_conv": (sketch_at(*sk_calls[0][0], "fleet"),
+                              len(sk_calls))}
+    cc_calls = fleet_calls["collision_count"]
+    for (q1, dbk1), _ in cc_calls[1:]:
+        collision_check(q1, dbk1)
+    shapes["collision_count"] = (collision_at(*cc_calls[0][0]),
+                                 len(cc_calls))
+    dtw_f = dtw_shape("dtw_wavefront", fleet_calls["dtw_rerank"][-1], 2)
+    dtw_f.update(max_abs_err=0.0, calls_checked=dtw_calls_log(
+        "dtw_wavefront", fleet_calls["dtw_rerank"]))
+    shapes["dtw_wavefront"] = (dtw_f, len(fleet_calls["dtw_rerank"]))
+    for name, (got, n_calls) in shapes.items():
+        by_name[name]["fleet_shapes"] = dict(got, calls_held=n_calls)
+        by_name[name]["launches_by_phase"].update(
+            {p: phases[p][name] for p in fleet_phases})
+        log(f"kernel {name} at the fleet shape, {n_calls} calls from the "
+            f"pool's threads held to the plain version: [{got['shape']}] "
+            f"device ms {got['ms']:.4f} call ms {got['call_ms']:.4f} "
+            f"plain_ms {got['plain_ms']:.4f} bound_ms "
+            f"{got['bound_ms']:.5f} ({got['bound_by']}) max_err "
+            f"{got['max_abs_err']}")
 
     # -- 6. the serving engine (last: its insert grows the index) -----------
     recorded = engine_paths(args, counted, dict(series=series,
@@ -2651,7 +3064,7 @@ def main() -> int:
             f"{e.get('device_source')} (library {e.get('library_source')}),"
             f" by events alone {e.get('events_ms')} ms")
         for extra in ("query_shape", "sequential_shape", "long_shape",
-                      "engine_shapes", "stream_shape"):
+                      "engine_shapes", "stream_shape", "fleet_shapes"):
             if extra in e:
                 log(f"kernel {e['name']} at the {extra.split('_')[0]} shape: "
                     f"{e[extra]}")

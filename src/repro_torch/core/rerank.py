@@ -45,7 +45,10 @@ class SearchStats:
     ``n_in == pruned_kim + pruned_keogh + pruned_keogh2 +
     pruned_improved + n_dtw``.  ``dtw_abandoned`` counts DTW pairs the
     threshold abandoned.  ``backend`` names the route ("cuda" kernels or
-    "cpu" plain versions)."""
+    "cpu" plain versions).  The fleet tier (``repro_torch.fleet``) adds
+    its resilience counters: shard calls ``hedged`` and ``failovers``,
+    and ``degraded`` when any shard answered from a non-primary
+    replica."""
     n_in: int = 0
     pruned_kim: int = 0
     pruned_keogh: int = 0
@@ -58,6 +61,9 @@ class SearchStats:
     stage_seconds: Optional[Dict[str, float]] = None
     index_bytes: Optional[int] = None
     sig_cache_hit: int = 0            # encodes served by the LRU
+    hedged: int = 0                   # fleet: shard calls hedged
+    failovers: int = 0                # fleet: shard calls failed over
+    degraded: bool = False            # fleet: a non-primary answered
 
     @property
     def lb_pruned(self) -> int:

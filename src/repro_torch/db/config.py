@@ -5,10 +5,7 @@ Field names, defaults, checks and the dict form are the reference's, so
 a config saved by either package loads in the other.  Which searcher
 serves a name is the registry's business (``repro_torch.db.registry``):
 ``validate`` checks only that ``searcher`` is a name, and
-``make_searcher`` refuses one the port does not serve.  The knobs of
-tiers the port does not have yet (:data:`QUEUED`) are carried through
-the dict form as data, and ``validate`` refuses any value of theirs but
-the default, so setting one never silently does nothing.
+``make_searcher`` refuses one that is not registered.
 """
 from __future__ import annotations
 
@@ -21,12 +18,6 @@ from repro_torch.kernels import ops
 _HEDGE_POLICIES = ("off", "fixed", "adaptive")
 
 _BATCH_MODES = ("fixed", "adaptive")
-
-#: knob -> the tier that would serve it, queued in ROADMAP.md §1
-QUEUED = {
-    "replication": "the fleet", "fleet_workers": "the fleet",
-    "hedge_policy": "the fleet", "hedge_ms": "the fleet",
-}
 
 
 def _known_fields(cls, d: Dict[str, Any], where: str) -> Dict[str, Any]:
@@ -146,11 +137,13 @@ class SearchConfig:
     (a name in ``repro_torch.db.registry``), ``batch_policy`` (the
     ``"engine"`` searcher's batcher).  Subsequence search
     (``TimeSeriesDB.build_stream``): ``subseq_window`` (the window length
-    L), ``subseq_hop``, ``exclusion_zone`` (default L//2).  The fleet
-    knobs (``replication``, ``fleet_workers``, ``hedge_policy``,
-    ``hedge_ms``) round-trip through the dict form, but their tier is
-    queued in ROADMAP.md §1: ``validate`` checks them as the reference
-    does and then refuses any value but the default.  ``stage_timings``
+    L), ``subseq_hop``, ``exclusion_zone`` (default L//2).
+    Resilience (``repro_torch.fleet``: the ``"fleet"`` searcher, and the
+    engine and ``"distributed"`` when ``replication > 1``):
+    ``replication`` (R replicas a shard), ``fleet_workers`` (W, None for
+    max(2, R); R <= W), ``hedge_policy`` ("off", "fixed" after
+    ``hedge_ms``, or "adaptive": after max(``hedge_ms``, threshold x the
+    fleet-median shard time)) and ``hedge_ms``.  ``stage_timings``
     records per-stage seconds."""
 
     topk: int = 10
@@ -232,14 +225,6 @@ class SearchConfig:
         if self.exclusion_zone is not None and self.exclusion_zone < 0:
             raise ValueError(f"exclusion_zone must be None or >= 0, "
                              f"got {self.exclusion_zone}")
-        for f in dataclasses.fields(self):
-            value = getattr(self, f.name)
-            if f.name in QUEUED and value != f.default:
-                raise ValueError(
-                    f"{f.name}={value!r} needs {QUEUED[f.name]}, which the "
-                    "port does not have yet (queued in ROADMAP.md §1); leave "
-                    "it at its default (a saved database's config is "
-                    "replaced by TimeSeriesDB.load(..., config=))")
         return self
 
     def replace(self, **changes: Any) -> "SearchConfig":

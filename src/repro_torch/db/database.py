@@ -22,7 +22,12 @@ made at first use: ``"batched"`` (default) through
 ``stats``; ``"local"`` through one ``core.search.ssh_search`` per query,
 each with its own ``stats``; ``"engine"`` through the dynamic-batching
 ``serving.engine.ServingEngine`` (:attr:`TimeSeriesDB.engine`), which
-also takes ``add`` between batches.  A stream-built database
+also takes ``add`` between batches; ``"distributed"`` through the
+row-sharded fan-out over ``mesh`` (a sequence of ``torch.device``s,
+default every visible CUDA device; a device may repeat, which puts
+several shards on one card); ``"fleet"`` (and ``"distributed"`` or the
+engine when ``replication > 1``) through the replicated, hedged fleet
+(``repro_torch.fleet``), which :meth:`close` shuts down.  A stream-built database
 (``build_stream``, ``repro_torch.subseq``) indexes every sliding window
 of one stream and answers through ``search_subsequence``; the
 fixed-length verbs and the stream verbs refuse each other's databases.
@@ -56,12 +61,13 @@ class TimeSeriesDB:
     """
 
     def __init__(self, index: SSHIndex,
-                 config: Optional[SearchConfig] = None):
+                 config: Optional[SearchConfig] = None, *, mesh=None):
         config = self._fit_config(index, (
             config if config is not None else SearchConfig()).validate())
         ops.check_backend(config.backend, index.device)
         self.index = index
         self.config = config
+        self.mesh = mesh             # read by the "distributed" searcher
         self._searcher = None
         self._ingestor = None        # lazy shard-local StreamIngestor
         self._subseq = None          # set by build_stream and a stream load
@@ -88,16 +94,17 @@ class TimeSeriesDB:
     @classmethod
     def build(cls, series, spec: IndexSpec,
               config: Optional[SearchConfig] = None, *,
-              device=None) -> "TimeSeriesDB":
+              device=None, mesh=None) -> "TimeSeriesDB":
         """Paper Alg. 1 behind the facade; ``series`` (N, m) array or
-        tensor.  CUDA unless ``device="cpu"``."""
+        tensor.  CUDA unless ``device="cpu"``; ``mesh`` goes to the
+        ``"distributed"`` searcher."""
         config = (config if config is not None else SearchConfig()) \
             .validate()
         dev = ops.resolve_device(device)
         ops.check_backend(config.backend, dev)
         return cls(SSHIndex.build(series, spec, device=dev,
                                   with_host_buckets=config.use_host_buckets),
-                   config)
+                   config, mesh=mesh)
 
     @classmethod
     def build_stream(cls, stream, spec: IndexSpec,
@@ -136,7 +143,8 @@ class TimeSeriesDB:
     def searcher(self):
         """The active searcher (made at first use)."""
         if self._searcher is None:
-            self._searcher = registry.make_searcher(self.index, self.config)
+            self._searcher = registry.make_searcher(self.index, self.config,
+                                                    mesh=self.mesh)
         return self._searcher
 
     def reconfigure(self, **changes) -> "TimeSeriesDB":
@@ -150,8 +158,9 @@ class TimeSeriesDB:
         return self
 
     def with_config(self, config: SearchConfig) -> "TimeSeriesDB":
-        """A second facade over the same index with another policy."""
-        return TimeSeriesDB(self.index, config)
+        """A second facade over the same index with another policy (and
+        the same mesh)."""
+        return TimeSeriesDB(self.index, config, mesh=self.mesh)
 
     @property
     def device(self) -> torch.device:
@@ -306,13 +315,13 @@ class TimeSeriesDB:
     @classmethod
     def load(cls, directory: str | Path,
              config: Optional[SearchConfig] = None, *,
-             device=None) -> "TimeSeriesDB":
+             device=None, mesh=None) -> "TimeSeriesDB":
         """Restore a saved database onto ``device`` (CUDA unless
         ``device="cpu"``).  ``config`` replaces the saved search policy
         (the saved one when omitted, defaults when none was saved).  A
         saved ``backend="jnp"`` names the plain versions, which run only
         on the CPU: loading it onto CUDA raises rather than rewrite the
-        knob."""
+        knob.  ``mesh`` goes to the ``"distributed"`` searcher."""
         from repro_torch import subseq
         dev = ops.resolve_device(device)
         stream = subseq.is_subseq_dir(directory)
@@ -330,12 +339,13 @@ class TimeSeriesDB:
             return cls._over_stream(
                 sub, config if config is not None else saved)
         index, saved = persistence.load_database(directory, device=dev)
-        return cls(index, config if config is not None else saved)
+        return cls(index, config if config is not None else saved,
+                   mesh=mesh)
 
     # -- lifecycle ----------------------------------------------------------
     def close(self) -> None:
-        """Close the searcher, stopping the engine's thread (the next
-        query makes a new one); idempotent."""
+        """Close the searcher, stopping the engine's thread or shutting
+        the fleet down (the next query makes a new one); idempotent."""
         if self._searcher is not None:
             self._searcher.close()
             self._searcher = None

@@ -10,10 +10,12 @@ at once.  What ``nvcc`` printed is kept beside the library
 spills of every kernel.
 
 Every wrapper counts its launches in :data:`LAUNCHES` under its kernel's
-name (one per kernel launch, nowhere else; :data:`KERNELS` lists the
-names), which is how a run shows that a path went through the kernels.
-A library may hold more than one kernel, so the counts are per kernel,
-not per library.
+name through :func:`count` (one per kernel launch, nowhere else;
+:data:`KERNELS` lists the names), which is how a run shows that a path
+went through the kernels.  A library may hold more than one kernel, so
+the counts are per kernel, not per library.  The fleet launches from
+several threads at once, and ``Counter`` increments are read-modify-write,
+so every count, read and reset of the counts takes one lock.
 """
 from __future__ import annotations
 
@@ -85,11 +87,20 @@ KERNELS = ("sketch_conv", "collision_count_batch", "collision_count",
            "dtw_wavefront_pairs", "dtw_wavefront", "cs_tables",
            "flash_attention", "flash_attention_simt")
 
-#: launches per kernel since the last reset (see ``kernels.ops``)
+#: launches per kernel since the last reset (see ``kernels.ops``);
+#: written under :data:`COUNT_LOCK`
 LAUNCHES: Dict[str, int] = collections.Counter()
+COUNT_LOCK = threading.Lock()
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+
+def count(*names: str) -> None:
+    """One launch more under each of ``names``."""
+    with COUNT_LOCK:
+        for name in names:
+            LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

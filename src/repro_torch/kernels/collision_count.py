@@ -77,7 +77,7 @@ def collision_count_batch(query_keys: torch.Tensor, db_keys: torch.Tensor
                                           db_keys.data_ptr(), out.data_ptr(),
                                           b, n, k, stream)
     _build.check(NAME, lib, rc)
-    _build.LAUNCHES["collision_count_batch"] += 1
+    _build.count("collision_count_batch")
     return out
 
 
@@ -104,5 +104,5 @@ def collision_count(query_keys: torch.Tensor, db_keys: torch.Tensor
     rc = lib.collision_count_launch(query_keys.data_ptr(), db_keys.data_ptr(),
                                     out.data_ptr(), n, k, stream)
     _build.check(NAME, lib, rc)
-    _build.LAUNCHES["collision_count"] += 1
+    _build.count("collision_count")
     return out

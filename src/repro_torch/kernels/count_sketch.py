@@ -46,5 +46,5 @@ def cs_tables(bucket: torch.Tensor, sign: torch.Tensor, width: int
     rc = lib.cs_tables_launch(bucket.data_ptr(), sign.data_ptr(),
                               out.data_ptr(), b * r, s, width, stream)
     _build.check(NAME, lib, rc)
-    _build.LAUNCHES["cs_tables"] += 1
+    _build.count("cs_tables")
     return out

@@ -72,9 +72,10 @@ def dtw_schedule(n_pairs: int, m: int, r: int) -> str:
 
 def schedule_counts() -> Dict[str, int]:
     """Launches per (kernel, schedule) since the last reset."""
-    return {f"{k}:{s}": _build.LAUNCHES[f"{k}:{s}"]
-            for k in ("dtw_wavefront_pairs", "dtw_wavefront")
-            for s in SCHEDULES}
+    with _build.COUNT_LOCK:
+        return {f"{k}:{s}": _build.LAUNCHES[f"{k}:{s}"]
+                for k in ("dtw_wavefront_pairs", "dtw_wavefront")
+                for s in SCHEDULES}
 
 
 def _launch(kernel: str, n: int, m: int, r: int, schedule: Optional[str],
@@ -100,8 +101,7 @@ def _launch(kernel: str, n: int, m: int, r: int, schedule: Optional[str],
                          f"{r} needs {smem} bytes of shared memory with the "
                          f"{schedule} schedule, more than {SMEM_MAX}")
     _build.check(NAME, lib, call(lib, code))
-    _build.LAUNCHES[kernel] += 1
-    _build.LAUNCHES[f"{kernel}:{schedule}"] += 1
+    _build.count(kernel, f"{kernel}:{schedule}")
     return schedule
 
 

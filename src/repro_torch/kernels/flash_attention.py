@@ -160,7 +160,7 @@ def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         rc = lib.flash_attention_simt_launch(*ptrs, _DTYPES[q.dtype], *args)
     _build.check(NAME, lib, rc)
-    _build.LAUNCHES[kernel] += 1
+    _build.count(kernel)
     return out
 
 

@@ -12,6 +12,7 @@ and is accepted only on the CPU (:func:`check_backend`).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Union
 
 import torch
@@ -55,11 +56,22 @@ def check_backend(backend: str,
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {name: _build.LAUNCHES[name] for name in _build.KERNELS}
+    with _build.COUNT_LOCK:
+        return {name: _build.LAUNCHES[name] for name in _build.KERNELS}
 
 
 def reset_launch_counts() -> None:
-    _build.LAUNCHES.clear()
+    with _build.COUNT_LOCK:
+        _build.LAUNCHES.clear()
+
+
+def device_scope(device: torch.device):
+    """``device`` as the calling thread's current CUDA device, where the
+    kernels launch (the current device is per thread); nothing to enter
+    on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def _route(t: torch.Tensor) -> bool:

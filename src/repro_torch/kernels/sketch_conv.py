@@ -64,5 +64,5 @@ def sketch_conv(x: torch.Tensor, filters: torch.Tensor, step: int
     rc = lib.sketch_conv_launch(x.data_ptr(), filters.data_ptr(),
                                 out.data_ptr(), b, m, w, f, step, n_b, stream)
     _build.check(NAME, lib, rc)
-    _build.LAUNCHES["sketch_conv"] += 1
+    _build.count("sketch_conv")
     return out

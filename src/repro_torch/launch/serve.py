@@ -5,7 +5,8 @@ over a batch of prompts with one prefill of the same prompts.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch ssh-ecg \\
         [--requests 16] [--batch-size 8] [--wait-ms 2] \\
-        [--batch-mode fixed|adaptive] [--db-dir DIR] [--device cpu]
+        [--batch-mode fixed|adaptive] [--db-dir DIR] [--device cpu] \\
+        [--replication 2 --fleet-workers 4 --hedge-ms 10]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch ssh-ecg \\
         --sequential [--db-dir DIR] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
@@ -14,9 +15,11 @@ over a batch of prompts with one prefill of the same prompts.
 SSH: ``--db-dir`` serves a database saved by either package (its search
 knobs kept, the serving ones overlaid) instead of building the smoke
 index over a synthetic ECG stream; queries are windows of that stream
-at the database's length.  The fleet options (``--replication``,
-``--fleet-workers``, ``--hedge-ms``) are accepted at their defaults
-only: the fleet tier is queued (ROADMAP.md §1, item 6).  LM weights are
+at the database's length.  ``--replication`` 2 or more serves engine
+mode through the fleet tier (replicated shards, hedged fan-out,
+failover; ``repro_torch.fleet``), single-probe as the reference, and
+prints a ``fleet: hedged=... failovers=...`` line after the requests.
+LM weights are
 random from ``--seed`` (no checkpoint is read).  Without ``--device
 cpu`` it runs on CUDA and raises where there is none.
 """
@@ -137,7 +140,8 @@ SERVE_LENGTH = 128
 
 def _ssh_db(arch, config, db_dir, device):
     """(query pool, TimeSeriesDB): loaded from ``db_dir`` with the saved
-    search knobs and ``config``'s searcher and backend overlaid, else
+    search knobs and ``config``'s serving knobs (searcher, backend, batch
+    policy, the fleet's) overlaid, single-probe when replicated, else
     built from the smoke spec over windows of a synthetic ECG stream
     (``repro/launch/serve.py:27-67``)."""
     from repro_torch.data.timeseries import (extract_subsequences,
@@ -152,9 +156,16 @@ def _ssh_db(arch, config, db_dir, device):
                 f"--db-dir {db_dir}: no saved TimeSeriesDB there (build one "
                 "with repro_torch.launch.build_index)")
         saved = saved_config(db_dir) or config
-        tsdb = TimeSeriesDB.load(db_dir, saved.replace(
+        overlay = dict(
             searcher=config.searcher, backend=config.backend,
-            batch_policy=config.batch_policy), device=device)
+            batch_policy=config.batch_policy,
+            replication=config.replication,
+            fleet_workers=config.fleet_workers,
+            hedge_policy=config.hedge_policy, hedge_ms=config.hedge_ms)
+        if config.replication > 1:
+            overlay["multiprobe_offsets"] = 1    # the fleet is single-probe
+        tsdb = TimeSeriesDB.load(db_dir, saved.replace(**overlay),
+                                 device=device)
         length = tsdb.length
         print(f"loaded database ({len(tsdb)} series of length {length}) "
               f"from {db_dir}", flush=True)
@@ -168,18 +179,30 @@ def _ssh_db(arch, config, db_dir, device):
 
 def serve_ssh(arch, requests: int, batch_size: int = 8,
               wait_ms: float = 2.0, backend: str = "auto", db_dir=None,
-              batch_mode: str = "fixed", device=None) -> list:
+              batch_mode: str = "fixed", device=None, replication: int = 1,
+              fleet_workers: Optional[int] = None,
+              hedge_ms: float = 30.0) -> list:
     """Engine serving (``repro/launch/serve.py:70-124``): every padded
     bucket warmed through ``engine.searcher`` (outside the metrics), then
     the requests submitted one at a time through ``TimeSeriesDB.submit``
     and batched by the ``BatchPolicy``; prints each top-1 and the
-    engine's metrics line; returns the results in request order."""
+    engine's metrics line; returns the results in request order.
+    ``replication`` 2 or more serves through the fleet (single-probe:
+    the arch's multiprobe is overridden, as the reference does) and
+    prints its counters."""
     from repro_torch.db import BatchPolicy
     dev = ops.resolve_device(device)
     policy = BatchPolicy(mode=batch_mode, max_batch=batch_size,
                          max_wait_ms=wait_ms)
     cfg = arch.search_config(length=SERVE_LENGTH, searcher="engine",
-                             backend=backend, batch_policy=policy)
+                             backend=backend, batch_policy=policy,
+                             replication=replication,
+                             fleet_workers=fleet_workers, hedge_ms=hedge_ms)
+    if replication > 1 and cfg.multiprobe_offsets > 1:
+        print(f"replication={replication}: fleet serving is single-probe "
+              f"(overriding arch multiprobe_offsets="
+              f"{cfg.multiprobe_offsets})", flush=True)
+        cfg = cfg.replace(multiprobe_offsets=1)
     pool, tsdb = _ssh_db(arch, cfg, db_dir, dev)
     engine = tsdb.engine
     qids = np.random.default_rng(0).integers(0, pool.shape[0], requests)
@@ -197,14 +220,16 @@ def serve_ssh(arch, requests: int, batch_size: int = 8,
         wall = time.perf_counter() - t0
         snap = engine.metrics.snapshot()
     print(f"engine: {engine.metrics.format()}", flush=True)
+    if replication > 1:
+        print(f"fleet: hedged={snap['hedged_total']:.0f} "
+              f"failovers={snap['failovers_total']:.0f} "
+              f"degraded={snap['degraded_total']:.0f} "
+              f"rebalanced={snap['rebalanced_shards_total']:.0f}",
+              flush=True)
     print(f"served {requests} requests in {wall:.2f}s "
           f"({requests / wall:.1f} qps end-to-end, avg batch "
           f"{snap['batch_size_mean']:.1f}) on {dev}", flush=True)
     return out
-
-
-#: the fleet options and their defaults, the only values accepted
-FLEET_DEFAULTS = {"replication": 1, "fleet_workers": None, "hedge_ms": 30.0}
 
 
 def serve_ssh_sequential(arch, requests: int, backend: str = "auto",
@@ -257,12 +282,12 @@ def main(argv=None) -> int:
                     help="ssh: fixed deadline, or the wait from queue depth "
                          "and the service-time EWMA")
     ap.add_argument("--replication", type=int, default=1,
-                    help="ssh: fleet replicas (1 only; the fleet is queued)")
+                    help="ssh: replicas a shard; >= 2 serves through the "
+                         "resilient fleet tier (engine mode)")
     ap.add_argument("--fleet-workers", type=int, default=None,
-                    help="ssh: fleet size (unset only; the fleet is queued)")
+                    help="ssh: fleet size (default max(2, replication))")
     ap.add_argument("--hedge-ms", type=float, default=30.0,
-                    help="ssh: hedging deadline (30 only; the fleet is "
-                         "queued)")
+                    help="ssh: hedging deadline floor in ms (fleet only)")
     ap.add_argument("--db-dir", default=None,
                     help="ssh: serve the TimeSeriesDB saved here")
     ap.add_argument("--backend", default="auto",
@@ -271,12 +296,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.arch.startswith("ssh"):
         from repro_torch.configs.registry import get_arch
-        fleet = [f"--{k.replace('_', '-')} {getattr(args, k)}"
-                 for k, v in FLEET_DEFAULTS.items() if getattr(args, k) != v]
-        if fleet:
-            ap.error(f"{', '.join(fleet)}: the fleet tier is not ported yet "
-                     "(queued in ROADMAP.md §1, item 6); leave the fleet "
-                     "options at their defaults")
         arch = get_arch(args.arch)
         if args.sequential:
             serve_ssh_sequential(arch, args.requests, backend=args.backend,
@@ -284,7 +303,10 @@ def main(argv=None) -> int:
         else:
             serve_ssh(arch, args.requests, args.batch_size, args.wait_ms,
                       backend=args.backend, db_dir=args.db_dir,
-                      batch_mode=args.batch_mode, device=args.device)
+                      batch_mode=args.batch_mode, device=args.device,
+                      replication=args.replication,
+                      fleet_workers=args.fleet_workers,
+                      hedge_ms=args.hedge_ms)
         return 0
     if args.arch not in LM_ARCHS:
         ap.error(f"--arch {args.arch}: the port serves {sorted(LM_ARCHS)}")

@@ -48,6 +48,22 @@ class BatchSearchResult:
     wall_seconds: float
     stats: Optional[SearchStats] = None
 
+    @classmethod
+    def of_fanout(cls, ids, dists, n_database: int, top_c: int,
+                  t0: float, stats: SearchStats) -> "BatchSearchResult":
+        """The result of a shard fan-out (distributed, fleet): each
+        query's top-k rows stacked, ``min(top_c, N)`` candidates a query
+        counted as probed and re-ranked, as the reference reports them;
+        ``t0`` the ``perf_counter`` the batch started at."""
+        b, c = len(ids), min(top_c, n_database)
+        return cls(ids=np.stack(ids).astype(np.int64),
+                   dists=np.stack(dists).astype(np.float32),
+                   n_queries=b, n_database=n_database, n_union=c,
+                   n_candidates=np.full(b, c, np.int64),
+                   pruned_by_hash_frac=np.full(b, 1.0 - c / n_database),
+                   pruned_total_frac=np.full(b, 1.0 - c / n_database),
+                   wall_seconds=time.perf_counter() - t0, stats=stats)
+
     def per_query(self, b: int) -> SearchResult:
         """Query ``b``'s slice, filler rows (id -1) trimmed.  Its ``stats``
         stays None, as the reference's (``repro/serving/batched.py:

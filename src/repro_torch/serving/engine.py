@@ -26,14 +26,19 @@ reference, and ``ssh_search_batch`` synchronises before it returns.
 
 Streaming inserts are applied on the batcher thread between batches,
 under the same lock, so a query submitted after ``insert()`` returned
-is served by an index that holds the series.  The reference's fleet
-route (``replication > 1``) and its ``DistributedSearcher`` wait for
-the distributed tier (ROADMAP.md §1, item 6); ``SearchConfig.validate``
-refuses ``replication > 1``.
+is served by an index that holds the series.
+
+Shard fan-out: ``DistributedSearcher`` answers the same ``search_batch``
+contract through ``repro_torch.distributed.dist_index`` (the index's
+rows cut into equal shards over a mesh of devices, one shard-local
+probe each, one gather a query).  With ``config.replication > 1`` the
+engine serves through the fleet (``repro_torch.fleet.FleetSearcher``:
+replicated shards, hedged fan-out, failover), whose ``drain`` and
+``resize`` the engine exposes, and each batch's fleet counters reach the
+metrics.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import queue
 import threading
@@ -45,9 +50,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.bench.timing import StageTimer
 from repro_torch.core.index import SSHIndex
+from repro_torch.core.rerank import SearchStats
 from repro_torch.core.search import SearchResult
 from repro_torch.db.config import SearchConfig
+from repro_torch.kernels import ops
 from repro_torch.serving.batched import BatchSearchResult, ssh_search_batch
 from repro_torch.serving.metrics import ServingMetrics
 
@@ -90,6 +98,90 @@ class BatchedSearcher:
                                   artifacts.keys)
 
 
+class DistributedSearcher:
+    """Shard fan-out backend over ``repro_torch.distributed.dist_index``
+    (``repro/serving/engine.py:106-233``).
+
+    The index rows are cut into equal row ranges, one a mesh device
+    (``dist_index.index_shardings``); each query of a batch is encoded
+    once and runs the shard-local probe on every shard (local collision
+    count over raw signatures, local top-C/shards, seeded banded DTW),
+    and the shards' lists merge into the global top-k on the first mesh
+    device.  ``mesh`` is a sequence of ``torch.device``s; a device may
+    repeat (several shards on one card).
+    """
+
+    def __init__(self, index: SSHIndex, config: SearchConfig, mesh):
+        from repro_torch.distributed import dist_index
+        if config.band is None:
+            raise ValueError("DistributedSearcher requires a band radius")
+        # the shard probe ranks by raw signatures, single probe: refuse
+        # configs whose answers would silently differ from it
+        if not config.rank_by_signature or config.multiprobe_offsets > 1:
+            raise ValueError(
+                "DistributedSearcher supports only rank_by_signature=True "
+                "and multiprobe_offsets=1")
+        self.index = index
+        self.config = config
+        self.mesh = dist_index.as_mesh(mesh)
+        self._query_fn = dist_index.make_encoder_query_fn(
+            index.encoder, self.mesh, config=config)
+        self._put_index_arrays()
+
+    def _put_index_arrays(self) -> None:
+        """(Re-)place the index rows on the mesh's shards."""
+        from repro_torch.distributed import dist_index
+        shardings = dist_index.index_shardings(
+            self.mesh, int(self.index.signatures.shape[0]))
+        self._series = dist_index.place_rows(self.index.series, shardings)
+        self._sigs = dist_index.place_rows(self.index.signatures, shardings)
+
+    def search_batch(self, queries) -> BatchSearchResult:
+        t0 = time.perf_counter()
+        cfg = self.config
+        timer = StageTimer(enabled=cfg.stage_timings)
+        queries = torch.as_tensor(queries, dtype=torch.float32).to(
+            self.index.device)
+        n = int(self.index.signatures.shape[0])
+        ids, dists = [], []
+        for i in range(int(queries.shape[0])):
+            # one unsplittable span a query ("fused", as the reference's
+            # shard_map program), ending in host arrays
+            with timer.stage("fused"), ops.device_scope(self.index.device):
+                gid, d = self._query_fn(self._series, self._sigs,
+                                        queries[i])
+                ids.append(gid.cpu().numpy())
+                dists.append(d.cpu().numpy())
+        stats = SearchStats(backend=self.index.device.type)
+        if timer.enabled:
+            stats.stage_seconds = dict(timer.timings)
+        return BatchSearchResult.of_fanout(ids, dists, n, cfg.top_c, t0,
+                                           stats)
+
+    def insert(self, series) -> None:
+        raise NotImplementedError(
+            "streaming inserts into a sharded index require a reshard; "
+            "stream through a StreamIngestor and fold with "
+            "apply_artifacts() instead")
+
+    def apply_artifacts(self, artifacts) -> None:
+        """Fold pre-encoded streaming artifacts into the index, then
+        re-place the rows: the shards receive encoded state, never raw
+        series to re-hash."""
+        self.index.insert_encoded(artifacts.series, artifacts.signatures,
+                                  artifacts.keys)
+        self._put_index_arrays()
+
+    def resize(self, mesh) -> None:
+        """Move the index to a new mesh (elastic shard count): the
+        encoded rows move, nothing is re-encoded."""
+        from repro_torch.distributed import dist_index
+        self.mesh = dist_index.as_mesh(mesh)
+        self._query_fn = dist_index.make_encoder_query_fn(
+            self.index.encoder, self.mesh, config=self.config)
+        self._put_index_arrays()
+
+
 def _lb_fracs(res: BatchSearchResult):
     """The batch's LB-cascade pruning fraction (empty when no pair
     entered the cascade)."""
@@ -114,6 +206,15 @@ def _sig_hits(res: BatchSearchResult) -> int:
     return res.stats.sig_cache_hit if res.stats is not None else 0
 
 
+def _fleet_counters(res: BatchSearchResult) -> dict:
+    """The batch's fleet resilience counters (zeros outside the fleet)."""
+    s = res.stats
+    if s is None:
+        return {}
+    return {"hedged": s.hedged, "failovers": s.failovers,
+            "degraded": int(s.degraded)}
+
+
 def _host_row(query) -> np.ndarray:
     """One (m,) query as a float32 host row (a tensor on the card is read
     back once, here, on the submitter's thread)."""
@@ -124,14 +225,6 @@ def _host_row(query) -> np.ndarray:
         raise ValueError(f"a query is one (m,) series, got shape "
                          f"{tuple(row.shape)}")
     return row
-
-
-def _device_scope(device: torch.device):
-    """The CUDA device of the index as the calling thread's current one
-    (nothing to enter on the CPU)."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -162,11 +255,17 @@ class ServingEngine:
     def __init__(self, index: SSHIndex,
                  config: SearchConfig = SearchConfig(),
                  searcher=None, metrics: Optional[ServingMetrics] = None):
-        config.validate()                  # refuses the fleet's knobs
+        config.validate()
         self.index = index
         self.config = config
-        self.searcher = searcher if searcher is not None \
-            else BatchedSearcher(index, config)
+        if searcher is None:
+            if config.replication > 1:
+                # resilience asked for: serve through the fleet tier
+                from repro_torch.fleet import FleetSearcher
+                searcher = FleetSearcher(index, config)
+            else:
+                searcher = BatchedSearcher(index, config)
+        self.searcher = searcher
         self.metrics = metrics or ServingMetrics()
         # a deque under one condition variable: submit() wakes the batcher
         # and _collect() reads the exact depth
@@ -295,7 +394,8 @@ class ServingEngine:
             lb_pruned_frac=_lb_fracs(res),
             dtw_abandoned_frac=_abandon_fracs(res),
             stage_seconds=_stage_seconds(res),
-            sig_cache_hits=_sig_hits(res))
+            sig_cache_hits=_sig_hits(res),
+            **_fleet_counters(res))
         return [res.per_query(i) for i in range(b)]
 
     def flush_inserts(self) -> None:
@@ -312,9 +412,11 @@ class ServingEngine:
             self.searcher.apply_artifacts(artifacts)
 
     def drain(self, worker: str) -> int:
-        """Retire a fleet worker while serving; only a fleet searcher
-        (ROADMAP.md §1, item 6) can, so this raises ``AttributeError``
-        for any other."""
+        """Retire a fleet worker while serving: new shard calls stop
+        routing to it, its in-flight calls finish, its replica slots
+        re-home from the published artifacts, and no queued query is
+        lost.  Returns the shards moved; ``AttributeError`` when the
+        searcher is not a fleet."""
         drain = getattr(self.searcher, "drain", None)
         if drain is None:
             raise AttributeError(
@@ -325,7 +427,8 @@ class ServingEngine:
         return moved
 
     def resize(self, workers) -> int:
-        """Live fleet rebalance; fleet searchers only, as :meth:`drain`."""
+        """Live fleet rebalance onto an int worker count or a name list;
+        returns the shards moved; fleet searchers only, as :meth:`drain`."""
         resize = getattr(self.searcher, "resize", None)
         if resize is None:
             raise AttributeError(
@@ -428,7 +531,7 @@ class ServingEngine:
             else alpha * sample + (1.0 - alpha) * prev
 
     def _worker(self) -> None:
-        with _device_scope(self.index.device):
+        with ops.device_scope(self.index.device):
             self._serve_loop()
 
     def _serve_loop(self) -> None:
@@ -469,4 +572,5 @@ class ServingEngine:
                 stage_seconds=_stage_seconds(res),
                 sig_cache_hits=_sig_hits(res),
                 batch_wait_s=t0 - batch[0].t_enqueue,
-                batch_occupancy=len(batch) / pol.max_batch)
+                batch_occupancy=len(batch) / pol.max_batch,
+                **_fleet_counters(res))

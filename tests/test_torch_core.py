@@ -178,11 +178,12 @@ def test_config_and_spec_read_like_the_reference():
     with pytest.raises(ValueError):
         SearchConfig(top_c=5, topk=10).validate()
     SearchConfig(searcher="local").validate()
-    # the name is checked by the registry, as the reference's: queued
-    # searchers are refused by make_searcher, not by validate
+    # the name is checked by the registry, as the reference's: an
+    # unregistered searcher is refused by make_searcher, not by validate
     SearchConfig(searcher="distributed").validate()
-    with pytest.raises(ValueError, match="queued in ROADMAP"):
-        make_searcher(None, SearchConfig(searcher="distributed"))
+    SearchConfig(searcher="nope").validate()
+    with pytest.raises(ValueError, match="unknown searcher 'nope'"):
+        make_searcher(None, SearchConfig(searcher="nope"))
     with pytest.raises(ValueError, match="backend must be one of"):
         SearchConfig(backend="cuda").validate()
     with pytest.raises(ValueError, match="device='cpu'"):

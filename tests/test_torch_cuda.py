@@ -874,3 +874,74 @@ def test_spun_ms_refuses_a_call_that_synchronises(cuda):
     a = torch.randn(256, 256, device=cuda)
     with pytest.raises(RuntimeError, match="synchronises"):
         spun_ms(lambda: float((a @ a).sum()), calls=2, doublings=2)
+
+
+def test_fleet_query_on_the_card_launches_the_kernels_and_matches_cpu(
+        cuda):
+    """A fleet (R = 2, W = 4) over a CUDA index encodes through
+    ``sketch_conv`` and probes every shard through ``collision_count`` and
+    ``dtw_wavefront`` from the pool's threads, and answers as the same
+    fleet over a CPU copy, and as four row shards on the card; one
+    killed worker changes nothing."""
+    from repro_torch.fleet import FleetSearcher
+    from repro_torch.serving import DistributedSearcher
+    series = make_benchmark_db("ecg", 2000, 128, seed=15)
+    cfg = SearchConfig(topk=5, top_c=64, band=6, replication=2,
+                       fleet_workers=4)
+    gpu = TimeSeriesDB.build(series, SMOKE, cfg)
+    cpu = TimeSeriesDB.build(series, SMOKE, cfg, device="cpu")
+    qids = [0, 5, 77, 1999]
+    fleet = FleetSearcher(gpu.index, cfg)
+    try:
+        assert all(r.device.type == "cuda"
+                   for w in fleet.workers.values()
+                   for r in w._shards.values())
+        ops.reset_launch_counts()
+        got = fleet.search_batch(series[qids])
+        counts = ops.launch_counts()
+        fleet.injector.kill("w0")
+        again = fleet.search_batch(series[qids])
+    finally:
+        fleet.close()
+    assert counts["sketch_conv"] >= len(qids)
+    assert counts["collision_count"] >= 4 * len(qids)
+    assert counts["dtw_wavefront"] >= 4 * len(qids)
+    fleet_cpu = FleetSearcher(cpu.index, cfg)
+    try:
+        want = fleet_cpu.search_batch(series[qids])
+    finally:
+        fleet_cpu.close()
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_allclose(got.dists, want.dists, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(again.ids, got.ids)
+    np.testing.assert_array_equal(again.dists, got.dists)
+    dist = DistributedSearcher(gpu.index, cfg.replace(replication=1),
+                               [cuda] * 4).search_batch(series[qids])
+    np.testing.assert_array_equal(dist.ids, got.ids)
+    np.testing.assert_array_equal(dist.dists, got.dists)
+
+
+def test_launch_counts_stay_exact_under_threads(cuda):
+    """Eight threads launching ``collision_count`` at once: the count is
+    every launch, no increment lost."""
+    import sys
+    import threading
+    q = torch.randint(0, 50, (40,), dtype=torch.int32, device=cuda)
+    db = torch.randint(0, 50, (4096, 40), dtype=torch.int32, device=cuda)
+    calls, threads = 200, 8
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        ops.reset_launch_counts()
+        workers = [threading.Thread(target=lambda: [
+            ops.collision_count(q, db) for _ in range(calls)])
+            for _ in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=120)
+        assert not any(w.is_alive() for w in workers)
+    finally:
+        sys.setswitchinterval(switch)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["collision_count"] == calls * threads

@@ -31,7 +31,6 @@ from repro_torch.core import minhash, search
 from repro_torch.core.index import HostBuckets
 from repro_torch.db import (BatchPolicy, SearchConfig, TimeSeriesDB,
                             available_searchers, make_searcher, registry)
-from repro_torch.db import config as config_mod
 from repro_torch.encoders import IndexSpec, available_encoders, sigcache
 from repro_torch.launch import build_index
 from repro_torch.serving.batched import ssh_search_batch
@@ -117,26 +116,30 @@ def test_search_config_dict_form_matches_the_reference():
     dict(fleet_workers=3), dict(hedge_policy="fixed"), dict(hedge_ms=10.0),
     dict(replication=3), dict(fleet_workers=2), dict(hedge_ms=5.0)])
 def test_queued_knobs_round_trip_but_are_refused(knob):
-    """A knob whose tier the port lacks keeps its value through the dict
-    form (a saved config loads) but is refused when the config is used,
-    where the reference serves it."""
-    (name,) = knob
-    assert name in config_mod.QUEUED
+    """Each fleet knob (once queued, now served by ``repro_torch.fleet``)
+    keeps its value through the dict form and validates, as the
+    reference's does; the reference reads the same value back."""
+    (name, value), = knob.items()
     cfg = SearchConfig(**knob)
     assert SearchConfig.from_dict(json.loads(json.dumps(
         cfg.to_dict()))) == cfg
-    with pytest.raises(ValueError, match="queued in ROADMAP"):
-        cfg.validate()
-    JaxSearchConfig.from_dict(cfg.to_dict()).validate()
+    assert cfg.validate() is cfg and getattr(cfg, name) == value
+    jcfg = JaxSearchConfig.from_dict(cfg.to_dict()).validate()
+    assert getattr(jcfg, name) == value
 
 
 def test_searcher_registry(pair, queries):
     _, index = pair
-    assert available_searchers() == ["batched", "engine", "local"]
-    assert set(available_searchers()) < set(jax_searchers())
-    for name in ("distributed", "fleet"):
-        with pytest.raises(ValueError, match="queued in ROADMAP"):
-            make_searcher(index, SearchConfig(searcher=name))
+    assert available_searchers() == ["batched", "distributed", "engine",
+                                     "fleet", "local"]
+    assert set(available_searchers()) <= set(jax_searchers())
+    for name in ("distributed", "fleet"):    # single-probe tiers
+        s = make_searcher(index, SearchConfig(
+            searcher=name, topk=10, top_c=64, band=6))
+        try:
+            assert s.search(queries[1]).ids[0] == QIDS[1]
+        finally:
+            s.close()
     with pytest.raises(ValueError, match="unknown searcher"):
         TimeSeriesDB(index, SearchConfig(searcher="nope")).search(queries[0])
 

@@ -58,7 +58,12 @@ for name in ("repro_torch.streaming.count_sketch",
              "repro_torch.loadgen.arrivals", "repro_torch.loadgen.workload",
              "repro_torch.loadgen.harness", "repro_torch.subseq",
              "repro_torch.subseq.rolling", "repro_torch.subseq.index",
-             "repro_torch.subseq.persistence"):
+             "repro_torch.subseq.persistence", "repro_torch.distributed",
+             "repro_torch.distributed.dist_index",
+             "repro_torch.distributed.fault_tolerance", "repro_torch.fleet",
+             "repro_torch.fleet.injector", "repro_torch.fleet.placement",
+             "repro_torch.fleet.worker", "repro_torch.fleet.transfer",
+             "repro_torch.fleet.searcher"):
     assert name in names, name
 print(len(names), "modules")
 """
@@ -236,9 +241,9 @@ def test_saved_jnp_backend_is_refused_on_cuda(monkeypatch, tmp_path):
 def test_engine_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch,
                                                            capsys):
     """The ``"engine"`` searcher and the launcher's engine mode raise
-    without CUDA unless ``device="cpu"`` is passed, as every entry point;
-    the launcher refuses the fleet's options at any value but their
-    defaults."""
+    without CUDA unless ``device="cpu"`` is passed, as every entry point,
+    the fleet's options among them; with ``--device cpu`` each fleet
+    option serves (``--replication 2`` through the fleet)."""
     from repro_torch.launch import serve
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     series = np.random.default_rng(5).normal(size=(40, 64)).astype(
@@ -256,9 +261,14 @@ def test_engine_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch,
     assert db.device == torch.device("cpu")
     for opt in (["--replication", "2"], ["--fleet-workers", "4"],
                 ["--hedge-ms", "10"]):
-        with pytest.raises(SystemExit):
-            serve.main(["--arch", "ssh-ecg", "--device", "cpu", *opt])
-        assert "ROADMAP.md §1, item 6" in capsys.readouterr().err
+        args = ["--arch", "ssh-ecg", "--requests", "1", "--batch-size",
+                "1", *opt]
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(args)
+        assert serve.main([*args, "--device", "cpu"]) == 0
+        out = capsys.readouterr().out
+        assert "engine: req=1" in out
+        assert ("fleet: hedged=" in out) == (opt[0] == "--replication")
 
 
 def test_stream_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch,

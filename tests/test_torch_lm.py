@@ -375,9 +375,10 @@ def test_serve_cli_on_cpu(capsys):
                        "3"]) == 0
     out = capsys.readouterr().out
     assert "granite-3-2b (smoke) on cpu" in out and "sample: [" in out
-    with pytest.raises(SystemExit):         # the fleet is queued
-        serve.main(["--arch", "ssh-ecg", "--device", "cpu",
-                    "--replication", "2"])
-    assert "ROADMAP" in capsys.readouterr().err
+    assert serve.main(["--arch", "ssh-ecg", "--device", "cpu",  # the fleet
+                       "--replication", "2", "--requests", "1",
+                       "--batch-size", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "fleet serving is single-probe" in out and "fleet: hedged=" in out
     with pytest.raises(SystemExit):
         serve.main(["--arch", "phi3-mini", "--device", "cpu"])

@@ -31,7 +31,6 @@ from repro.serving import ServingMetrics as JaxMetrics
 from repro.serving import metrics as jax_metrics
 from repro_torch import convert
 from repro_torch.db import BatchPolicy, SearchConfig, TimeSeriesDB
-from repro_torch.db import config as config_mod
 from repro_torch.encoders import IndexSpec
 from repro_torch.serving import ServingEngine, ServingMetrics, engine as em
 from repro_torch.serving import metrics as metrics_mod
@@ -292,8 +291,12 @@ def test_engine_config_is_retired_and_fleet_calls_raise(index):
         engine.drain("w0")
     with pytest.raises(AttributeError, match="resize"):
         engine.resize(2)
-    with pytest.raises(ValueError, match="queued in ROADMAP"):
-        ServingEngine(index, SearchConfig(replication=2))
+    from repro_torch.fleet import FleetSearcher
+    fleet = ServingEngine(index, _cfg(replication=2)).searcher
+    try:
+        assert isinstance(fleet, FleetSearcher) and fleet.replication == 2
+    finally:
+        fleet.close()
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +350,7 @@ def test_buckets_and_replace_equal_reference():
     cfg = SearchConfig(searcher="engine", batch_policy=BatchPolicy(
         mode="adaptive", max_batch=16)).validate()
     assert cfg.buckets() == [1, 2, 4, 8, 16]
-    assert "batch_policy" not in config_mod.QUEUED
+    assert cfg.validate() is cfg
 
 
 def _feed(m, clock):
