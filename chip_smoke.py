@@ -204,7 +204,8 @@
    build report: ptxas's registers, stack and spills of every flash
    kernel (a spill, a stack frame or local memory in the SASS fails the
    run), and the count of tensor-core instructions (HGMMA, HMMA) in the
-   tensor-core kernel's SASS (``cuobjdump -sass``), which must not be 0.
+   SASS of each instance of the tensor-core kernel, (Q/K, V) tiles (64,
+   64), (128, 128) and (192, 128) (``cuobjdump -sass``): a 0 fails.
    Then three more counted paths, each with 40 launches of the
    tensor-core kernel ``flash_attention`` (one a layer) and none of the
    CUDA-core ``flash_attention_simt``:
@@ -231,13 +232,38 @@
    in one call, its time, the CUDA-core kernel's on the same bf16 inputs
    (through its own entry point, off the path) and
    ``scaled_dot_product_attention``'s (KV heads expanded), the library
-   yardstick; the plain version's time at 8 x 2048.  The bound is 4·D
-   flops per unmasked (query, key) pair at 989 TFLOP/s (bf16 tensor
-   cores) or the q, k, v and o bytes at 3.35 TB/s, the larger.  The
-   CUDA-core kernel gets its own entry, held to its plain version and
+   yardstick; the plain version's time at 8 x 2048.  The bound is
+   2·(D + Dv) flops per unmasked (query, key) pair at 989 TFLOP/s (bf16
+   tensor cores) or the q, k, v and o bytes at 3.35 TB/s, the larger.
+   The CUDA-core kernel gets its own entry, held to its plain version and
    timed on the float32 gate's layer-0 inputs (device and call time,
    ``scaled_dot_product_attention`` in float32 beside it), its bound at
    the 67 TFLOP/s of float32 outside the tensor cores.
+   Then the rest of the LM suite, each model freed before the next, bf16
+   at full width, random weights from ``--seed``: ``lm_8b``
+   (granite-3-8b, 40 layers, D 128), ``lm_phi3`` (phi3-mini-3.8b, 32
+   layers, MHA, D 96), ``lm_dbrx`` (dbrx-132b, MoE, DEPTH CUT to 8 of 40
+   layers: 54.6 GB of the 263.2) and ``lm_deepseek`` (deepseek-v2-lite-16b,
+   27 layers, MoE with shared experts and MLA: flash at Q/K 192, V 128).
+   Each: one prefill of 8 x 2048 and ``serve_lm`` as in e3 (2 launches of
+   ``flash_attention`` a layer, none of the CUDA-core kernel); the gate
+   as in e3, for the MoE models on the same prompts at a capacity factor
+   that drops nothing (phases ``*_topk``, the config's top-k, and
+   ``*_gate``, every expert: top-k routing is discontinuous and the two
+   paths' bf16 roundings move near-tied gates across it, so the top-k
+   run's gap and its (token, layer) routing flips are logged and the
+   10 % gate holds the all-expert run); the share of assignments dropped
+   at the config's own factor in the 8 x 2048 prefill and one decode
+   step; the prefill's device time; the tensor-core kernel on the
+   prefill's layer-0 q, k, v as above (both bounds), timed in turns with
+   the CUDA-core kernel and SDPA (the SDPA backends that take the shape
+   logged), bound and plain time (``suite_shapes`` of the kernel entry).
+   Last ``lm_dbrx_f32`` and ``lm_deepseek_f32``: the MoE models in
+   float32, DEPTH CUT to 2 layers, their top-k routing at the drop-free
+   factor held by the 1e-4 gate (routing flips logged), 2 launches of
+   ``flash_attention_simt`` each, the CUDA-core kernel on layer 0's
+   inputs held to its plain version and timed (at MLA's 192/128 for
+   deepseek).
 
 Prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Imports nothing of JAX.
@@ -299,6 +325,22 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 128, 32  # the serve loop
 # residual layers of random weights carry the differences on: twice
 # that, 10 %.  A wrong mask moves the logits by their own size.
 GATE_REL_TOL = {"bfloat16": 0.10, "float32": 1e-4}
+# step 8's other LM configs after granite-3-2b, each at full width in bf16:
+# (phase, config module, layers kept, None for all).  dbrx's 40 layers are
+# 263.2 GB of bf16 weights (6.52 GB a layer, embed and head 2.47 GB) on an
+# 80 GB card: 8 layers, 54.6 GB, a cut that leaves room for the prefill's
+# expert buffers.  Then deepseek-v2-lite in float32 (the CUDA-core flash
+# kernel's MLA shape), 2 of its 27 layers (about 6.4 GB): a cut.
+LM_SUITE = (("lm_8b", "granite_3_8b", None),
+            ("lm_phi3", "phi3_mini_3_8b", None),
+            ("lm_dbrx", "dbrx_132b", 8),
+            ("lm_deepseek", "deepseek_v2_lite_16b", None))
+# then the MoE models in float32 with their top-k routing held by the
+# 1e-4 gate, 2 layers each (a cut): dbrx's (31 GB; the CUDA-core kernel
+# at 128/128) and deepseek's (about 6.4 GB; the kernel at MLA's 192/128)
+LM_SUITE_F32 = (("lm_dbrx_f32", "dbrx_132b", 2),
+                ("lm_deepseek_f32", "deepseek_v2_lite_16b", 2))
+SUITE_GEN = 32                  # greedy tokens of a suite phase's serve run
 # the subsequence phases: one stream whose windows of 512 at hop 1 are
 # the paper's 20,971,520 (configs/ssh_ecg.py's PAPER_N_SERIES), indexed
 # at hop 1 (stride-1 sketch) and hop 6 (aligned, stride 3); gate 2's
@@ -373,6 +415,54 @@ def bound_ms(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
     t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+class DropCounter:
+    """While active, counts the (token, choice) assignments that
+    ``models.moe.gating`` makes and those past their expert's capacity
+    (one wait for the card, when read), and keeps each call's experts."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.saved, self.kept, self.total = moe, moe.gating, [], 0
+        self.experts = []
+
+        def spy(logits, cfg, n_g):
+            routing, aux = self.saved(logits, cfg, n_g)
+            self.kept.append(routing.keep.sum())
+            self.total += routing.keep.numel()
+            self.experts.append(routing.expert)
+            return routing, aux
+        moe.gating = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.gating = self.saved
+
+    @property
+    def dropped(self) -> int:
+        return self.total - int(sum(self.kept)) if self.kept else 0
+
+    @property
+    def share(self) -> float:
+        return self.dropped / max(1, self.total)
+
+    def flips(self, b, p, n_layers):
+        """Over a ``serve_lm`` run with no generated tokens (p prompt
+        steps of b tokens, then one prefill of the b x p prompts in whole
+        groups): the (token, layer) pairs whose set of experts the
+        stepped decode chose differs from the prefill's, and of how
+        many."""
+        k = self.experts[0].shape[-1]
+        dec = torch.stack([torch.stack([self.experts[i * n_layers + j]
+                                        .reshape(b, k)
+                                        for j in range(n_layers)])
+                           for i in range(p)])                 # (p, L, b, k)
+        pre = torch.stack([self.experts[p * n_layers + j].reshape(b, p, k)
+                           for j in range(n_layers)])          # (L, b, p, k)
+        pre = pre.permute(2, 0, 1, 3)
+        differ = (dec.sort(-1).values != pre.sort(-1).values).any(-1)
+        return int(differ.sum()), differ.numel()
 
 
 class _Enough(Exception):
@@ -2447,15 +2537,17 @@ def device_profile(fn):
                      or "flash_attention_simt_kernel" in e.key) / 1e3)
 
 
-def flash_bound(q, k, ops_per_s=BF16_TC_OPS_PER_S, causal=True):
-    """(bound_ms, bound_by) of one flash launch: 4·D flops per unmasked
-    (query, key) pair of every head at ``ops_per_s`` (the bf16 tensor
-    cores by default), and q, k, v, o read or written once."""
+def flash_bound(q, k, v, ops_per_s=BF16_TC_OPS_PER_S, causal=True):
+    """(bound_ms, bound_by) of one flash launch: 2·(D + Dv) flops per
+    unmasked (query, key) pair of every head (S = Q K^T and P V) at
+    ``ops_per_s`` (the bf16 tensor cores by default), and q, k, v, o read
+    or written once."""
     b, h, s, d = q.shape
-    t = k.shape[2]
+    t, dv = k.shape[2], v.shape[3]
     pairs = causal_pairs(s, t) if causal else s * t
-    n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    return bound_ms(n_bytes, 4 * b * h * d * pairs, ops_per_s)
+    n_bytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                  + b * h * s * dv)
+    return bound_ms(n_bytes, 2 * b * h * (d + dv) * pairs, ops_per_s)
 
 
 def in_turns(fns, rounds=2):
@@ -2628,15 +2720,15 @@ def flash_build_report(_build, lib):
         kind = re.search(r"flash_attention_(tc|simt)_kernel", name)
         args = ("bf16," if "nv_bfloat16" in name else
                 "float," if "_kernelIf" in name else "")
-        dp = re.search(r"Li(\d+)E", name)
+        dims = ",".join(re.findall(r"Li(\d+)E", name)) or "?"
         copy = ",cp.async" if "Lb1E" in name else ""
-        return (f"{kind.group(0) if kind else name}<{args}"
-                f"{dp.group(1) if dp else '?'}{copy}>")
+        return f"{kind.group(0) if kind else name}<{args}{dims}{copy}>"
     no_spill(ptxas_report(_build, "flash_attention", label),
              "flash kernels")
-    log(f"flash_attention_tc_kernel dynamic shared memory: "
-        f"{lib.flash_attention_tc_smem_bytes(64)} bytes at D <= 64, "
-        f"{lib.flash_attention_tc_smem_bytes(128)} at D <= 128")
+    log(f"flash_attention_tc_kernel dynamic shared memory (bytes) by "
+        f"instance: " + ", ".join(
+            f"{dims} {lib.flash_attention_tc_smem_bytes(*dims)}"
+            for dims in ((64, 64), (128, 128), (192, 128))))
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         raise RuntimeError("cuobjdump not found on PATH or in "
@@ -2649,20 +2741,58 @@ def flash_build_report(_build, lib):
     for line in sass.splitlines():
         if "Function :" in line:
             cur = line.split("Function :")[1].strip()
+            if "flash_attention_tc_kernel" in cur:
+                counts[label(cur)] = {"HGMMA": 0, "HMMA": 0}
         elif cur and re.search(r"\b(LDL|STL)\b", line):
             local.add(label(cur))
         elif cur and "flash_attention_tc_kernel" in cur:
             for op in ("HGMMA", "HMMA"):
                 if re.search(rf"\b{op}\.", line):
-                    counts[op] = counts.get(op, 0) + 1
+                    counts[label(cur)][op] += 1
     if local:
         raise AssertionError(f"flash kernels use local memory: {local}")
-    log(f"SASS of flash_attention_tc_kernel (both head-dim variants): "
+    log(f"SASS of flash_attention_tc_kernel by (Q/K, V) tile instance: "
         f"{counts}")
-    if not counts.get("HGMMA", 0) + counts.get("HMMA", 0):
-        raise AssertionError("flash_attention_tc_kernel has no tensor-core "
-                             "instruction (HGMMA or HMMA) in its SASS")
+    if len(counts) != 3 or not all(c["HGMMA"] for c in counts.values()):
+        raise AssertionError(f"an instance of flash_attention_tc_kernel "
+                             f"has no HGMMA in its SASS: {counts}")
     return counts
+
+
+def tc_check(q, k, v, tag, scale=None):
+    """The tensor-core kernel (its launch counted once) on one causal
+    flash call's inputs, per element against its plain version (bf16
+    weights allowed for) and against the emulation of its own rounding
+    (the tight bound); raises beyond either.  Returns both results, the
+    median |o| and the shape."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import error_bound
+    ops.reset_launch_counts()
+    kern = ops.flash_attention(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    if ops.launch_counts()["flash_attention"] != 1:
+        raise AssertionError(f"flash check ({tag}) did not run the "
+                             f"tensor-core kernel: {ops.launch_counts()}")
+    plain = ref.flash_attention_ref(q, k, v, causal=True, scale=scale)
+    emu = ref.flash_attention_tc_ref(q, k, v, causal=True, scale=scale)
+    res = {}
+    for against, want, bound in (
+            ("plain", plain, error_bound(kern, plain, v, emu.abs_out)),
+            ("emulation", emu.out, error_bound(kern, emu.out, v,
+                                               emu.abs_out, emu.spread))):
+        err = (kern.float() - want.float()).abs()
+        ratio = float((err / bound).max())
+        res[against] = dict(max_abs_err=float(err.max()),
+                            worst_err_over_bound=ratio,
+                            median_bound=float(bound.median()))
+        if not ratio <= 1.0:
+            raise AssertionError(
+                f"flash_attention ({tag}) disagrees with its {against} "
+                f"version beyond its bound: max err {float(err.max())}, "
+                f"worst err/bound {ratio}")
+    return dict(res, median_abs_out=float(plain.float().abs().median()),
+                shape=f"q {tuple(q.shape)} k {tuple(k.shape)} v "
+                      f"{tuple(v.shape)} {str(q.dtype)[6:]} causal")
 
 
 def lm_path(args, counted, phases) -> dict:
@@ -2837,63 +2967,28 @@ def lm_path(args, counted, phases) -> dict:
     for tag, (q, k, v) in (("batch", (qb, kb, vb)),
                            ("long_2_heads", (ql[:, :2], kl[:, :1],
                                              vl[:, :1]))):
-        ops.reset_launch_counts()
-        kern = ops.flash_attention(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        if ops.launch_counts()["flash_attention"] != 1:
-            raise AssertionError(f"flash check ({tag}) did not run the "
-                                 f"tensor-core kernel: "
-                                 f"{ops.launch_counts()}")
-        plain = ref.flash_attention_ref(q, k, v, causal=True)
-        emu = ref.flash_attention_tc_ref(q, k, v, causal=True)
-        res = {}
-        for against, want, bound in (
-                ("plain", plain, error_bound(kern, plain, v, emu.abs_out)),
-                ("emulation", emu.out, error_bound(kern, emu.out, v,
-                                                   emu.abs_out,
-                                                   emu.spread))):
-            err = (kern.float() - want.float()).abs()
-            ratio = float((err / bound).max())
-            res[against] = dict(max_abs_err=float(err.max()),
-                                worst_err_over_bound=ratio,
-                                median_bound=float(bound.median()))
-            if not ratio <= 1.0:
-                raise AssertionError(
-                    f"flash_attention ({tag}) disagrees with its {against} "
-                    f"version beyond its bound: max err {float(err.max())},"
-                    f" worst err/bound {ratio}")
-        checks[tag] = dict(
-            res, median_abs_out=float(plain.float().abs().median()),
-            shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} "
-                  f"{str(q.dtype)[6:]} causal")
-        del kern, plain, emu
+        checks[tag] = tc_check(q, k, v, tag)
     log(f"lm kernel checks against the plain version and the emulation of "
         f"its rounding (median |o| beside each median bound): {checks}")
 
-    def sdpa_at(q, k, v):
-        g = q.shape[1] // k.shape[1]
-        ke, ve = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
-        return lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, ke, ve, is_causal=True)
-
-    lib_b = sdpa_at(qb, kb, vb)
+    lib_b = sdpa_call(qb, kb, vb)
     lib_err = float((lib_b().float() - ref.flash_attention_ref(
         qb, kb, vb, causal=True).float()).abs().max())
-    bms, bkind = flash_bound(qb, kb)
-    lbms, lbkind = flash_bound(ql, kl)
+    bms, bkind = flash_bound(qb, kb, vb)
+    lbms, lbkind = flash_bound(ql, kl, vl)
     # the tensor-core kernel, the CUDA-core kernel on the same bf16 inputs
     # (its own entry point, off the path) and the library call, in turns
     turns = {tag: in_turns({
         "tensor_core": lambda q=q, k=k, v=v: ops.flash_attention(q, k, v),
         "cuda_core": lambda q=q, k=k, v=v: flash_attention_simt(q, k, v),
-        "library": sdpa_at(q, k, v)})
+        "library": sdpa_call(q, k, v)})
         for tag, (q, k, v) in (("batch", (qb, kb, vb)),
                                ("long", (ql, kl, vl)))}
     mean = {tag: {n: sum(ms) / len(ms) for n, ms in t.items()}
             for tag, t in turns.items()}
     log(f"lm flash in turns (call ms of each turn): {turns}")
     dev_t = {tag: kernel_times(lambda q=q, k=k, v=v: ops.flash_attention(
-        q, k, v), sdpa_at(q, k, v))
+        q, k, v), sdpa_call(q, k, v))
         for tag, (q, k, v) in (("batch", (qb, kb, vb)),
                                ("long", (ql, kl, vl)))}
     log(f"lm flash device and call ms: {dev_t}")
@@ -2918,9 +3013,9 @@ def lm_path(args, counted, phases) -> dict:
         raise AssertionError(f"flash_attention_simt disagrees with its plain "
                              f"version beyond float32 reordering: max err "
                              f"{float(err32.max())}")
-    sbms, sbkind = flash_bound(q32, k32, F32_OPS_PER_S)
+    sbms, sbkind = flash_bound(q32, k32, v32, F32_OPS_PER_S)
     simt_times = kernel_times(lambda: ops.flash_attention(q32, k32, v32),
-                              sdpa_at(q32, k32, v32))
+                              sdpa_call(q32, k32, v32))
     simt_entry = dict(
         name="flash_attention_simt", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
@@ -2970,6 +3065,322 @@ def lm_path(args, counted, phases) -> dict:
         library="F.scaled_dot_product_attention(is_causal=True), KV heads "
                 "expanded by repeat_interleave outside the timing"),
         simt_entry]
+
+
+def sdpa_call(q, k, v, scale=None):
+    """``scaled_dot_product_attention`` on the flash call's inputs (KV
+    heads expanded outside the call): the library yardstick."""
+    g = q.shape[1] // k.shape[1]
+    ke, ve = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, ke, ve, is_causal=True, scale=scale)
+
+
+def sdpa_backends(q, k, v, scale=None):
+    """The fused ``scaled_dot_product_attention`` backends that take these
+    inputs (each tried alone; a refusal raises RuntimeError), or "none"
+    when only the math backend does."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    took = []
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                sdpa_call(q, k, v, scale)()
+            torch.cuda.synchronize()
+            took.append(backend.name)
+        except RuntimeError:
+            pass
+    return took or ["none: only the math backend"]
+
+
+def flash_at_shape(q, k, v, scale, tag):
+    """The tensor-core kernel on one layer-0 flash call of a suite
+    prefill: held per element to its plain version and its emulation
+    (``tc_check``); device and call ms (``kernel_times``, SDPA beside
+    it); the tensor-core kernel, the CUDA-core kernel on the same bf16
+    inputs and SDPA in turns; the plain version's ms; the bound."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_simt
+    check = tc_check(q, k, v, tag, scale)
+    backends = sdpa_backends(q, k, v, scale)
+    lib = sdpa_call(q, k, v, scale)
+    lib_err = float((lib().float() - ref.flash_attention_ref(
+        q, k, v, causal=True, scale=scale).float()).abs().max())
+    turns = in_turns({
+        "tensor_core": lambda: ops.flash_attention(q, k, v, scale=scale),
+        "cuda_core": lambda: flash_attention_simt(q, k, v, scale=scale),
+        "library": lib})
+    times = kernel_times(lambda: ops.flash_attention(q, k, v, scale=scale),
+                         lib)
+    bms, bkind = flash_bound(q, k, v)
+    return dict(
+        **times, bound_ms=bms, bound_by=bkind,
+        share_of_bound=bms / times["ms"],
+        plain_ms=cuda_time_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=True, scale=scale), min_iters=2),
+        cuda_core_call_ms=sum(turns["cuda_core"]) / len(turns["cuda_core"]),
+        turns_call_ms=turns, check=check,
+        max_abs_err=check["plain"]["max_abs_err"],
+        library_max_abs_err=lib_err, sdpa_backends=backends,
+        scale=scale, shape=check["shape"])
+
+
+def lm_suite(args, counted, phases) -> dict:
+    """Step 8's other models (phases ``lm_8b``, ``lm_phi3``, ``lm_dbrx``,
+    ``lm_deepseek`` and ``lm_deepseek_f32``, after granite-3-2b); returns
+    the flash kernels' entries at their shapes,
+    {kernel: {phase: sub-entry}}."""
+    import importlib
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import error_bound
+    from repro_torch.launch.serve import (check_prefill_against_decode,
+                                          serve_lm)
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(args.seed + 5)
+    shapes = {"flash_attention": {}, "flash_attention_simt": {}}
+
+    def expect(phase, n, kernel="flash_attention"):
+        other = ({"flash_attention", "flash_attention_simt"}
+                 - {kernel}).pop()
+        got = phases[phase][kernel]
+        if got != n or phases[phase][other]:
+            raise AssertionError(f"phase {phase}: {got} {kernel} launches "
+                                 f"and {phases[phase][other]} {other}, "
+                                 f"expected {n} and 0 (one a layer a "
+                                 f"prefill)")
+
+    def gate_config(cfg):
+        """``cfg`` at a capacity factor that drops nothing in the serve
+        prefill's groups or a decode step's (C >= n_g, as the reference's
+        own decode test, ``tests/test_models_lm.py:21-23``)."""
+        gcfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k * 1.001)
+        for n_g in (min(cfg.moe_group_size, SERVE_BATCH * SERVE_PROMPT),
+                    SERVE_BATCH):
+            if moe.capacity(gcfg.moe_cfg, n_g) < n_g:
+                raise AssertionError(f"gate capacity below n_g {n_g}")
+        return gcfg
+
+    def describe(cfg, full_layers):
+        cut = ("" if cfg.n_layers == full_layers else
+               f"; DEPTH CUT from {full_layers} to {cfg.n_layers} layers")
+        kind = ("MoE " if cfg.moe else "") + ("MLA" if cfg.mla else "GQA")
+        return (f"{cfg.name} at full width ({kind}, {cfg.n_layers} layers, "
+                f"d_model {cfg.d_model}, {cfg.n_heads} heads, "
+                f"{cfg.n_kv_heads} KV heads, head_dim {cfg.hd}"
+                + (f", experts {cfg.n_experts} top-{cfg.top_k} shared "
+                   f"{cfg.n_shared} expert d_ff {cfg.moe_d_ff} group "
+                   f"{cfg.moe_group_size} capacity factor "
+                   f"{cfg.capacity_factor}" if cfg.moe else
+                   f", d_ff {cfg.d_ff}")
+                + (f", MLA rank {cfg.kv_lora_rank} q/k "
+                   f"{cfg.qk_nope_dim}+{cfg.qk_rope_dim} v "
+                   f"{cfg.v_head_dim}" if cfg.mla else "")
+                + f", vocab {cfg.vocab}; {cfg.param_count()} parameters, "
+                  f"{torch.cuda.memory_allocated() / 1e9:.2f} GB in "
+                  f"{cfg.dtype}{cut})")
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for phase, module, layers in LM_SUITE:
+        full = importlib.import_module(f"repro_torch.configs.{module}").CONFIG
+        cfg = (full if layers is None
+               else dataclasses.replace(full, n_layers=layers))
+        t = time.perf_counter()
+        params = T.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+        torch.cuda.synchronize()
+        log(f"{phase}: {describe(cfg, full.n_layers)}, random weights from "
+            f"seed {args.seed} drawn on the card in "
+            f"{time.perf_counter() - t:.1f} s")
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                            (LM_BATCH, LM_BATCH_LEN)),
+                               device=dev)
+        prompts = rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))
+        T.prefill(params, toks[:1, :64], cfg)        # first-use set-up
+
+        def run():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            last = T.prefill(params, toks, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if last.shape != (LM_BATCH, 1, cfg.vocab) or not bool(
+                    torch.isfinite(last).all()):
+                raise AssertionError(f"{phase} prefill logits "
+                                     f"{tuple(last.shape)} are malformed "
+                                     f"or not finite")
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            res = serve_lm(cfg, params, prompts, gen_len=SUITE_GEN,
+                           device=dev)
+            return wall, peak, res, torch.cuda.max_memory_allocated() / 1e9
+        pre_s, pre_peak, res, serve_peak = counted(phase, ("flash_attention",),
+                                                   run)
+        expect(phase, 2 * cfg.n_layers)
+        log(f"{phase} prefill {LM_BATCH} x {LM_BATCH_LEN}: {pre_s:.3f} s, "
+            f"{LM_BATCH * LM_BATCH_LEN / pre_s:.1f} tokens/s, peak memory "
+            f"{pre_peak:.2f} GB; serve {SERVE_BATCH} prompts of "
+            f"{SERVE_PROMPT}, {SUITE_GEN} generated: "
+            f"{res.decode_ms_per_step:.3f} ms per generating decode step, "
+            f"{res.generated_tokens_per_s:.1f} generated tokens/s, prompt "
+            f"stepping {res.prompt_s:.3f} s, prefill of the prompts "
+            f"{res.prefill_s:.4f} s, peak memory {serve_peak:.2f} GB; "
+            f"sample {res.generated[0, :8].tolist()}")
+        served = dict(decode_ms_per_step=res.decode_ms_per_step,
+                      generated_tokens_per_s=res.generated_tokens_per_s,
+                      serve_peak_gb=serve_peak)
+        if cfg.moe:
+            with DropCounter() as pre_drops:
+                T.prefill(params, toks, cfg)
+            cache = T.init_cache(cfg, SERVE_BATCH, 1, dev)
+            with DropCounter() as dec_drops:
+                T.decode_step(params, cache, torch.as_tensor(
+                    prompts[:, :1], device=dev), cfg)
+            del cache
+            # the same prompts at a capacity that drops nothing; in bf16 the
+            # two paths' roundings move near-tied gates across the top-k
+            # boundary, which no tolerance covers (the gap and the flips
+            # are logged); the gate then routes every token to every
+            # expert (top_k = E, the softmax weights), where the routing is
+            # continuous, and the float32 phases hold the top-k routing
+            gcfg = gate_config(cfg)
+            with DropCounter() as topk_drops:
+                res_k = counted(f"{phase}_topk", ("flash_attention",),
+                                lambda: serve_lm(gcfg, params, prompts,
+                                                 gen_len=0, device=dev))
+            expect(f"{phase}_topk", cfg.n_layers)
+            flips, pairs = topk_drops.flips(SERVE_BATCH, SERVE_PROMPT,
+                                            cfg.n_layers)
+            all_cfg = gate_config(dataclasses.replace(cfg,
+                                                      top_k=cfg.n_experts))
+            with DropCounter() as gate_drops:
+                res = counted(f"{phase}_gate", ("flash_attention",),
+                              lambda: serve_lm(all_cfg, params, prompts,
+                                               gen_len=0, device=dev))
+            expect(f"{phase}_gate", cfg.n_layers)
+            log(f"{phase}: dropped (token, choice) assignments at the "
+                f"config's capacity factor {cfg.capacity_factor}: "
+                f"{pre_drops.dropped} of {pre_drops.total} "
+                f"({pre_drops.share:.4f}) in the {LM_BATCH} x "
+                f"{LM_BATCH_LEN} prefill, {dec_drops.dropped} of "
+                f"{dec_drops.total} ({dec_drops.share:.4f}) in one decode "
+                f"step; at factor {gcfg.capacity_factor:.4f}: "
+                f"{topk_drops.dropped} of {topk_drops.total} (top-"
+                f"{cfg.top_k}), {gate_drops.dropped} of {gate_drops.total} "
+                f"(top-{cfg.n_experts})")
+            if topk_drops.dropped or gate_drops.dropped:
+                raise AssertionError(f"{phase}: the gate's capacity dropped "
+                                     f"assignments")
+            gap = check_prefill_against_decode(res_k, float("inf"))
+            log(f"{phase}: prefill against stepped decode at top-"
+                f"{cfg.top_k}, not gated: {gap}; (token, "
+                f"layer) pairs whose experts differ between the two paths "
+                f"{flips} of {pairs}; the gate below routes to all "
+                f"{cfg.n_experts} experts")
+        gate = check_prefill_against_decode(res, GATE_REL_TOL[cfg.dtype])
+        log(f"{phase} gate: prefill against stepped decode after token "
+            f"{SERVE_PROMPT}, {cfg.dtype}: {gate}")
+        prof = device_profile(lambda: T.prefill(params, toks, cfg))
+        if prof["device_ops"]:
+            log(f"{phase} device time: prefill {LM_BATCH} x {LM_BATCH_LEN} "
+                f"{prof['device_ms']:.1f} ms on the device in "
+                f"{prof['device_ops']} operations, flash_attention "
+                f"{prof['flash_ms']:.1f} ms of it, busy "
+                f"{prof['device_ms'] / (pre_s * 1e3):.3f} of the "
+                f"unprofiled {pre_s * 1e3:.1f} ms")
+        else:
+            log(f"{phase} device time: not measured, the profiler kept no "
+                f"device record")
+        with Recorder(ops, ("flash_attention",), stop_after=1) as rec:
+            T.prefill(params, toks, cfg)
+        call = rec.calls["flash_attention"][0]
+        q, k, v = call[0][:3]
+        scale = arg(call, 4, "scale")
+        del params, rec, call, res
+        free()
+        sub = flash_at_shape(q, k, v, scale, phase)
+        sub.update(launches=phases[phase]["flash_attention"],
+                   prefill_s=pre_s, prefill_peak_gb=pre_peak, **served,
+                   prefill_device_ms=prof["device_ms"] or None,
+                   gate=gate, layers=cfg.n_layers,
+                   full_layers=full.n_layers)
+        shapes["flash_attention"][phase] = sub
+        log(f"kernel flash_attention at the {phase} shape: {sub}")
+        del q, k, v
+        free()
+
+    # -- the MoE models in float32: the top-k routing and the CUDA-core
+    #    kernel at their shapes --------------------------------------------
+    for phase, module, layers in LM_SUITE_F32:
+        full = importlib.import_module(f"repro_torch.configs.{module}").CONFIG
+        cfg32 = gate_config(dataclasses.replace(full, n_layers=layers,
+                                                dtype="float32"))
+        params32 = T.init_params(
+            cfg32, torch.Generator(device=dev).manual_seed(args.seed), dev)
+        log(f"{phase}: {describe(cfg32, full.n_layers)}, the gate's "
+            f"capacity factor")
+        prompts = rng.integers(0, cfg32.vocab, (SERVE_BATCH, SERVE_PROMPT))
+        with Recorder(ops, ("flash_attention",)) as rec32, \
+                DropCounter() as drops32:
+            res32 = counted(phase, ("flash_attention_simt",),
+                            lambda: serve_lm(cfg32, params32, prompts,
+                                             gen_len=0, device=dev))
+        expect(phase, cfg32.n_layers, "flash_attention_simt")
+        if drops32.dropped:
+            raise AssertionError(f"{phase}: the gate's capacity dropped "
+                                 f"{drops32.dropped} assignments")
+        flips, pairs = drops32.flips(SERVE_BATCH, SERVE_PROMPT,
+                                     cfg32.n_layers)
+        gate32 = check_prefill_against_decode(res32, GATE_REL_TOL["float32"])
+        log(f"{phase}: prefill of {SERVE_BATCH} x {SERVE_PROMPT} "
+            f"{res32.prefill_s:.4f} s, prompt stepping {res32.prompt_s:.3f} "
+            f"s; (token, layer) pairs whose top-{cfg32.top_k} experts differ "
+            f"between the two paths {flips} of {pairs}; gate: {gate32}")
+        call = rec32.calls["flash_attention"][0]
+        q32, k32, v32 = call[0][:3]
+        scale = arg(call, 4, "scale")
+        del params32, rec32, call, res32
+        free()
+        kern32 = ops.flash_attention(q32, k32, v32, causal=True, scale=scale)
+        plain32 = ref.flash_attention_ref(q32, k32, v32, causal=True,
+                                          scale=scale)
+        err32 = (kern32 - plain32).abs()
+        if not bool((err32 <= error_bound(kern32, plain32, v32)).all()):
+            raise AssertionError(f"flash_attention_simt at the {phase} shape "
+                                 f"disagrees with its plain version beyond "
+                                 f"float32 reordering: max err "
+                                 f"{float(err32.max())}")
+        bms, bkind = flash_bound(q32, k32, v32, F32_OPS_PER_S)
+        times = kernel_times(lambda: ops.flash_attention(q32, k32, v32,
+                                                         scale=scale),
+                             sdpa_call(q32, k32, v32, scale))
+        sub = dict(**times, bound_ms=bms, bound_by=bkind,
+                   share_of_bound=bms / times["ms"],
+                   plain_ms=cuda_time_ms(lambda: ref.flash_attention_ref(
+                       q32, k32, v32, causal=True, scale=scale)),
+                   max_abs_err=float(err32.max()),
+                   launches=phases[phase]["flash_attention_simt"],
+                   sdpa_backends=sdpa_backends(q32, k32, v32, scale),
+                   gate=gate32, routing_flips=[flips, pairs],
+                   layers=cfg32.n_layers, full_layers=full.n_layers,
+                   shape=f"q {tuple(q32.shape)} k {tuple(k32.shape)} v "
+                         f"{tuple(v32.shape)} float32 causal (layer 0 of "
+                         f"the float32 gate's prefill of {SERVE_BATCH} x "
+                         f"{SERVE_PROMPT})")
+        shapes["flash_attention_simt"][phase] = sub
+        log(f"kernel flash_attention_simt at the {phase} shape: {sub}")
+        del q32, k32, v32, kern32, plain32, err32
+        free()
+    return shapes
 
 
 def main() -> int:
@@ -3050,6 +3461,17 @@ def main() -> int:
         if e["name"] in shapes:
             e["stream_shape"] = shapes[e["name"]]
     entries.extend(lm_path(args, counted, phases))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    suite = lm_suite(args, counted, phases)
+    log(f"LM suite phases: {time.perf_counter() - t:.1f} s")
+    for e in entries:
+        if e["name"] in suite:
+            e["suite_shapes"] = suite[e["name"]]
+            e.setdefault("launches_by_phase", {}).update(
+                {p: c[e["name"]] for p, c in phases.items()
+                 if p.startswith("lm_")})
 
     for e in entries:
         log(f"kernel {e['name']}: device ms {e['ms']:.4f} call ms "
@@ -3064,7 +3486,8 @@ def main() -> int:
             f"{e.get('device_source')} (library {e.get('library_source')}),"
             f" by events alone {e.get('events_ms')} ms")
         for extra in ("query_shape", "sequential_shape", "long_shape",
-                      "engine_shapes", "stream_shape", "fleet_shapes"):
+                      "engine_shapes", "stream_shape", "fleet_shapes",
+                      "suite_shapes"):
             if extra in e:
                 log(f"kernel {e['name']} at the {extra.split('_')[0]} shape: "
                     f"{e[extra]}")

@@ -128,9 +128,11 @@ def _lm_leaf(a, dev) -> torch.Tensor:
 def lm_params_from_arrays(arrays: Mapping, cfg, device=None) -> dict:
     """The port's LM parameter dict on ``device`` (CUDA unless the caller
     asks for the CPU) from the reference's parameter pytree with numpy
-    leaves (``{"embed", "head", "ln_f", "layers": {...}}``).  The layouts
-    are the same; names, shapes and the dtype are checked against
-    ``cfg`` (a ``repro_torch`` ``LMConfig``)."""
+    leaves (``{"embed", "head", "ln_f", "layers": {...}}``), dense, MoE
+    or MLA.  The layouts are the same; names and shapes are checked
+    against ``cfg`` (a ``repro_torch`` ``LMConfig``), and each leaf's
+    dtype against ``transformer.param_dtype`` (the float32 MoE router
+    beside bf16 weights)."""
     dev = ops.resolve_device(device)
     shapes = transformer.param_shapes(cfg)
     flat = transformer.flatten(arrays)
@@ -140,8 +142,9 @@ def lm_params_from_arrays(arrays: Mapping, cfg, device=None) -> dict:
     out = {}
     for path, shape in shapes.items():
         t = _lm_leaf(flat[path], dev)
-        if tuple(t.shape) != shape or t.dtype != cfg.torch_dtype:
+        dt = transformer.param_dtype(cfg, path)
+        if tuple(t.shape) != shape or t.dtype != dt:
             raise ValueError(f"LM array {path}: {tuple(t.shape)} {t.dtype}, "
-                             f"the config implies {shape} {cfg.torch_dtype}")
+                             f"the config implies {shape} {dt}")
         out[path] = t
     return transformer.unflatten(out)

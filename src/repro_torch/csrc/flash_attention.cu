@@ -4,8 +4,8 @@
 // (grid (B*H, S / q_block), the head's whole K/V row resident in VMEM, a
 // fori_loop over KV blocks carrying the running max, sum and accumulator).
 //
-//   q (B, H, S, D), k/v (B, Hk, T, D), H % Hk == 0, f32 or bf16
-//     ->  o (B, H, S, D) in q's type
+//   q (B, H, S, D), k (B, Hk, T, D), v (B, Hk, T, Dv), H % Hk == 0,
+//   f32 or bf16  ->  o (B, H, S, Dv) in q's type
 //   o[b, h, i] = softmax_j(scale * q[b, h, i] . k[b, h / g, j]) v[b, h / g, j]
 //   with g = H / Hk (query head h reads KV head h / g, as jnp.repeat of the
 //   KV heads gives) and, when causal, only keys j <= i, query positions
@@ -20,17 +20,24 @@
 // the diagonal (or the end of T) are masked elementwise, and the query
 // tiles with the most keys are started first.
 //
-// Bound on the H100: operations.  The work is 4*B*H*S*T*D (two products
-// of 2*S*T*D each), halved under causal masking; at the granite-3-2b
-// prefill of 1 x 32,768 tokens (H = 32, D = 64) that is 4.4e12 a layer,
-// 4.45 ms at the 989 TFLOP/s of the bf16 tensor cores.  The bytes (q, k,
-// v read once, o written once) are 0.27 GB, 0.08 ms at 3.35 TB/s.
+// The Q/K head dim D and the V head dim Dv may differ: the MLA prefill
+// of deepseek-v2-lite attends with D = 128 + 64 (the rope part of the
+// key shared by every head) and Dv = 128.  D goes up to MAX_D = 192, Dv
+// up to MAX_DV = 128; the dense models have D = Dv = 64, 96 or 128.
+//
+// Bound on the H100: operations.  The work is 2*B*H*S*T*(D + Dv) (the
+// products S = Q K^T and P V), halved under causal masking; at the
+// granite-3-2b prefill of 1 x 32,768 tokens (H = 32, D = Dv = 64) that
+// is 4.4e12 a layer, 4.45 ms at the 989 TFLOP/s of the bf16 tensor
+// cores.  The bytes (q, k, v read once, o written once) are 0.27 GB,
+// 0.08 ms at 3.35 TB/s.
 //
 // Which kernel runs is a written rule of the wrapper
 // (kernels/flash_attention.py::takes_tensor_cores), never a fallback:
 //
 // 1. flash_attention_tc_kernel: bf16 inputs with D a multiple of 8 up to
-//    128, 16-byte-aligned base pointers and (b, h, s) strides, and a
+//    192 and Dv one up to 128, 16-byte-aligned base pointers and (b, h,
+//    s) strides, and a
 //    positive scale (folded into the exponent after the row max).  It puts
 //    both products on the tensor cores through wgmma, which is the only
 //    way to the 989 TFLOP/s the bound is counted at.  A block is three
@@ -42,9 +49,11 @@
 //    map over (D, L, heads, B) built from the strides, mbarrier
 //    completion, 128-byte swizzle), so the next tiles land while the
 //    current one is computed; TMA's out-of-bounds zero fill pads ragged S
-//    and T tiles and the head dim up to 64 or 128 columns.  Each consumer
-//    warpgroup runs S = Q K^T as wgmma m64nBNk16 (Q and K both K-major in
-//    shared memory, float32 accumulator) and O += P V as wgmma m64nDk16
+//    and T tiles and the head dims up to the instance's tile widths (DQ,
+//    DV) = (64, 64), (128, 128) or (192, 128).  Each consumer warpgroup
+//    runs S = Q K^T as wgmma m64nBNk16 over DQ / 16 steps (Q and K both
+//    K-major in shared memory, float32 accumulator) and O += P V as wgmma
+//    m64nDVk16
 //    with P as the A operand from registers (the S accumulator's fragment
 //    layout is the A-register layout, so P is converted to bf16 in place)
 //    and V from shared memory read transposed (tnspB).  The online
@@ -81,12 +90,14 @@
 //    keeps several warps on each sub-partition and each warp's chain short:
 //    * A block is 64 query rows of one head, 4 warps of 16 rows.  A thread
 //      owns 4 rows (tr + 4 i of its warp) and 8 keys (tc + 8 j of a 64-key
-//      tile) of the logits, and the same rows by 4 * D / 32 output
+//      tile) of the logits, and the same rows by 4 * DV / 32 output
 //      columns: register micro-tiles read with 16-byte shared loads (D
 //      four at a time in S = Q K^T; 4 keys at a time in P V), 1.5 bytes of
-//      shared memory a FFMA.  Rows of Q, K and V are padded to D + 4
-//      floats, so the 16-byte loads of 4 consecutive rows (Q) or 8 (K) or
-//      of one row's 8 chunks (V) fall in distinct bank groups.
+//      shared memory a FFMA.  The tiles are DQ = the larger head dim
+//      rounded up to 32 columns (Q, K) and DV = min(DQ, 128) (V); rows are
+//      padded to DQ + 4 or DV + 4 floats, so the 16-byte loads of 4
+//      consecutive rows (Q) or 8 (K) or of one row's 8 chunks (V) fall in
+//      distinct bank groups.
 //    * One stage of K and V, filled by cp.async 16-byte copies (float32
 //      inputs whose base pointers, (b, h, s) strides and D are 16-byte
 //      multiples; everything else, bf16 or odd views, by plain loads that
@@ -98,7 +109,8 @@
 //      set the residency: 12 warps a SM, and every block of the gate's
 //      layer (512 of them, the heaviest query tiles first) on the card at
 //      once.  A second K/V stage would hold 2 blocks a SM, and the next
-//      tile lands under the other blocks' compute instead.
+//      tile lands under the other blocks' compute instead.  At (DQ, DV) =
+//      (192, 128), the MLA shape, a block takes 131 KB and a SM holds one.
 //    * The causal diagonal is cut in the warp's own row span: tiles past it
 //      are not visited; in the tile that crosses it the 16-key sub-blocks
 //      past it are never read, and on the diagonal sub-block (keys
@@ -126,7 +138,8 @@ struct Strides {
   long long b, h, s;   // elements; the head-dim axis is contiguous
 };
 
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 192;    // the Q/K head dim
+constexpr int MAX_DV = 128;   // the V head dim
 
 }  // namespace
 
@@ -139,11 +152,14 @@ constexpr int BN = 64;         // keys a tile: 8 groups of 8
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// DP: the head dim rounded up to a multiple of 32 (columns D..DP-1 are
-// zero in the shared tiles and never stored)
-template <int DP>
+// DQ: the larger of the two head dims rounded up to a multiple of 32, the
+// width of the Q and K tiles; DV = min(DQ, MAX_DV), the V tile's (columns
+// past D or Dv are zero in the shared tiles and never stored)
+template <int DQ_, int DV_>
 struct Cfg {
-  static_assert(DP % 32 == 0 && DP <= MAX_D, "head-dim tile");
+  static constexpr int DQ = DQ_, DV = DV_;
+  static_assert(DQ % 32 == 0 && DQ <= MAX_D &&
+                DV == (DQ < MAX_DV ? DQ : MAX_DV), "head-dim tiles");
   static constexpr int MR = 4;                  // query rows a thread
   static constexpr int WR = 4 * MR;             // query rows a warp
   static constexpr int WARPS = BM / WR;
@@ -151,21 +167,25 @@ struct Cfg {
   static constexpr int GPS = WR / 8;            // key groups a sub-block
   static constexpr int SB = BN / WR;            // WR-key sub-blocks a tile
   static_assert(SB == 4, "logits() has a case for each sub-block");
-  static constexpr int LD = DP + 4;             // floats a Q, K or V row
-  static constexpr int NC = DP / 32;            // 4-column O chunks a thread
+  static constexpr int LD = DQ + 4;             // floats a Q or K row
+  static constexpr int LDV = DV + 4;            // floats a V row
+  static constexpr int NC = DV / 32;            // 4-column O chunks a thread
   static constexpr int Q_FLOATS = BM * LD;
-  static constexpr int KV_FLOATS = BN * LD;
+  static constexpr int K_FLOATS = BN * LD;
+  static constexpr int V_FLOATS = BN * LDV;
   // P takes the K tile's place once every warp has its logits, where a
   // 64-key row fits in a K row; otherwise a region of its own
   static constexpr bool P_IN_K = LD >= BN + 4;
   static constexpr int LDP = P_IN_K ? LD : BN + 8;   // floats a P row
   static constexpr int SMEM = static_cast<int>(sizeof(float)) *
-                              (Q_FLOATS + 2 * KV_FLOATS +
+                              (Q_FLOATS + K_FLOATS + V_FLOATS +
                                (P_IN_K ? 0 : BM * LDP));
+  static_assert(SMEM <= 232448, "shared memory of a block");
   // blocks a SM asked of ptxas's register allocation: 3 at D <= 64 (168
-  // registers a thread; 4, which shared memory would allow, spills), 2
-  // above, where shared memory holds 2
-  static constexpr int MIN_BLOCKS = SMEM <= 56 * 1024 ? 3 : 2;
+  // registers a thread; 4, which shared memory would allow, spills), else
+  // as many as shared memory holds (2 up to DQ 128, 1 above)
+  static constexpr int MIN_BLOCKS =
+      SMEM <= 56 * 1024 ? 3 : SMEM <= 113 * 1024 ? 2 : 1;
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -199,24 +219,24 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // rows r0 .. r0 + ROWS - 1 of one head (row stride ss, D columns) into a
-// ROWS x LD float tile; rows >= L and columns >= D become zero
-template <typename T, int DP, int ROWS, bool ASYNC>
+// ROWS x W float tile whose rows are LDW floats apart; rows >= L and
+// columns >= D become zero
+template <typename T, class C, int W, int LDW, int ROWS, bool ASYNC>
 __device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
                                           int L, long long ss, int D) {
-  using C = Cfg<DP>;
   if constexpr (ASYNC) {
-    constexpr int CH = DP / 4;
+    constexpr int CH = W / 4;
     for (int i = threadIdx.x; i < ROWS * CH; i += C::THREADS) {
       const int r = i / CH, c = (i - r * CH) * 4;
       const bool ok = r0 + r < L && c < D;
-      cp_async16(dst + r * C::LD + c, ok ? src + (r0 + r) * ss + c : src, ok);
+      cp_async16(dst + r * LDW + c, ok ? src + (r0 + r) * ss + c : src, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < ROWS * DP; i += C::THREADS) {
-      const int r = i / DP, c = i - r * DP;
+    for (int i = threadIdx.x; i < ROWS * W; i += C::THREADS) {
+      const int r = i / W, c = i - r * W;
       float x = 0.0f;
       if (r0 + r < L && c < D) x = to_float(src[(r0 + r) * ss + c]);
-      dst[r * C::LD + c] = x;
+      dst[r * LDW + c] = x;
     }
   }
 }
@@ -225,9 +245,9 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
 // a row of the group sees?  Always outside the diagonal (TRI < 0); on the
 // diagonal sub-block TRI only where 8 jj <= 4 i + 3 (jj = j - TRI * GPS);
 // never past it.
-template <int DP, int TRI>
+template <class C, int TRI>
 __host__ __device__ constexpr bool active(int i, int j) {
-  constexpr int G = Cfg<DP>::GPS;
+  constexpr int G = C::GPS;
   return TRI < 0 || j / G < TRI ||
          (j / G == TRI && 8 * (j - TRI * G) <= 4 * i + 3);
 }
@@ -235,12 +255,11 @@ __host__ __device__ constexpr bool active(int i, int j) {
 // S = Q K^T of one 64-key tile on the thread's active pairs (the only
 // part specialised by TRI: the products are where the diagonal's skipped
 // pairs save time; the rest of the tile is one copy of code)
-template <int DP, int TRI>
+template <class C, int TRI>
 __device__ __forceinline__ void tile_logits(
     const float* __restrict__ Qw, const float* __restrict__ Kt, int tr,
-    int tc, float (&s)[Cfg<DP>::MR][8]) {
-  using C = Cfg<DP>;
-  constexpr int MR = C::MR, LD = C::LD;
+    int tc, float (&s)[C::MR][8]) {
+  constexpr int MR = C::MR, LD = C::LD, DP = C::DQ;
   constexpr int JN = TRI < 0 ? 8 : (TRI + 1) * C::GPS;   // groups touched
 #pragma unroll 1
   for (int d = 0; d < DP; d += 4) {
@@ -261,7 +280,7 @@ __device__ __forceinline__ void tile_logits(
       for (int c = 0; c < 4; ++c)
 #pragma unroll
         for (int j = 0; j < JN; ++j)
-          if (active<DP, TRI>(i, j))
+          if (active<C, TRI>(i, j))
             s[i][j] = fmaf(lane4(qf[i], c), lane4(kf[j], c), s[i][j]);
   }
 }
@@ -278,35 +297,33 @@ __device__ __forceinline__ float fast_exp2(float x) {
 // diagonal sub-block in this tile, or -1.  Key groups past it are never
 // read (masked for every row of the warp), and the pairs that active()
 // skips are masked by causality, so the softmax needs no other test.
-template <int DP>
+template <class C>
 __device__ __forceinline__ void logits(const float* __restrict__ Qw,
                                        const float* __restrict__ Kt, int tr,
                                        int tc, int tri,
-                                       float (&s)[Cfg<DP>::MR][8]) {
-  using C = Cfg<DP>;
+                                       float (&s)[C::MR][8]) {
 #pragma unroll
   for (int i = 0; i < C::MR; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
   switch (tri) {
-    case -1: tile_logits<DP, -1>(Qw, Kt, tr, tc, s); break;
-    case 0: tile_logits<DP, 0>(Qw, Kt, tr, tc, s); break;
-    case 1: tile_logits<DP, 1>(Qw, Kt, tr, tc, s); break;
-    case 2: tile_logits<DP, 2>(Qw, Kt, tr, tc, s); break;
-    case 3: tile_logits<DP, 3>(Qw, Kt, tr, tc, s); break;
+    case -1: tile_logits<C, -1>(Qw, Kt, tr, tc, s); break;
+    case 0: tile_logits<C, 0>(Qw, Kt, tr, tc, s); break;
+    case 1: tile_logits<C, 1>(Qw, Kt, tr, tc, s); break;
+    case 2: tile_logits<C, 2>(Qw, Kt, tr, tc, s); break;
+    case 3: tile_logits<C, 3>(Qw, Kt, tr, tc, s); break;
   }
 }
 
 // The online softmax of the tile's logits, P to the warp's shared rows,
 // O += P V.
-template <int DP>
+template <class C>
 __device__ __forceinline__ void softmax_pv(
-    float (&s)[Cfg<DP>::MR][8], const float* __restrict__ Vt,
+    float (&s)[C::MR][8], const float* __restrict__ Vt,
     float* __restrict__ Pw, int tr, int tc, int wq0, int k0, int Tk,
-    int causal, int tri, float (&m)[Cfg<DP>::MR], float (&l)[Cfg<DP>::MR],
-    float (&acc)[Cfg<DP>::MR][4 * Cfg<DP>::NC]) {
-  using C = Cfg<DP>;
-  constexpr int MR = C::MR, LD = C::LD, LDP = C::LDP, NC = C::NC;
+    int causal, int tri, float (&m)[C::MR], float (&l)[C::MR],
+    float (&acc)[C::MR][4 * C::NC]) {
+  constexpr int MR = C::MR, LDV = C::LDV, LDP = C::LDP, NC = C::NC;
   const int jn = tri < 0 ? 8 : (tri + 1) * C::GPS;      // groups touched
 #pragma unroll
   for (int i = 0; i < MR; ++i) {
@@ -353,7 +370,7 @@ __device__ __forceinline__ void softmax_pv(
 #pragma unroll
         for (int u = 0; u < NC; ++u)
           vv[e][u] = *reinterpret_cast<const float4*>(
-              Vt + (c0 + e) * LD + 32 * u + 4 * tc);
+              Vt + (c0 + e) * LDV + 32 * u + 4 * tc);
 #pragma unroll
       for (int i = 0; i < MR; ++i)
         pp[i] = *reinterpret_cast<const float4*>(Pw + (tr + 4 * i) * LDP + c0);
@@ -373,20 +390,21 @@ __device__ __forceinline__ void softmax_pv(
   }
 }
 
-template <typename T, int DP, bool ASYNC>
-__global__ void __launch_bounds__(Cfg<DP>::THREADS, Cfg<DP>::MIN_BLOCKS)
+template <typename T, int DQ, int DV, bool ASYNC>
+__global__ void __launch_bounds__(Cfg<DQ, DV>::THREADS,
+                                  Cfg<DQ, DV>::MIN_BLOCKS)
 flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, T* __restrict__ o,
-                            int H, int group, int S, int Tk, int D,
+                            int H, int group, int S, int Tk, int D, int Dv,
                             Strides sq, Strides sk, Strides sv, Strides so,
                             float scale, int causal) {
-  using C = Cfg<DP>;
+  using C = Cfg<DQ, DV>;
   constexpr int MR = C::MR, NC = C::NC, LD = C::LD;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                               // BM x LD, scaled
   float* Ks = Qs + C::Q_FLOATS;                   // BN x LD, then P
-  float* Vs = Ks + C::KV_FLOATS;                  // BN x LD
-  float* Ps = C::P_IN_K ? Ks : Vs + C::KV_FLOATS;
+  float* Vs = Ks + C::K_FLOATS;                   // BN x LDV
+  float* Ps = C::P_IN_K ? Ks : Vs + C::V_FLOATS;
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H, hk = h / group;
@@ -404,7 +422,7 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int w_end = wq0 >= S ? 0 : causal ? min(Tk, wq0 + C::WR) : Tk;
   const int ntiles = (kv_end + BN - 1) / BN;
 
-  load_rows<T, DP, BM, ASYNC>(Qs, qp, q0, S, sq.s, D);
+  load_rows<T, C, DQ, LD, BM, ASYNC>(Qs, qp, q0, S, sq.s, D);
   float m[MR], l[MR], acc[MR][4 * NC];
 #pragma unroll
   for (int i = 0; i < MR; ++i) {
@@ -417,8 +435,8 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < ntiles; ++t) {
     // the tile's K and V (the slots were freed by the last barrier); the
     // first comes with Q
-    load_rows<T, DP, BN, ASYNC>(Ks, kp, t * BN, Tk, sk.s, D);
-    load_rows<T, DP, BN, ASYNC>(Vs, vp, t * BN, Tk, sv.s, D);
+    load_rows<T, C, DQ, LD, BN, ASYNC>(Ks, kp, t * BN, Tk, sk.s, D);
+    load_rows<T, C, DV, C::LDV, BN, ASYNC>(Vs, vp, t * BN, Tk, sv.s, Dv);
     if constexpr (ASYNC) {
       cp_async_commit();
       cp_async_wait<0>();
@@ -426,8 +444,8 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     if (t == 0) {   // fold scale * log2(e) into Q once
       const float c = scale * LOG2E;
-      for (int i = threadIdx.x; i < BM * DP; i += C::THREADS) {
-        const int r = i / DP, d = i - r * DP;
+      for (int i = threadIdx.x; i < BM * DQ; i += C::THREADS) {
+        const int r = i / DQ, d = i - r * DQ;
         Qs[r * LD + d] *= c;
       }
       __syncthreads();
@@ -437,10 +455,10 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // the sub-block of this tile on the warp's diagonal, or -1
     const int tri = causal && k0 + BN - 1 > wq0 ? (wq0 - k0) / C::WR : -1;
     float s[MR][8];
-    if (busy) logits<DP>(Qs + warp * C::WR * LD, Ks, tr, tc, tri, s);
+    if (busy) logits<C>(Qs + warp * C::WR * LD, Ks, tr, tc, tri, s);
     if (C::P_IN_K) __syncthreads();   // every warp is done with K: P may land
     if (busy)
-      softmax_pv<DP>(s, Vs, Ps + warp * C::WR * C::LDP, tr, tc, wq0, k0, Tk,
+      softmax_pv<C>(s, Vs, Ps + warp * C::WR * C::LDP, tr, tc, wq0, k0, Tk,
                      causal, tri, m, l, acc);
     __syncthreads();   // K, V and P are consumed
   }
@@ -460,17 +478,17 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = 32 * u + 4 * tc + e;
-        if (d < D) store(orow + d, acc[i][4 * u + e] * inv);
+        if (d < Dv) store(orow + d, acc[i][4 * u + e] * inv);
       }
   }
 }
 
-template <typename T, int DP, bool ASYNC>
+template <typename T, int DQ, int DV, bool ASYNC>
 int launch_cfg(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int Hk, int S, int Tk, int D, const Strides* st,
+               int H, int Hk, int S, int Tk, int D, int Dv, const Strides* st,
                float scale, int causal, cudaStream_t stream) {
-  using C = Cfg<DP>;
-  auto kernel = flash_attention_simt_kernel<T, DP, ASYNC>;
+  using C = Cfg<DQ, DV>;
+  auto kernel = flash_attention_simt_kernel<T, DQ, DV, ASYNC>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e == cudaSuccess)
@@ -481,32 +499,34 @@ int launch_cfg(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(B * H, (S + BM - 1) / BM);
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, H / Hk, S, Tk, D,
+      static_cast<const T*>(v), static_cast<T*>(o), H, H / Hk, S, Tk, D, Dv,
       st[0], st[1], st[2], st[3], scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DP>
-int launch_dp(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int Hk, int S, int Tk, int D, const Strides* st,
+template <typename T, int DQ>
+int launch_dq(const void* q, const void* k, const void* v, void* o, int B,
+              int H, int Hk, int S, int Tk, int D, int Dv, const Strides* st,
               float scale, int causal, bool async, cudaStream_t stream) {
+  constexpr int DV = DQ < MAX_DV ? DQ : MAX_DV;
   if constexpr (sizeof(T) == 4) {
     if (async)
-      return launch_cfg<T, DP, true>(q, k, v, o, B, H, Hk, S, Tk, D, st,
-                                     scale, causal, stream);
+      return launch_cfg<T, DQ, DV, true>(q, k, v, o, B, H, Hk, S, Tk, D, Dv,
+                                         st, scale, causal, stream);
   }
-  return launch_cfg<T, DP, false>(q, k, v, o, B, H, Hk, S, Tk, D, st, scale,
-                                  causal, stream);
+  return launch_cfg<T, DQ, DV, false>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st,
+                                      scale, causal, stream);
 }
 
 // float32 rows that cp.async can copy 16 bytes at a time: base pointers,
-// D and every (b, h, s) stride of an axis longer than 1 in 16-byte units
+// D, Dv and every (b, h, s) stride of an axis longer than 1 in 16-byte
+// units
 inline bool copies_async(const void* const* ptrs, const Strides* st, int B,
-                         int H, int Hk, int S, int Tk, int D) {
+                         int H, int Hk, int S, int Tk, int D, int Dv) {
   auto fits = [](long long stride, int extent) {
     return extent == 1 || stride % 4 == 0;
   };
-  if (D % 4) return false;
+  if (D % 4 || Dv % 4) return false;
   const int ext[3][3] = {{B, H, S}, {B, Hk, Tk}, {B, Hk, Tk}};
   for (int i = 0; i < 3; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 ||
@@ -516,24 +536,32 @@ inline bool copies_async(const void* const* ptrs, const Strides* st, int B,
   return true;
 }
 
+// the Q/K tile: the larger head dim rounded up to a multiple of 32
 template <typename T>
 int launch_t(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int Hk, int S, int Tk, int D, const Strides* st,
+             int H, int Hk, int S, int Tk, int D, int Dv, const Strides* st,
              float scale, int causal, cudaStream_t stream) {
   const void* ptrs[3] = {q, k, v};
   const bool async =
-      sizeof(T) == 4 && copies_async(ptrs, st, B, H, Hk, S, Tk, D);
-  if (D <= 32)
-    return launch_dp<T, 32>(q, k, v, o, B, H, Hk, S, Tk, D, st, scale,
+      sizeof(T) == 4 && copies_async(ptrs, st, B, H, Hk, S, Tk, D, Dv);
+  const int w = D > Dv ? D : Dv;
+  if (w <= 32)
+    return launch_dq<T, 32>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st, scale,
                             causal, async, stream);
-  if (D <= 64)
-    return launch_dp<T, 64>(q, k, v, o, B, H, Hk, S, Tk, D, st, scale,
+  if (w <= 64)
+    return launch_dq<T, 64>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st, scale,
                             causal, async, stream);
-  if (D <= 96)
-    return launch_dp<T, 96>(q, k, v, o, B, H, Hk, S, Tk, D, st, scale,
+  if (w <= 96)
+    return launch_dq<T, 96>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st, scale,
                             causal, async, stream);
-  return launch_dp<T, 128>(q, k, v, o, B, H, Hk, S, Tk, D, st, scale, causal,
-                           async, stream);
+  if (w <= 128)
+    return launch_dq<T, 128>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st, scale,
+                             causal, async, stream);
+  if (w <= 160)
+    return launch_dq<T, 160>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st, scale,
+                             causal, async, stream);
+  return launch_dq<T, 192>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st, scale,
+                           causal, async, stream);
 }
 
 }  // namespace simt
@@ -556,18 +584,27 @@ constexpr int CHUNK = 64;                // bf16 columns in a 128-byte row
 constexpr int ROW = 128;                 // bytes of a swizzled row
 constexpr float LOG2E = 1.4426950408889634f;
 
-// DP: the head dim rounded up to 64 or 128 (TMA fills the rest with 0);
-// BN: keys per tile.  Shared memory holds Q (NCH chunks of BM rows) and
-// STAGES stages of K and V (NCH chunks of BN rows each), every chunk a
-// [rows][64] bf16 tile in the 128-byte swizzle, 1024-byte aligned.
-template <int DP>
+// DQ, DV: the tile widths of Q/K and of V, the head dims rounded up to
+// (64, 64), (128, 128) or (192, 128) (TMA fills the rest with 0); BN: keys
+// per tile.  Shared memory holds Q (NQ chunks of BM rows) and STAGES
+// stages of K (NQ chunks of BN rows) and V (NV chunks of BN rows), every
+// chunk a [rows][64] bf16 tile in the 128-byte swizzle, 1024-byte
+// aligned.  At (192, 128): 73,728 bytes of Q and three stages of 24,576 +
+// 16,384, 197,712 bytes in all.
+template <int DQ, int DV>
 struct Cfg {
-  static constexpr int BN = DP == 64 ? 128 : 64;
-  static constexpr int NCH = DP / CHUNK;
-  static constexpr int Q_BYTES = NCH * BM * ROW;
-  static constexpr int KV_BYTES = NCH * BN * ROW;       // K or V, one stage
+  static_assert(DQ % CHUNK == 0 && DV % CHUNK == 0 && DV <= DQ &&
+                DQ <= MAX_D && DV <= MAX_DV, "head-dim tiles");
+  static constexpr int BN = DQ == 64 ? 128 : 64;
+  static constexpr int NQ = DQ / CHUNK;
+  static constexpr int NV = DV / CHUNK;
+  static constexpr int Q_BYTES = NQ * BM * ROW;
+  static constexpr int K_BYTES = NQ * BN * ROW;         // one stage
+  static constexpr int V_BYTES = NV * BN * ROW;         // one stage
   static constexpr int BARS = 1 + 3 * STAGES;           // q, k, v, empty
-  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARS;
+  static constexpr int SMEM =
+      1024 + Q_BYTES + STAGES * (K_BYTES + V_BYTES) + 8 * BARS;
+  static_assert(SMEM <= 232448, "shared memory of a block");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -774,21 +811,21 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
 // scale > 0 (the launcher refuses any other): the row max of the raw
 // logits is the max of the scaled ones, so the logits and m stay raw and
 // the scale folds into one FFMA with the subtraction
-template <int DP>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           __nv_bfloat16* __restrict__ o, Strides so, int H,
-                          int group, int S, int Tk, int D, float scale_log2,
+                          int group, int S, int Tk, int Dv, float scale_log2,
                           int causal) {
-  using C = Cfg<DP>;
-  constexpr int BN = C::BN, NCH = C::NCH;
+  using C = Cfg<DQ, DV>;
+  constexpr int BN = C::BN, NQ = C::NQ, NV = C::NV;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sk = sq + C::Q_BYTES;                  // + stage * KV_BYTES
-  const uint32_t sv = sk + STAGES * C::KV_BYTES;
-  const uint32_t bars = sv + STAGES * C::KV_BYTES;
+  const uint32_t sk = sq + C::Q_BYTES;                  // + stage * K_BYTES
+  const uint32_t sv = sk + STAGES * C::K_BYTES;         // + stage * V_BYTES
+  const uint32_t bars = sv + STAGES * C::V_BYTES;
   const uint32_t bar_q = bars;
   // full barriers of the K and V stages, and the stage's empty barrier
   auto bar_k = [&](int s) { return bars + 8u * (1 + s); };
@@ -820,17 +857,17 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (warp == 4 * WG && lane == 0) {
       mbar_expect_tx(bar_q, C::Q_BYTES);
-      for (int c = 0; c < NCH; ++c)
+      for (int c = 0; c < NQ; ++c)
         tma_load(sq + c * BM * ROW, &tq, bar_q, c * CHUNK, q0, h, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % STAGES;
         if (j >= STAGES) mbar_wait(bar_e(s), ((j / STAGES) - 1) & 1);
-        const uint32_t kd = sk + s * C::KV_BYTES, vd = sv + s * C::KV_BYTES;
-        mbar_expect_tx(bar_k(s), C::KV_BYTES);
-        for (int c = 0; c < NCH; ++c)
+        const uint32_t kd = sk + s * C::K_BYTES, vd = sv + s * C::V_BYTES;
+        mbar_expect_tx(bar_k(s), C::K_BYTES);
+        for (int c = 0; c < NQ; ++c)
           tma_load(kd + c * BN * ROW, &tk, bar_k(s), c * CHUNK, j * BN, hk, b);
-        mbar_expect_tx(bar_v(s), C::KV_BYTES);
-        for (int c = 0; c < NCH; ++c)
+        mbar_expect_tx(bar_v(s), C::V_BYTES);
+        for (int c = 0; c < NV; ++c)
           tma_load(vd + c * BN * ROW, &tv, bar_v(s), c * CHUNK, j * BN, hk, b);
       }
     }
@@ -845,18 +882,18 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int r0 = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;
   const int c0 = 2 * (lane % 4);
   const uint32_t qa = sq + 64 * wg * ROW;
-  float acc[DP / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
   float sc[BN / 2];              // S of a tile, then its p
   uint32_t pa[BN / 16][4];       // p in bf16: the A operand of P V
 
   // S = Q K^T of tile j into sc, issued, not waited for
   auto issue_s = [&](int j) {
-    const uint32_t kb = sk + (j % STAGES) * C::KV_BYTES;
+    const uint32_t kb = sk + (j % STAGES) * C::K_BYTES;
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
+    for (int kk = 0; kk < DQ / 16; ++kk) {
       const uint32_t col = (kk % 4) * 32;    // 16 columns a step
       wgmma_ss<BN>(sc, desc_sw128(qa + (kk / 4) * BM * ROW + col, 16, 8 * ROW),
                    desc_sw128(kb + (kk / 4) * BN * ROW + col, 16, 8 * ROW),
@@ -867,12 +904,12 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   // O += P V of tile j, issued, not waited for; V is read transposed and
   // 16 keys a step are 2 swizzle atoms
   auto issue_pv = [&](int j) {
-    const uint32_t vb = sv + (j % STAGES) * C::KV_BYTES;
+    const uint32_t vb = sv + (j % STAGES) * C::V_BYTES;
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_rs<DP>(acc, pa[kk],
+      wgmma_rs<DV>(acc, pa[kk],
                    desc_sw128(vb + kk * 16 * ROW,
-                              NCH > 1 ? BN * ROW : 8 * ROW, 8 * ROW),
+                              NV > 1 ? BN * ROW : 8 * ROW, 8 * ROW),
                    1);
     wgmma_commit();
   };
@@ -941,7 +978,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(bar_k(j % STAGES), parity(j));
     mbar_wait(bar_v((j - 1) % STAGES), parity(j - 1));
     __syncwarp();
-    fence_regs<DP / 2>(acc);
+    fence_regs<DV / 2>(acc);
     wgmma_fence();
     issue_s(j);
     issue_pv(j - 1);
@@ -949,22 +986,22 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs<BN / 2>(sc);
     softmax(j, corr);
     wgmma_wait<0>();             // P V of tile j - 1 is in
-    fence_regs<DP / 2>(acc);
+    fence_regs<DV / 2>(acc);
     mbar_arrive(bar_e((j - 1) % STAGES));
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
     pack_p();
   }
   mbar_wait(bar_v((n_tiles - 1) % STAGES), parity(n_tiles - 1));
   __syncwarp();
-  fence_regs<DP / 2>(acc);
+  fence_regs<DV / 2>(acc);
   wgmma_fence();
   issue_pv(n_tiles - 1);
   wgmma_wait<0>();
-  fence_regs<DP / 2>(acc);
+  fence_regs<DV / 2>(acc);
   mbar_arrive(bar_e((n_tiles - 1) % STAGES));
 
-  // epilogue: 1/l once, rows >= S and columns >= D never stored
+  // epilogue: 1/l once, rows >= S and columns >= Dv never stored
   __nv_bfloat16* op = o + b * so.b + h * so.h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -974,9 +1011,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int row = r0 + 8 * r;
     if (row >= S) continue;
 #pragma unroll
-    for (int jn = 0; jn < DP / 8; ++jn) {
+    for (int jn = 0; jn < DV / 8; ++jn) {
       const int col = 8 * jn + c0;
-      if (col < D)
+      if (col < Dv)
         *reinterpret_cast<__nv_bfloat162*>(op + row * so.s + col) =
             __floats2bfloat162_rn(acc[4 * jn + 2 * r] * inv,
                                   acc[4 * jn + 2 * r + 1] * inv);
@@ -1039,63 +1076,77 @@ int encode(CUtensorMap* map, const void* ptr, int B, int heads, int L, int D,
   return r == CUDA_SUCCESS ? 0 : TMA_ERROR + static_cast<int>(r);
 }
 
-template <int DP>
+template <int DQ, int DV>
 int launch_dp(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int Hk, int S, int Tk, int D, const Strides* st,
+              int H, int Hk, int S, int Tk, int D, int Dv, const Strides* st,
               float scale, int causal, cudaStream_t stream) {
-  using C = Cfg<DP>;
+  using C = Cfg<DQ, DV>;
   CUtensorMap maps[3];
   int rc = encode(&maps[0], q, B, H, S, D, st[0], BM);
   if (rc == 0) rc = encode(&maps[1], k, B, Hk, Tk, D, st[1], C::BN);
-  if (rc == 0) rc = encode(&maps[2], v, B, Hk, Tk, D, st[2], C::BN);
+  if (rc == 0) rc = encode(&maps[2], v, B, Hk, Tk, Dv, st[2], C::BN);
   if (rc != 0) return rc;
-  auto kernel = flash_attention_tc_kernel<DP>;
+  auto kernel = flash_attention_tc_kernel<DQ, DV>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(B * H, (S + BM - 1) / BM);
   kernel<<<grid, THREADS, C::SMEM, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), st[3], H,
-      H / Hk, S, Tk, D, scale * LOG2E, causal);
+      H / Hk, S, Tk, Dv, scale * LOG2E, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 
 extern "C" int flash_attention_max_head_dim() { return MAX_D; }
+extern "C" int flash_attention_max_v_head_dim() { return MAX_DV; }
 
 
 // The CUDA-core kernel.  dtype: 0 float32, 1 bfloat16 (q, k, v and o
-// alike).  Strides in elements, (b, h, s) of q, k, v, o in that order.
-// The wrapper checks shapes, D <= MAX_D, H % Hk == 0 and grid limits;
-// returns cudaGetLastError() of the launch.
+// alike).  D is the head dim of q and k, Dv that of v and o.  Strides in
+// elements, (b, h, s) of q, k, v, o in that order.  The wrapper checks
+// shapes, D <= MAX_D, Dv <= MAX_DV, H % Hk == 0 and grid limits; returns
+// cudaGetLastError() of the launch.
 extern "C" int flash_attention_simt_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int H, int Hk, int S, int Tk, int D, long long qsb, long long qsh,
-    long long qss, long long ksb, long long ksh, long long kss,
-    long long vsb, long long vsh, long long vss, long long osb,
-    long long osh, long long oss, float scale, int causal, void* stream) {
-  if (D < 1 || D > MAX_D || Hk < 1 || H % Hk != 0 || (dtype != 0 && dtype != 1))
+    int H, int Hk, int S, int Tk, int D, int Dv, long long qsb,
+    long long qsh, long long qss, long long ksb, long long ksh,
+    long long kss, long long vsb, long long vsh, long long vss,
+    long long osb, long long osh, long long oss, float scale, int causal,
+    void* stream) {
+  if (D < 1 || D > MAX_D || Dv < 1 || Dv > MAX_DV || Hk < 1 ||
+      H % Hk != 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st[4] = {{qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss},
                          {osb, osh, oss}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return simt::launch_t<float>(q, k, v, o, B, H, Hk, S, Tk, D, st, scale,
-                                 causal, s);
-  return simt::launch_t<__nv_bfloat16>(q, k, v, o, B, H, Hk, S, Tk, D, st,
-                                       scale, causal, s);
+    return simt::launch_t<float>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st,
+                                 scale, causal, s);
+  return simt::launch_t<__nv_bfloat16>(q, k, v, o, B, H, Hk, S, Tk, D, Dv,
+                                       st, scale, causal, s);
 }
 
-// The tensor-core kernel: bf16 only, D a multiple of 8 up to MAX_D, every
-// base pointer 16-byte aligned, every (b, h, s) stride of an axis longer
-// than 1 a positive multiple of 16 bytes and scale > 0 (the wrapper's rule;
-// refused here with cudaErrorInvalidValue otherwise).  Same arguments as
-// above without dtype; returns cudaGetLastError() of the launch, or
-// TMA_ERROR + the CUresult of a tensor map that would not encode.
+// The instance of the tensor-core kernel that takes head dims (D, Dv):
+// (64, 64) when both are at most 64, (128, 128) when both are at most 128,
+// else (192, 128); 0 where there is none.
+inline int tc_instance(int D, int Dv) {
+  if (D <= 64 && Dv <= 64) return 64;
+  if (D <= 128 && Dv <= 128) return 128;
+  return D <= MAX_D && Dv <= MAX_DV ? 192 : 0;
+}
+
+// The tensor-core kernel: bf16 only, D and Dv multiples of 8 up to MAX_D
+// and MAX_DV, every base pointer 16-byte aligned, every (b, h, s) stride
+// of an axis longer than 1 a positive multiple of 16 bytes and scale > 0
+// (the wrapper's rule; refused here with cudaErrorInvalidValue
+// otherwise).  Same arguments as above without dtype; returns
+// cudaGetLastError() of the launch, or TMA_ERROR + the CUresult of a
+// tensor map that would not encode.
 extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
-    int Hk, int S, int Tk, int D, long long qsb, long long qsh,
+    int Hk, int S, int Tk, int D, int Dv, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb,
     long long osh, long long oss, float scale, int causal, void* stream) {
@@ -1107,24 +1158,37 @@ extern "C" int flash_attention_tc_launch(
   auto fits = [](long long stride, int extent) {
     return extent == 1 || (stride > 0 && stride % 8 == 0);
   };
-  bool ok = D >= 8 && D <= MAX_D && D % 8 == 0 && Hk >= 1 &&
-            H % Hk == 0 && scale > 0.0f;
+  bool ok = D >= 8 && D % 8 == 0 && Dv >= 8 && Dv % 8 == 0 &&
+            tc_instance(D, Dv) != 0 && Hk >= 1 && H % Hk == 0 &&
+            scale > 0.0f;
   for (int i = 0; i < 4; ++i)
     ok = ok && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0 &&
          fits(st[i].b, ext[i][0]) && fits(st[i].h, ext[i][1]) &&
          fits(st[i].s, ext[i][2]);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 64)
-    return tc::launch_dp<64>(q, k, v, o, B, H, Hk, S, Tk, D, st, scale,
-                             causal, s);
-  return tc::launch_dp<128>(q, k, v, o, B, H, Hk, S, Tk, D, st, scale,
-                            causal, s);
+  switch (tc_instance(D, Dv)) {
+    case 64:
+      return tc::launch_dp<64, 64>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st,
+                                   scale, causal, s);
+    case 128:
+      return tc::launch_dp<128, 128>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st,
+                                     scale, causal, s);
+    default:
+      return tc::launch_dp<192, 128>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st,
+                                     scale, causal, s);
+  }
 }
 
-// dynamic shared memory of the tensor-core kernel at head dim D
-extern "C" int flash_attention_tc_smem_bytes(int D) {
-  return D <= 64 ? tc::Cfg<64>::SMEM : tc::Cfg<128>::SMEM;
+// dynamic shared memory of the tensor-core kernel at head dims (D, Dv),
+// 0 where no instance takes them
+extern "C" int flash_attention_tc_smem_bytes(int D, int Dv) {
+  switch (tc_instance(D, Dv)) {
+    case 64: return tc::Cfg<64, 64>::SMEM;
+    case 128: return tc::Cfg<128, 128>::SMEM;
+    case 192: return tc::Cfg<192, 128>::SMEM;
+    default: return 0;
+  }
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -7,9 +7,10 @@ two kernels, and :func:`takes_tensor_cores` is the written rule that
 picks one (never a fallback on failure):
 
 * the tensor-core kernel (``wgmma`` fed by TMA), for bf16 inputs whose
-  head dim is a multiple of 8 up to 128, whose base pointers and
-  (b, h, s) strides are 16-byte aligned and whose scale is positive;
-  its launches count under ``flash_attention``;
+  Q/K head dim is a multiple of 8 up to 192 and V head dim one up to 128
+  (instances at (64, 64), (128, 128) and (192, 128), the MLA prefill's),
+  whose base pointers and (b, h, s) strides are 16-byte aligned and whose
+  scale is positive; its launches count under ``flash_attention``;
 * the CUDA-core kernel (float32 FMAs), for float32 inputs and every other
   bf16 input; its launches count under ``flash_attention_simt``.
 
@@ -31,9 +32,11 @@ NAME = "flash_attention"      # the library, and the tensor-core kernel
 SIMT = "flash_attention_simt"  # the CUDA-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_QUERY_TILES = 65535      # grid.y, 64 query rows a tile
-#: the library's ``MAX_D`` (``flash_attention_max_head_dim()``), kept here
-#: so that a launch makes no second ctypes call
-MAX_HEAD_DIM = 128
+#: the library's ``MAX_D`` and ``MAX_DV`` (``flash_attention_max_head_dim()``,
+#: ``flash_attention_max_v_head_dim()``): the Q/K and the V head dim, kept
+#: here so that a launch makes no second ctypes call
+MAX_HEAD_DIM = 192
+MAX_V_HEAD_DIM = 128
 #: float32 reordering allowance of :func:`error_bound`, relative
 REORDER = 2.0 ** -13
 #: unit roundoff of bf16: the tensor-core kernel's P enters P.V in bf16
@@ -87,15 +90,17 @@ def error_bound(kernel_out: torch.Tensor, plain_out: torch.Tensor,
 
 def takes_tensor_cores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        scale: Optional[float] = None) -> bool:
-    """The routing rule: bf16 q, k and v with a head dim that is a
-    multiple of 8 and at most 128, whose base pointers are 16-byte
-    aligned and whose (b, h, s) strides are positive multiples of 8
-    elements (16 bytes) wherever the axis has more than one entry (TMA
-    needs all of that), and a positive scale (the kernel folds it into
-    the exponent after the row max), take the tensor-core kernel;
-    everything else takes the CUDA-core kernel."""
-    d = q.shape[-1]
-    if q.dtype != torch.bfloat16 or d % 8 or d > 128:
+    """The routing rule: bf16 q, k and v whose Q/K head dim is a multiple
+    of 8 and at most 192 and whose V head dim is a multiple of 8 and at
+    most 128, whose base pointers are 16-byte aligned and whose (b, h, s)
+    strides are positive multiples of 8 elements (16 bytes) wherever the
+    axis has more than one entry (TMA needs all of that), and a positive
+    scale (the kernel folds it into the exponent after the row max), take
+    the tensor-core kernel; everything else takes the CUDA-core
+    kernel."""
+    d, dv = q.shape[-1], v.shape[-1]
+    if (q.dtype != torch.bfloat16 or d % 8 or d > MAX_HEAD_DIM or dv % 8
+            or dv > MAX_V_HEAD_DIM):
         return False
     if scale is not None and not scale > 0:
         return False
@@ -117,10 +122,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k "
                         f"and v of one type, got {q.dtype}, {k.dtype} and "
                         f"{v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"need q (B, H, S, D) and k, v (B, Hk, T, D), got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)} and "
-                         f"{tuple(v.shape)}")
+    if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
+            or k.shape[:3] != v.shape[:3]):
+        raise ValueError(f"need q (B, H, S, D), k (B, Hk, T, D) and v "
+                         f"(B, Hk, T, Dv), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
     b, h, s, d = q.shape
     hk, t = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or hk < 1 or h % hk:
@@ -141,18 +147,19 @@ def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, scale: Optional[float]) -> torch.Tensor:
     _check(q, k, v)
     b, h, s, d = q.shape
-    hk, t = k.shape[1], k.shape[2]
-    out = torch.empty((b, s, h, d), dtype=q.dtype,
+    hk, t, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((b, s, h, dv), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if b * h * s == 0:
         return out
     lib = _build.load(NAME)
-    if d > MAX_HEAD_DIM:
+    if d > MAX_HEAD_DIM or dv > MAX_V_HEAD_DIM:
         raise ValueError(f"flash_attention kernel takes D <= "
-                         f"{MAX_HEAD_DIM}, got D={d}")
+                         f"{MAX_HEAD_DIM} and Dv <= {MAX_V_HEAD_DIM}, got "
+                         f"D={d}, Dv={dv}")
     strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    args = (b, h, hk, s, t, d, *strides,
+    args = (b, h, hk, s, t, d, dv, *strides,
             float(d ** -0.5 if scale is None else scale), int(causal), stream)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     if kernel == NAME:
@@ -167,16 +174,16 @@ def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None
                     ) -> torch.Tensor:
-    """q (B, H, S, D), k/v (B, Hk, T, D) with H % Hk == 0, float32 or
-    bfloat16, on one CUDA device -> (B, H, S, D) in q's type, through the
-    kernel that :func:`takes_tensor_cores` picks.
+    """q (B, H, S, D), k (B, Hk, T, D), v (B, Hk, T, Dv) with H % Hk == 0,
+    float32 or bfloat16, on one CUDA device -> (B, H, S, Dv) in q's type,
+    through the kernel that :func:`takes_tensor_cores` picks.
 
     Query head h reads KV head h // (H / Hk).  Under ``causal``, query i
     sees keys 0..i (positions absolute from 0).  ``scale`` defaults to
     D^-0.5.  Any strides with a contiguous last axis are taken as they
     are, so (B, S, H, D) tensors go in as ``transpose(1, 2)`` views; the
-    output is laid out in memory as (B, S, H, D) and returned as its
-    (B, H, S, D) view, so ``out.transpose(1, 2)`` is contiguous.
+    output is laid out in memory as (B, S, H, Dv) and returned as its
+    (B, H, S, Dv) view, so ``out.transpose(1, 2)`` is contiguous.
     """
     kernel = NAME if takes_tensor_cores(q, k, v, scale) else SIMT
     return _launch(kernel, q, k, v, causal, scale)

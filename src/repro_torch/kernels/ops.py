@@ -163,9 +163,9 @@ def cs_tables(bucket: torch.Tensor, sign: torch.Tensor, width: int
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None
                     ) -> torch.Tensor:
-    """Fused attention q (B, H, S, D), k/v (B, Hk, T, D) -> (B, H, S, D);
-    query head h reads KV head h // (H / Hk); under ``causal`` query i
-    sees keys 0..i."""
+    """Fused attention q (B, H, S, D), k (B, Hk, T, D), v (B, Hk, T, Dv)
+    -> (B, H, S, Dv); query head h reads KV head h // (H / Hk); under
+    ``causal`` query i sees keys 0..i."""
     if _route(q):
         return _fa.flash_attention(q, k, v, causal, scale)
     return ref.flash_attention_ref(q, k, v, causal, scale)

@@ -248,8 +248,8 @@ def cs_tables_ref(bucket: torch.Tensor, sign: torch.Tensor, width: int
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False, scale: Optional[float] = None
                         ) -> torch.Tensor:
-    """Plain softmax attention: q (B, H, S, D), k/v (B, Hk, T, D) with
-    H % Hk == 0 -> (B, H, S, D) in q's type.
+    """Plain softmax attention: q (B, H, S, D), k (B, Hk, T, D), v (B, Hk,
+    T, Dv) with H % Hk == 0 -> (B, H, S, Dv) in q's type.
 
     The reference's oracle (``repro/kernels/ref.py:126-136``) with the
     KV heads repeated (head h reads KV head h // (H / Hk)), computed in
@@ -277,9 +277,14 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def simt_tiling(d: int):
-    """(DP, MR, WR) of the CUDA-core flash kernel at head dim ``d``: the
-    head dim rounded up to a multiple of 32, the query rows a thread and
-    a warp (``simt::Cfg<DP>`` in ``csrc/flash_attention.cu``)."""
+    """(DQ, MR, WR) of the CUDA-core flash kernel at head dim ``d``, the
+    larger of the Q/K and the V head dims (at most 192): the width of its
+    Q and K tiles, ``d`` rounded up to a multiple of 32, and the query rows
+    a thread and a warp (``simt::Cfg<DQ, DV>`` in
+    ``csrc/flash_attention.cu``; its V tile is min(DQ, 128) wide)."""
+    if not 1 <= d <= 192:
+        raise ValueError(f"the CUDA-core flash kernel takes head dims up to "
+                         f"192, got {d}")
     dp = 32 * max(1, -(-d // 32))
     return dp, 4, 16
 
@@ -303,16 +308,16 @@ def flash_attention_simt_ref(q: torch.Tensor, k: torch.Tensor,
     its own partial row sum; they add at the end.
     """
     b, h, s, d = q.shape
-    hk, t = k.shape[1], k.shape[2]
+    hk, t, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // hk
-    _, mr, wr = simt_tiling(d)
+    _, mr, wr = simt_tiling(max(d, dv))
     gps, bm, bn = wr // 8, 64, 64
     c = (d ** -0.5 if scale is None else scale) * math.log2(math.e)
     qf = q.float() * c
     kf = k.float().repeat_interleave(g, 1)
     vf = v.float().repeat_interleave(g, 1)
     dev = q.device
-    out = torch.zeros((b, h, s, d), device=dev)
+    out = torch.zeros((b, h, s, dv), device=dev)
 
     def active(tri, i, j):          # (rows of i, keys of j) broadcast
         if tri < 0:
@@ -331,7 +336,7 @@ def flash_attention_simt_ref(q: torch.Tensor, k: torch.Tensor,
             qw[:, :, :max(0, min(wr, s - wq0))] = qf[:, :, wq0:wq0 + wr]
             m = torch.full((b, h, wr), -1e30, device=dev)
             lanes = torch.zeros((b, h, wr, 8), device=dev)
-            acc = torch.zeros((b, h, wr, d), device=dev)
+            acc = torch.zeros((b, h, wr, dv), device=dev)
             i_of = (torch.arange(wr, device=dev) // 4)[:, None]
             for k0 in range(0, ntiles * bn, bn):
                 if k0 >= w_end:
@@ -342,7 +347,7 @@ def flash_attention_simt_ref(q: torch.Tensor, k: torch.Tensor,
                 keys = torch.arange(k0, k0 + 8 * jn, device=dev)
                 j_of = (torch.arange(8 * jn, device=dev) // 8)[None, :]
                 kt = torch.zeros((b, h, 8 * jn, d), device=dev)
-                vt = torch.zeros((b, h, 8 * jn, d), device=dev)
+                vt = torch.zeros((b, h, 8 * jn, dv), device=dev)
                 n_in = max(0, min(8 * jn, t - k0))
                 kt[:, :, :n_in] = kf[:, :, k0:k0 + n_in]
                 vt[:, :, :n_in] = vf[:, :, k0:k0 + n_in]
@@ -371,7 +376,7 @@ def flash_attention_simt_ref(q: torch.Tensor, k: torch.Tensor,
 
 class TcRef(NamedTuple):
     """What :func:`flash_attention_tc_ref` returns."""
-    out: torch.Tensor      # (B, H, S, D) in q's type
+    out: torch.Tensor      # (B, H, S, Dv) in q's type
     abs_out: torch.Tensor  # sum_j w_j |v_j| under the softmax weights w
     spread: torch.Tensor   # how far the kernel's rounded weights may move
 
@@ -382,8 +387,9 @@ def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor,
     """The tensor-core kernel's arithmetic, step for step, in plain torch
     (same arguments as :func:`flash_attention_ref`).
 
-    Key tiles as wide as the kernel's (128 keys at D <= 64, else 64:
-    ``Cfg<DP>::BN`` in ``csrc/flash_attention.cu``), a running max in
+    Key tiles as wide as the kernel's (128 keys where both head dims are
+    at most 64, else 64: ``Cfg<DQ, DV>::BN`` in
+    ``csrc/flash_attention.cu``), a running max in
     log2 units, p = exp2(x - m) rounded to v's type before P.V (bf16, as
     the reference rounds its weights, ``repro/kernels/ref.py:136``),
     float32 accumulation, l summed from the unrounded p and 1/l applied
@@ -399,8 +405,8 @@ def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor,
     ``spread`` sums that width times |v_j| / l.
     """
     b, h, s, d = q.shape
-    t, dev = k.shape[2], q.device
-    bn = 128 if d <= 64 else 64
+    t, dv, dev = k.shape[2], v.shape[3], q.device
+    bn = 128 if max(d, dv) <= 64 else 64
     g = h // k.shape[1]
     qf = q.float()
     kf = k.float().repeat_interleave(g, 1)
@@ -409,7 +415,7 @@ def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor,
     c = (d ** -0.5 if scale is None else scale) * math.log2(math.e)
     m = torch.full((b, h, s, 1), -math.inf, device=dev)
     l = torch.zeros((b, h, s, 1), device=dev)
-    acc, mag, spread = (torch.zeros((b, h, s, d), device=dev)
+    acc, mag, spread = (torch.zeros((b, h, s, dv), device=dev)
                         for _ in range(3))
     rows = torch.arange(s, device=dev)[:, None]
     for k0 in range(0, t, bn):

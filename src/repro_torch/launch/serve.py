@@ -12,6 +12,9 @@ over a batch of prompts with one prefill of the same prompts.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --smoke --device cpu
 
+LM arches: granite-3-2b, granite-3-8b, phi3-mini-3.8b, dbrx-132b (MoE)
+and deepseek-v2-lite-16b (MoE with shared experts, MLA).
+
 SSH: ``--db-dir`` serves a database saved by either package (its search
 knobs kept, the serving ones overlaid) instead of building the smoke
 index over a synthetic ECG stream; queries are windows of that stream
@@ -34,11 +37,14 @@ import numpy as np
 import torch
 
 from repro_torch.bench.timing import StageTimer
-from repro_torch.configs import granite_3_2b
+from repro_torch.configs import (dbrx_132b, deepseek_v2_lite_16b,
+                                 granite_3_2b, granite_3_8b, phi3_mini_3_8b)
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 
-LM_ARCHS = {"granite-3-2b": granite_3_2b}
+LM_ARCHS = {m.CONFIG.name: m for m in (
+    granite_3_2b, granite_3_8b, phi3_mini_3_8b, dbrx_132b,
+    deepseek_v2_lite_16b)}
 
 
 @dataclasses.dataclass

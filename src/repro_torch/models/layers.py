@@ -64,23 +64,20 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       scale: Optional[float] = None) -> torch.Tensor:
     """Attention with GQA through the flash kernel.
 
-    q (B, S, H, D); k, v (B, T, Hk, D); H % Hk == 0 -> (B, S, H, D) in
-    v's type.  ``q_chunk`` and ``kv_chunk`` are the reference's tiling
-    knobs; the kernels tile by their own block sizes whatever they say,
-    which changes the sums' order and nothing else.  The reference's
-    ``kv_valid`` (no caller in either package) is not ported; causal
-    attention needs S == T (the reference's S < T alignment has no
-    caller either).
+    q (B, S, H, D); k (B, T, Hk, D); v (B, T, Hk, Dv); H % Hk == 0 ->
+    (B, S, H, Dv) in v's type (MLA attends at D = 192, Dv = 128);
+    ``scale`` defaults to D^-0.5.  ``q_chunk`` and ``kv_chunk`` are the
+    reference's tiling knobs; the kernels tile by their own block sizes
+    whatever they say, which changes the sums' order and nothing else.
+    The reference's ``kv_valid`` (no caller in either package) is not
+    ported; causal attention needs S == T (the reference's S < T
+    alignment has no caller either).
     """
     s, t = q.shape[1], k.shape[1]
     if causal and s != t:
         raise NotImplementedError(
             f"causal chunked_attention with S={s} != T={t} is not ported "
             "(no caller; ROADMAP.md §1, model suite)")
-    if v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError(
-            "a V head dim unlike the Q/K one (MLA) is not ported "
-            "(ROADMAP.md §1, model suite: MLA)")
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, scale=scale)
     return o.transpose(1, 2).to(v.dtype)

@@ -506,11 +506,11 @@ def test_sshcs_encode_and_ingest_cuda_match_cpu(cuda):
         np.testing.assert_array_equal(a.dists, b.dists)
 
 
-def _flash_inputs(cuda, b, h, hk, s, t, d, dtype, seed):
+def _flash_inputs(cuda, b, h, hk, s, t, d, dtype, seed, dv=None):
     rng = np.random.default_rng(seed)
     return [torch.tensor(rng.normal(size=sh), dtype=torch.float32,
                          device=cuda).to(dtype)
-            for sh in ((b, h, s, d), (b, hk, t, d), (b, hk, t, d))]
+            for sh in ((b, h, s, d), (b, hk, t, d), (b, hk, t, dv or d))]
 
 
 #: the two ways into the kernels: ``flash_attention`` is the model's call
@@ -632,6 +632,45 @@ def test_flash_kernel_scales(cuda, scale, route):
                                 21), causal=True, route=route, scale=scale)
 
 
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("d,dv", [(192, 128), (96, 96), (128, 128),
+                                  (136, 64), (64, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_qk_and_v_head_dims(cuda, d, dv, dtype, route):
+    """The models' head dims: MLA's Q/K 192 and V 128 (the (192, 128)
+    instance), phi3's 96 (tiles of 128 columns), granite-3-8b's and
+    dbrx's 128; and unequal dims either way, in each tile.  Ragged S and
+    T, causal and not, GQA group 2."""
+    for causal in (True, False):
+        _check_flash(*_flash_inputs(cuda, 2, 4, 2, 150, 150, d, dtype,
+                                    d + dv, dv), causal=causal, route=route)
+    q, k, v = _flash_inputs(cuda, 1, 4, 4, 70, 190, d, dtype, 7, dv)
+    _check_flash(q, k, v, causal=False, route=route, scale=0.07)
+
+
+def test_flash_kernel_mla_prefill_layout(cuda):
+    """The MLA prefill's own layout: q and k concatenated from their nope
+    and rope parts ((B, S, H, 192), the rope key broadcast to every head),
+    v (B, S, H, 128), all as transpose(1, 2) views, scale (128 + 64)^-0.5:
+    the tensor-core kernel by the rule, within its bounds."""
+    from repro_torch.kernels.flash_attention import takes_tensor_cores
+    rng = np.random.default_rng(19)
+    b, s, h = 2, 300, 4
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=cuda).bfloat16()
+    q = torch.cat([t(b, s, h, 128), t(b, s, h, 64)], dim=-1)
+    k = torch.cat([t(b, s, h, 128), t(b, s, 1, 64).expand(b, s, h, 64)],
+                  dim=-1)
+    v = t(b, s, h, 128)
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    assert takes_tensor_cores(q, k, v, 192 ** -0.5)
+    got = _check_flash(q, k, v, causal=True, scale=192 ** -0.5)
+    assert got.shape == (b, h, s, 128)
+    assert got.transpose(1, 2).is_contiguous()
+
+
 def test_flash_kernel_misaligned_bf16_takes_cuda_cores(cuda):
     """A bf16 view whose base is 2 bytes off a 16-byte boundary cannot be
     described to TMA: the rule sends it to the CUDA-core kernel, and the
@@ -675,16 +714,26 @@ def test_flash_simt_serve_gate_shape_and_views(cuda):
     assert qm.data_ptr() % 16
     assert torch.equal(_check_flash(qm, k, v, causal=True), got)
     from repro_torch.kernels import flash_attention as fa
-    assert fa.MAX_HEAD_DIM == _build.load(
-        "flash_attention").flash_attention_max_head_dim()
+    lib = _build.load("flash_attention")
+    assert fa.MAX_HEAD_DIM == lib.flash_attention_max_head_dim() == 192
+    assert fa.MAX_V_HEAD_DIM == lib.flash_attention_max_v_head_dim() == 128
+    assert lib.flash_attention_tc_smem_bytes(192, 128) <= 232448
+    assert lib.flash_attention_tc_smem_bytes(200, 128) == 0
 
 
 @pytest.mark.parametrize("route", ROUTES)
 def test_flash_wrapper_refuses_bad_inputs(cuda, route):
     call = _entry(route)
-    q, k, v = _flash_inputs(cuda, 1, 2, 2, 16, 16, 160, torch.bfloat16, 0)
-    with pytest.raises(ValueError, match="D <= 128"):
+    q, k, v = _flash_inputs(cuda, 1, 2, 2, 16, 16, 200, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="D <= 192"):
         call(q, k, v)
+    q, k, v = _flash_inputs(cuda, 1, 2, 2, 16, 16, 64, torch.bfloat16, 0,
+                            dv=136)
+    with pytest.raises(ValueError, match="Dv <= 128"):
+        call(q, k, v)
+    q, k, v = _flash_inputs(cuda, 1, 2, 2, 16, 16, 32, torch.float32, 0)
+    with pytest.raises(ValueError, match="Hk, T, Dv"):
+        call(q, k, v[:, :, :8])
     q, k, v = _flash_inputs(cuda, 1, 2, 2, 16, 16, 32, torch.float32, 0)
     with pytest.raises(ValueError, match="one CUDA device"):
         call(q, k.cpu(), v)
@@ -726,6 +775,44 @@ def test_lm_prefill_and_decode_cuda_match_cpu(cuda):
     serve.check_prefill_against_decode(on_gpu, 1e-5)
     with pytest.raises(ValueError, match="generator"):
         transformer.init_params(cfg, torch.Generator(), cuda)
+
+
+@pytest.mark.parametrize("arch", ["dbrx_132b", "deepseek_v2_lite_16b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_mla_serve_cuda_match_cpu(cuda, arch, dtype):
+    """The MoE (dbrx) and MoE + MLA (deepseek) SMOKE models on the card
+    and on the CPU, at a capacity that drops nothing and with prompts
+    that fill whole groups of 64 (no ragged tail through expert 0): the
+    same routing within float32 reordering, so prefill and decode logits
+    agree; one flash launch a layer per prefill (the tensor-core kernel
+    in bf16, MLA's 24/16 dims included; the CUDA-core one in float32)."""
+    import dataclasses
+    import importlib
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    smoke = importlib.import_module(f"repro_torch.configs.{arch}").SMOKE
+    cfg = dataclasses.replace(smoke, dtype=dtype,
+                              capacity_factor=float(smoke.n_experts))
+    params = transformer.init_params(cfg, device="cpu")
+    gpu = {k: (v.to(cuda) if k != "layers" else
+               {n: t.to(cuda) for n, t in v.items()})
+           for k, v in params.items()}
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab, (3, 64))
+    ops.reset_launch_counts()
+    on_gpu = serve.serve_lm(cfg, gpu, prompts, gen_len=4, device=cuda)
+    counts = ops.launch_counts()
+    kernel = "flash_attention_simt" if dtype == "float32" \
+        else "flash_attention"
+    assert counts[kernel] == cfg.n_layers
+    assert sum(counts[k] for k in ("flash_attention",
+                                   "flash_attention_simt")) == cfg.n_layers
+    if dtype == "float32":
+        on_cpu = serve.serve_lm(cfg, params, prompts, gen_len=4,
+                                device="cpu")
+        for a, b in ((on_gpu.prefill_logits, on_cpu.prefill_logits),
+                     (on_gpu.prompt_logits, on_cpu.prompt_logits)):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+        serve.check_prefill_against_decode(on_gpu, 1e-5)
 
 
 @pytest.mark.parametrize("encoder", ["ssh", "srp", "ssh-multires"])

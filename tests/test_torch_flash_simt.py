@@ -112,6 +112,55 @@ def test_simt_schedule_bf16_inputs():
 @pytest.mark.parametrize("d,want", [(1, (32, 4, 16)), (16, (32, 4, 16)),
                                     (33, (64, 4, 16)), (64, (64, 4, 16)),
                                     (72, (96, 4, 16)), (96, (96, 4, 16)),
-                                    (128, (128, 4, 16))])
+                                    (128, (128, 4, 16)),
+                                    (136, (160, 4, 16)),
+                                    (192, (192, 4, 16))])
 def test_simt_tiling(d, want):
     assert ref.simt_tiling(d) == want
+
+
+# (B, H, Hk, S, T, D, Dv, causal): MLA's (192, 128) in the (192, 128)
+# tiles, unequal dims in the (160, 128), (128, 128) and (64, 64) tiles
+DV_CASES = [
+    (1, 4, 4, 130, 130, 192, 128, True),
+    (1, 2, 2, 77, 150, 192, 128, False),
+    (1, 4, 2, 100, 100, 136, 64, True),
+    (1, 4, 1, 90, 90, 64, 128, True),
+    (1, 2, 2, 70, 70, 40, 24, True),
+]
+
+
+def _dv_inputs(b, h, hk, s, t, d, dv, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=sh).astype(np.float32))
+            for sh in ((b, h, s, d), (b, hk, t, d), (b, hk, t, dv))]
+
+
+@pytest.mark.parametrize("b,h,hk,s,t,d,dv,causal", DV_CASES)
+def test_simt_schedule_at_two_head_dims(b, h, hk, s, t, d, dv, causal):
+    """The schedule with a V head dim unlike the Q/K one against the
+    plain version, (B, H, S, Dv) out, MLA's scale where D is 192."""
+    q, k, v = _dv_inputs(b, h, hk, s, t, d, dv, s + d + dv)
+    scale = 192 ** -0.5 if d == 192 else None
+    got = ref.flash_attention_simt_ref(q, k, v, causal, scale)
+    assert got.shape == (b, h, s, dv)
+    _check(got, ref.flash_attention_ref(q, k, v, causal=causal,
+                                        scale=scale), v)
+
+
+@pytest.mark.parametrize("b,h,hk,s,t,d,dv,causal",
+                         [c for c in DV_CASES if c[3] == c[4] or not c[7]])
+def test_simt_schedule_at_two_head_dims_matches_jax(b, h, hk, s, t, d, dv,
+                                                    causal):
+    q, k, v = _dv_inputs(b, h, hk, s, t, d, dv, s * 3 + d + dv)
+    scale = 192 ** -0.5 if d == 192 else None
+    got = ref.flash_attention_simt_ref(q, k, v, causal, scale)
+    want = jax_chunked(*(jnp.asarray(x.transpose(1, 2).numpy())
+                         for x in (q, k, v)), causal=causal, scale=scale)
+    _check(got, torch.from_numpy(np.array(want)).transpose(1, 2), v)
+
+
+@pytest.mark.parametrize("d", [0, 193, 256])
+def test_simt_tiling_refuses_wider_head_dims(d):
+    with pytest.raises(ValueError, match="192"):
+        ref.simt_tiling(d)

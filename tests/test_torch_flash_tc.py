@@ -226,3 +226,73 @@ def test_routing_rule():
     one = torch.as_strided(_bf16(40 * 64 + 8), (1, 1, 40, 64),
                            (3, 5, 64, 1))
     assert rule(one, one, one)
+
+
+# (B, H, Hk, S, T, D, Dv, causal, scale): MLA's Q/K 192 and V 128 with
+# its scale (128 + 64)^-0.5, phi3's 96 (computed at 128 columns) and the
+# 128 of granite-3-8b and dbrx, then unequal dims either way
+DV_CASES = [
+    (1, 4, 4, 150, 150, 192, 128, True, 192 ** -0.5),
+    (2, 4, 4, 130, 130, 96, 96, True, None),
+    (1, 4, 1, 140, 140, 128, 128, True, None),
+    (1, 3, 3, 77, 131, 192, 128, False, 192 ** -0.5),
+    (1, 4, 2, 100, 100, 136, 64, True, 0.09),
+    (1, 4, 2, 90, 170, 64, 128, False, None),
+]
+
+
+@pytest.mark.parametrize("b,h,hk,s,t,d,dv,causal,scale", DV_CASES)
+def test_tc_emulation_at_two_head_dims(b, h, hk, s, t, d, dv, causal,
+                                       scale):
+    """The bf16 emulation with a V head dim unlike the Q/K one (key tiles
+    of 64 wherever either dim exceeds 64) within the tensor-core bound of
+    the plain version, (B, H, S, Dv) out."""
+    q, k, v = _inputs(b, h, hk, s, t, d, s + t + d + dv)
+    v = torch.tensor(np.random.default_rng(dv).normal(
+        size=(b, hk, t, dv)).astype(np.float32)).bfloat16()
+    emu = ref.flash_attention_tc_ref(q, k, v, causal, scale)
+    plain = ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    assert emu.out.shape == plain.shape == (b, h, s, dv)
+    abs_out = _abs_out(q, k, v, causal, scale)
+    torch.testing.assert_close(emu.abs_out, abs_out, rtol=1e-5, atol=0)
+    err = (emu.out.float() - plain.float()).abs()
+    bound = fa.error_bound(emu.out, plain, v, abs_out)
+    assert bool((err <= bound).all()), float((err / bound).max())
+
+
+@pytest.mark.parametrize("b,h,hk,s,t,d,dv,causal,scale",
+                         [c for c in DV_CASES if c[3] == c[4] or not c[7]])
+def test_tc_emulation_float32_at_two_head_dims_matches_jax(
+        b, h, hk, s, t, d, dv, causal, scale):
+    """Unrounded, the emulation computes the JAX model's attention
+    (``repro.models.layers.chunked_attention``, (B, S, H, D) layout, GQA
+    and Dv != D as the MLA prefill calls it) to float32 reordering."""
+    from repro.models.layers import chunked_attention as jax_chunked
+    rng = np.random.default_rng(d * dv + s)
+    q, k, v = (torch.tensor(rng.normal(size=sh).astype(np.float32))
+               for sh in ((b, h, s, d), (b, hk, t, d), (b, hk, t, dv)))
+    emu = ref.flash_attention_tc_ref(q, k, v, causal, scale).out
+    want = jax_chunked(*(jnp.asarray(x.transpose(1, 2).numpy())
+                         for x in (q, k, v)), causal=causal, scale=scale)
+    np.testing.assert_allclose(emu.transpose(1, 2).numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_routing_rule_two_head_dims():
+    """The tensor cores take a Q/K head dim that is a multiple of 8 up to
+    192 and a V head dim that is one up to 128: MLA's (192, 128) does,
+    (200, 128), (192, 136) and (192, 124) do not."""
+    rule = fa.takes_tensor_cores
+    assert fa.MAX_HEAD_DIM == 192 and fa.MAX_V_HEAD_DIM == 128
+    for d, dv, ok in ((192, 128, True), (96, 96, True), (128, 128, True),
+                      (64, 128, True), (136, 64, True), (200, 128, False),
+                      (192, 136, False), (192, 124, False),
+                      (188, 128, False)):
+        assert rule(_bf16(1, 4, 9, d), _bf16(1, 4, 9, d),
+                    _bf16(1, 4, 9, dv), 192 ** -0.5) == ok, (d, dv)
+    # the MLA prefill's k: nope and a rope part broadcast to every head,
+    # concatenated, as a (B, S, H, D) view
+    k = torch.cat([_bf16(2, 30, 4, 128), _bf16(2, 30, 1, 64).expand(
+        2, 30, 4, 64)], dim=-1).transpose(1, 2)
+    v = _bf16(2, 30, 4, 128).transpose(1, 2)
+    assert rule(_bf16(2, 30, 4, 192).transpose(1, 2), k, v)

@@ -63,7 +63,11 @@ for name in ("repro_torch.streaming.count_sketch",
              "repro_torch.distributed.fault_tolerance", "repro_torch.fleet",
              "repro_torch.fleet.injector", "repro_torch.fleet.placement",
              "repro_torch.fleet.worker", "repro_torch.fleet.transfer",
-             "repro_torch.fleet.searcher"):
+             "repro_torch.fleet.searcher", "repro_torch.models.moe",
+             "repro_torch.configs.granite_3_8b",
+             "repro_torch.configs.phi3_mini_3_8b",
+             "repro_torch.configs.dbrx_132b",
+             "repro_torch.configs.deepseek_v2_lite_16b"):
     assert name in names, name
 print(len(names), "modules")
 """

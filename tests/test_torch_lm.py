@@ -2,7 +2,9 @@
 
 Inputs come from numpy with a seed and go through both packages; the
 model tests carry the reference's parameters (``init_params(PRNGKey(0))``
-on the granite-3-2b SMOKE config) across with
+on the SMOKE configs: granite-3-2b, dense GQA; dbrx-132b, MoE with a
+ragged tail at 2 x 37 tokens in groups of 64; deepseek-v2-lite-16b, MoE
+with a shared expert and MLA) across with
 ``convert.lm_params_from_arrays``.  The reference's Pallas flash kernel
 does not run on this JAX (no ``pl.load``), so the port's attention is
 held to the reference's plain oracle and to its ``chunked_attention``.
@@ -17,9 +19,11 @@ Tolerances, each with its reason:
   the softmax weights to bf16, the port's keeps both in float32;
 * bf16 prefill: 5 % of max |logit| — the reference rounds every product
   and the attention weights to bf16 (``layers.py:73``), the port's
-  attention keeps the weights in float32.
+  attention keeps the weights in float32 (the MoE models route the same
+  tokens to the same experts here: no gate lies near a tie).
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -27,15 +31,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import dbrx_132b as jdbrx
+from repro.configs import deepseek_v2_lite_16b as jdeepseek
 from repro.configs import granite_3_2b as jgranite
+from repro.configs import granite_3_8b as jgranite8
+from repro.configs import phi3_mini_3_8b as jphi3
 from repro.kernels.ref import flash_attention_ref as jax_flash_ref
 from repro.models import layers as jlayers
 from repro.models import transformer as jT
 from repro_torch import convert
-from repro_torch.configs import granite_3_2b
+from repro_torch.configs import (dbrx_132b, deepseek_v2_lite_16b,
+                                 granite_3_2b, granite_3_8b, phi3_mini_3_8b)
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.torch_port
@@ -44,6 +53,14 @@ torch.set_num_threads(2)
 CPU = "cpu"
 SMOKE32 = dataclasses.replace(granite_3_2b.SMOKE, dtype="float32")
 JSMOKE32 = dataclasses.replace(jgranite.SMOKE, dtype="float32")
+#: every LM config, the port's module beside the reference's
+CONFIGS = {"granite-3-2b": (granite_3_2b, jgranite),
+           "granite-3-8b": (granite_3_8b, jgranite8),
+           "phi3-mini-3.8b": (phi3_mini_3_8b, jphi3),
+           "dbrx-132b": (dbrx_132b, jdbrx),
+           "deepseek-v2-lite-16b": (deepseek_v2_lite_16b, jdeepseek)}
+#: the MoE and MLA models, whose SMOKE configs the parity tests run
+NEW_PATHS = ["dbrx-132b", "deepseek-v2-lite-16b"]
 
 # the shapes of tests/test_flash_attention.py
 FLASH_SHAPES = [
@@ -133,13 +150,31 @@ def test_chunked_attention_matches_jax(causal):
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,dv,scale", [(24, 16, 24 ** -0.5),
+                                        (12, 20, 0.3)])
+def test_chunked_attention_two_head_dims_matches_jax(causal, d, dv, scale):
+    """The V head dim unlike the Q/K one (MLA's (dn + dr, dv) at SMOKE
+    size, and the reverse) with an explicit scale, GQA, S not a multiple
+    of the chunk: (B, S, H, Dv) out."""
+    rng = np.random.default_rng(5)
+    b, s, h, hk = 2, 37, 4, 2
+    q, k, v = (rng.normal(size=sh).astype(np.float32)
+               for sh in ((b, s, h, d), (b, s, hk, d), (b, s, hk, dv)))
+    want = jlayers.chunked_attention(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=causal,
+                                     q_chunk=16, kv_chunk=8, scale=scale)
+    got = layers.chunked_attention(_t(q), _t(k), _t(v), causal=causal,
+                                   q_chunk=16, kv_chunk=8, scale=scale)
+    assert got.shape == (b, s, h, dv)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)
+
+
 def test_chunked_attention_refuses_unported_forms():
     x = torch.zeros((1, 4, 2, 16))
     with pytest.raises(NotImplementedError, match="S=4 != T=6"):
         layers.chunked_attention(x, torch.zeros((1, 6, 2, 16)),
                                  torch.zeros((1, 6, 2, 16)))
-    with pytest.raises(NotImplementedError, match="MLA"):
-        layers.chunked_attention(x, x, torch.zeros((1, 4, 2, 8)))
 
 
 def test_decode_attention_matches_jax():
@@ -190,27 +225,40 @@ def test_apply_rope_matches_jax(pos_rank):
         rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["CONFIG", "SMOKE"])
-def test_configs_equal_the_reference(name):
-    ours = dataclasses.asdict(getattr(granite_3_2b, name))
-    theirs = dataclasses.asdict(getattr(jgranite, name))
-    assert ours == theirs
-    cfg = getattr(granite_3_2b, name)
-    shapes = jax.eval_shape(lambda: jT.init_params(getattr(jgranite, name),
+@pytest.mark.parametrize("arch,name", [
+    pytest.param(arch, name, id=name if arch == "granite-3-2b"
+                 else f"{arch}-{name}")
+    for arch in CONFIGS for name in ("CONFIG", "SMOKE")])
+def test_configs_equal_the_reference(arch, name):
+    """Field for field; the same parameter paths, shapes and dtypes (the
+    float32 MoE router) and the same count.  The reference's
+    ``param_count`` multiplies each leaf's shape in int32 (``jnp.prod``),
+    which wraps for a leaf of 2^31 elements or more (dbrx's stacked
+    experts, 42.3e9): there the two agree modulo 2^32, and the port's
+    equals the exact sum of the reference's leaf sizes."""
+    ours, theirs = (getattr(m, name) for m in CONFIGS[arch])
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert ours.moe_cfg.__dict__ == theirs.moe_cfg.__dict__
+    shapes = jax.eval_shape(lambda: jT.init_params(theirs,
                                                    jax.random.PRNGKey(0)))
+    leaves = jax.tree_util.tree_leaves_with_path(shapes)
     jflat = {"/".join(str(getattr(k, "key", k)) for k in path): tuple(l.shape)
-             for path, l in jax.tree_util.tree_leaves_with_path(shapes)}
-    assert jflat == T.param_shapes(cfg)
-    assert cfg.param_count() == getattr(jgranite, name).param_count()
+             for path, l in leaves}
+    assert jflat == T.param_shapes(ours)
+    for path, l in leaves:
+        key = "/".join(str(getattr(k, "key", k)) for k in path)
+        assert str(T.param_dtype(ours, key))[6:] == str(l.dtype), key
+    exact = sum(math.prod(l.shape) for _, l in leaves)
+    assert ours.param_count() == exact
+    assert theirs.param_count() % 2 ** 32 == exact % 2 ** 32
+    if all(math.prod(l.shape) < 2 ** 31 for _, l in leaves):
+        assert theirs.param_count() == exact
 
 
-def test_unported_configs_raise():
-    for kw, item in ((dict(moe=True), "MoE"), (dict(mla=True), "MLA")):
-        cfg = dataclasses.replace(SMOKE32, **kw)
-        with pytest.raises(NotImplementedError, match=item):
-            T.init_params(cfg, device=CPU)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.init_cache(cfg, 1, 4, device=CPU)
+def test_serving_archs_are_the_configs():
+    assert set(serve.LM_ARCHS) == set(CONFIGS)
+    for arch, (mod, _) in CONFIGS.items():
+        assert serve.LM_ARCHS[arch] is mod
 
 
 def test_init_params_distributions_and_seed():
@@ -382,3 +430,171 @@ def test_serve_cli_on_cpu(capsys):
     assert "fleet serving is single-probe" in out and "fleet: hedged=" in out
     with pytest.raises(SystemExit):
         serve.main(["--arch", "phi3-mini", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "phi3-mini-3.8b"]
+                         + NEW_PATHS)
+def test_serve_cli_lm_arches_on_cpu(arch, capsys):
+    assert serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "5", "--gen-len",
+                       "2"]) == 0
+    out = capsys.readouterr().out
+    assert f"{arch} (smoke) on cpu" in out and "sample: [" in out
+
+
+# -- MoE (dbrx) and MoE + MLA (deepseek-v2-lite) SMOKE configs ------------
+
+def _configs(arch, dtype):
+    mod, jmod = CONFIGS[arch]
+    return (dataclasses.replace(mod.SMOKE, dtype=dtype),
+            dataclasses.replace(jmod.SMOKE, dtype=dtype))
+
+
+@pytest.fixture(scope="module", params=NEW_PATHS)
+def new_state(request):
+    """(arch, the reference's float32 SMOKE parameters, the port's copy)."""
+    cfg, jcfg = _configs(request.param, "float32")
+    jparams, arrays = _jax_params(jcfg)
+    return (request.param, jparams,
+            convert.lm_params_from_arrays(arrays, cfg, device=CPU))
+
+
+def _close(got, want, rtol=1e-5):
+    """Within rtol of each value, and of max |want| near zero."""
+    want = _np(want)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol,
+                               atol=rtol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("arch", NEW_PATHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_convert_moe_mla_params_exact(arch, dtype):
+    """Every leaf bit for bit, the router float32 beside bf16 weights;
+    a router cast to the model's type is refused."""
+    cfg, jcfg = _configs(arch, dtype)
+    _, arrays = _jax_params(jcfg)
+    params = convert.lm_params_from_arrays(arrays, cfg, device=CPU)
+    flat = T.flatten(params)
+    assert flat["layers/router"].dtype == torch.float32
+    for path, a in T.flatten(arrays).items():
+        t = flat[path]
+        assert t.dtype == T.param_dtype(cfg, path)
+        if t.dtype == torch.bfloat16:
+            np.testing.assert_array_equal(t.view(torch.int16).numpy(),
+                                          a.view(np.int16))
+        else:
+            np.testing.assert_array_equal(t.numpy(), a)
+    if dtype == "bfloat16":
+        bad = dict(T.flatten(arrays))
+        bad["layers/router"] = np.asarray(
+            jnp.asarray(bad["layers/router"], jnp.bfloat16))
+        with pytest.raises(ValueError, match="router"):
+            convert.lm_params_from_arrays(T.unflatten(bad), cfg, device=CPU)
+
+
+def test_init_params_moe_mla_dtypes_and_scales():
+    cfg = dataclasses.replace(deepseek_v2_lite_16b.SMOKE, n_layers=3,
+                              d_model=128)
+    p = T.flatten(T.init_params(cfg, torch.Generator().manual_seed(4), CPU))
+    so = 0.02 / (2 * cfg.n_layers) ** 0.5
+    assert set(p) == set(T.param_shapes(cfg))
+    for path, t in p.items():
+        assert tuple(t.shape) == T.param_shapes(cfg)[path]
+        assert t.dtype == T.param_dtype(cfg, path)
+        if path.endswith(("ln_f", "ln_attn", "ln_mlp")):
+            continue
+        want = so if path.endswith(("wo", "we_down", "ws_down")) else 0.02
+        assert abs(float(t.float().std()) / want - 1) < 0.1, path
+    assert p["layers/router"].dtype == torch.float32
+    assert p["layers/wq"].dtype == torch.bfloat16
+
+
+def test_moe_mla_prefill_and_forward_match_jax(new_state):
+    arch, jparams, params = new_state
+    cfg, jcfg = _configs(arch, "float32")
+    toks = _tokens(2, 37)               # 74 tokens: a group of 64 + a tail
+    full_want, _ = jT.forward(jparams, jnp.asarray(toks, jnp.int32), jcfg)
+    full = T.forward(params, torch.tensor(toks), cfg)
+    assert full.shape == (2, 37, cfg.vocab)
+    _close(full, full_want)
+    got = T.prefill(params, torch.tensor(toks), cfg)
+    _close(got, jT.prefill(jparams, jnp.asarray(toks, jnp.int32), jcfg))
+    torch.testing.assert_close(full[:, -1:], got, rtol=1e-5, atol=1e-6)
+
+
+def test_moe_mla_decode_steps_and_cache_match_jax(new_state):
+    """Stepped decode (MLA: the absorbed path over the latent cache; the
+    MoE in decode groups of B tokens), logits and cache every step."""
+    arch, jparams, params = new_state
+    cfg, jcfg = _configs(arch, "float32")
+    b, steps = 3, 12
+    toks = _tokens(b, steps, seed=12)
+    jcache = jT.init_cache(jcfg, b, steps + 4)
+    cache = T.init_cache(cfg, b, steps + 4, device=CPU)
+    assert set(cache) == set(jcache)
+    jdec = jax.jit(lambda p, c, t: jT.decode_step(p, c, t, jcfg))
+    for i in range(steps):
+        jl, jcache = jdec(jparams, jcache,
+                          jnp.asarray(toks[:, i:i + 1], jnp.int32))
+        lg, cache = T.decode_step(params, cache,
+                                  torch.tensor(toks[:, i:i + 1]), cfg)
+        _close(lg, jl)
+    for key in cache:
+        if key == "length":
+            np.testing.assert_array_equal(cache[key].numpy(),
+                                          np.asarray(jcache[key]))
+        else:
+            assert cache[key].shape == jcache[key].shape
+            _close(cache[key], jcache[key])
+
+
+def test_moe_mla_serve_tokens_match_jax(new_state):
+    """The reference's serve_lm loop (2 prompts of 16, 8 greedy tokens):
+    the same generated tokens."""
+    arch, jparams, params = new_state
+    cfg, jcfg = _configs(arch, "float32")
+    b, p, g = 2, 16, 8
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (b, p))
+    jdec = jax.jit(lambda pr, c, t: jT.decode_step(pr, c, t, jcfg))
+    jcache = jT.init_cache(jcfg, b, p + g)
+    jtoks = jnp.asarray(prompts, jnp.int32)
+    for i in range(p):
+        logits, jcache = jdec(jparams, jcache, jtoks[:, i:i + 1])
+    jout = []
+    for _ in range(g):
+        nxt = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
+        jout.append(nxt)
+        logits, jcache = jdec(jparams, jcache, nxt)
+    res = serve.serve_lm(cfg, params, prompts, gen_len=g, device=CPU)
+    np.testing.assert_array_equal(res.generated.numpy(),
+                                  np.asarray(jnp.concatenate(jout, axis=1)))
+
+
+@pytest.mark.parametrize("arch", NEW_PATHS)
+def test_moe_mla_prefill_bf16_close_to_jax(arch):
+    cfg, jcfg = _configs(arch, "bfloat16")
+    jparams, arrays = _jax_params(jcfg, seed=3)
+    params = convert.lm_params_from_arrays(arrays, cfg, device=CPU)
+    toks = _tokens(2, 33, seed=13)
+    want = _np(jT.prefill(jparams, jnp.asarray(toks, jnp.int32), jcfg))
+    got = T.prefill(params, torch.tensor(toks), cfg).float().numpy()
+    assert np.abs(got - want).max() <= 0.05 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("arch", NEW_PATHS)
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2e-2)])
+def test_moe_prefill_agrees_with_stepped_decode(arch, dtype, tol):
+    """The chip gate at SMOKE size for the MoE models, at a capacity
+    factor that drops nothing in the prefill's group or the decode's
+    (C >= n_g, as the reference's own decode test sets it): the
+    prefill's last logits equal the decode logits after the prompt."""
+    mod, _ = CONFIGS[arch]
+    cfg = dataclasses.replace(mod.SMOKE, dtype=dtype,
+                              capacity_factor=float(mod.SMOKE.n_experts))
+    for n_g in (cfg.moe_group_size, 3):
+        assert moe.capacity(cfg.moe_cfg, n_g) >= n_g
+    res = serve.serve_lm(cfg, batch=3, prompt_len=19, gen_len=2, seed=4,
+                         device=CPU)
+    out = serve.check_prefill_against_decode(res, tol)
+    assert out["rows"] == 3 and out["rel_diff"] <= tol
