@@ -265,6 +265,39 @@
    inputs held to its plain version and timed (at MLA's 192/128 for
    deepseek).
 
+9. LM training (the serving models freed first; phases ``train*``), bf16
+   at full width, random weights from ``--seed``, through
+   ``launch/train.main`` and ``launch/steps`` (``loss_fn`` with per-layer
+   remat, attention through ``ops.FlashAttention``: the tensor-core
+   kernel's forward, twice a layer a step with the remat recompute, and
+   the chunked plain backward; AdamW with float32 master weights):
+   ``train``: granite-3-2b at full width and depth, the train_4k cell at
+   seq 4,096 with its batch CUT from 256 to 4, 5 steps (s, tokens/s and
+   model FLOPs share a step beside the card's name and power limit; peak
+   memory; loss and grad norm finite), and one more step under
+   ``torch.profiler`` (device ms by kind, busy share); the tensor-core
+   kernel on that step's layer-0 q, k, v (4 x 4,096): held as in step 8
+   on sequence 0, device and call ms beside SDPA's, the plain version's
+   ms and the bound (the kernel entry's ``train_shapes``).  ``train_resume``:
+   the same at full width with the depth CUT to 1 layer (a full-depth
+   checkpoint is 36.9 GB; a run may write 45 GiB to the machine's disk,
+   and the earlier phases write ~31 GB): 4 steps uninterrupted
+   (``train_resume_ref``), 2 steps with a checkpoint (``train_ckpt``),
+   then the resume from it to step 4: losses within 1e-3 and parameters
+   within 2 sum lr_t + one bf16 ulp of the uninterrupted run.
+   ``train_learn``: 2 layers at full width, 8 steps at lr 3e-3, warm-up
+   1, on one 4 x 1,024 batch: the loss falls by more than 0.1.
+   ``train_grad``: the Function's dQ, dK, dV against autograd through
+   ``ref.flash_attention_ref`` per element (``grad_check``: one ulp,
+   float32 reordering, and the bound of what the kernel's O moves through
+   rowsum(dO o O)) at granite-3-2b's layer (1, 32/8, 4,096, 64) and
+   deepseek's (1, 16, 2,048, 192/128) in bf16 and at (1, 32/8, 1,024, 64)
+   in float32 (the CUDA-core kernel); and one 2-layer float32 model's
+   every gradient, the kernel path against the all-plain one, within
+   1e-4 of each leaf's max.  ``train_deepseek``: deepseek-v2-lite-16b at
+   full width, DEPTH CUT to 2 of 27 layers, 3 steps at 2 x 2,048: finite
+   losses, and every remat recompute routes the tokens as its forward.
+
 Prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Imports nothing of JAX.
 """
@@ -368,6 +401,33 @@ FLEET_REPLICATION, FLEET_WORKERS, FLEET_HEDGE_MS = 2, 4, 5.0
 FLEET_CALLS, FLEET_SLOW_X, FLEET_DIST_SHARDS = 50, 10.0, 4
 FLEET_LAUNCHER_REQUESTS = 16
 FLEET_P99_BAR = 3.0
+# step 9, LM training: granite-3-2b at full width and depth, the train_4k
+# cell (seq 4096) with its batch CUT from 256 to TRAIN_BATCH sequences,
+# TRAIN_STEPS steps.  A checkpoint of params and AdamW state is 14 bytes
+# a parameter, 36.9 GB at full depth, and the H100 host this runs on
+# takes at most 45 GiB of disk writes a run, deleted files included; the
+# earlier phases' saved databases and fleet artifacts take most of that:
+# so checkpoint and resume run at full width with the depth CUT to
+# RESUME_LAYERS (3.7 GB a checkpoint, two written, the embedding and the
+# head 2.8 GB of it): RESUME_STEPS steps uninterrupted, then
+# RESUME_FROM steps with a checkpoint, then the resume from it to
+# RESUME_STEPS.  train_learn at full width cut to 2 layers (the
+# reference's test_loss_decreases: lr 3e-3, warm-up 1, one repeated
+# batch); train_deepseek at full width cut to 2 of 27 layers
+TRAIN_BATCH, TRAIN_STEPS = 4, 5
+RESUME_LAYERS, RESUME_FROM, RESUME_STEPS = 1, 2, 4
+LEARN_LAYERS, LEARN_BATCH, LEARN_LEN, LEARN_STEPS = 2, 4, 1024, 8
+DEEPSEEK_LAYERS, DEEPSEEK_BATCH, DEEPSEEK_LEN, DEEPSEEK_STEPS = 2, 2, 2048, 3
+# the resumed run against the uninterrupted one: the loss of the first
+# resumed step is computed from the same bits (the checkpoint is exact)
+# on the same batch; later ones after updates whose embedding gradient is
+# summed with atomics in another order
+TRAIN_RESUME_LOSS_RTOL = 1e-3
+# train_grad's layer shapes: (tag, (B, H, Hk, S, D, Dv), dtype, scale)
+TRAIN_GRAD_CASES = (
+    ("granite", (1, 32, 8, 4096, 64, 64), torch.bfloat16, None),
+    ("deepseek", (1, 16, 16, 2048, 192, 128), torch.bfloat16, 192 ** -0.5),
+    ("float32", (1, 32, 8, 1024, 64, 64), torch.float32, None))
 
 
 def log(*a):
@@ -3383,6 +3443,455 @@ def lm_suite(args, counted, phases) -> dict:
     return shapes
 
 
+def written_gb():
+    """GB this process has handed to ``write`` calls (``wchar`` of
+    ``/proc/self/io``: files, pipes and the log alike; the launchers run
+    as subprocesses of their own), or None where that is unreadable.  A
+    run on the H100 host may write 45 GiB to its disk in all."""
+    try:
+        with open("/proc/self/io") as f:
+            for line in f:
+                if line.startswith("wchar:"):
+                    return int(line.split()[1]) / 1e9
+    except (OSError, ValueError):
+        pass
+    return None
+
+
+def grad_check(q, k, v, scale, tag, seed):
+    """``ops.FlashAttention`` (the kernel's forward, the chunked plain
+    backward) against autograd through ``ref.flash_attention_ref`` on
+    the same inputs and output gradient, causal, per element.
+
+    The two backwards differ in three ways, each bounded from this run's
+    tensors: (1) each rounds its gradients once to the inputs' type (bf16:
+    one ulp at max(|got|, |want|) covers both roundings); (2) float32
+    sums in another order (2^-12 x max |want| of the tensor); (3) the
+    Function's delta_i = rowsum(dO_i o O_i) reads the kernel's output,
+    the plain one the float32 output: with e_i = |rowsum(dO_i o (O_kernel
+    - O_f32))|, dS moves by P e_i, so |d dQ_i| <= scale e_i (P |K|)_i and
+    |d dK_j| <= scale (P^T (e |Q|))_j (query heads folded onto their KV
+    head); dV does not read O.  The tensor-core kernel's O carries its bf16
+    P and its bf16 output rounding, so (3) is what that rounding costs the
+    gradient."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    b, h, s, d = q.shape
+    hk, g = k.shape[1], h // k.shape[1]
+    do = torch.randn((b, h, s, v.shape[-1]), generator=gen,
+                     device=q.device).to(q.dtype)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    o = ops.flash_attention(*leaves, causal=True, scale=scale)
+    o.backward(do)
+    got = [x.grad for x in leaves]
+    plain = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    ref.flash_attention_ref(*plain, causal=True, scale=scale).backward(do)
+    want = [x.grad for x in plain]
+    sc = d ** -0.5 if scale is None else scale
+    with torch.no_grad():
+        qf, kf, vf = q.float(), k.float(), v.float()
+        o32 = ref.flash_attention_ref(qf, kf, vf, causal=True, scale=scale)
+        e = (do.float() * (o.detach().float() - o32)).sum(-1).abs()
+        kx = kf.repeat_interleave(g, 1)
+        logits = torch.einsum("bhsd,bhtd->bhst", qf, kx).mul_(sc)
+        logits.masked_fill_(torch.ones(s, s, dtype=torch.bool,
+                                       device=q.device).triu_(1),
+                            float("-inf"))
+        p = torch.softmax(logits, dim=-1)
+        del logits
+        moved = [sc * e[..., None] * (p @ kx.abs()),
+                 sc * torch.einsum("bhst,bhsd->bhtd", p,
+                                   e[..., None] * qf.abs())
+                 .reshape(b, hk, g, s, d).sum(2),
+                 torch.zeros_like(vf)]
+        del p, kx
+    out = {"shape": f"q {tuple(q.shape)} k {tuple(k.shape)} v "
+                    f"{tuple(v.shape)} {str(q.dtype)[6:]} causal",
+           "delta_term_max": float(e.max())}
+    ok = True
+    for name, gt, wt, mv in zip(("dq", "dk", "dv"), got, want, moved):
+        gt, wt = gt.float(), wt.float()
+        mag = torch.maximum(gt.abs(), wt.abs())
+        ulp = (torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126)))
+                          - 7) if q.dtype == torch.bfloat16
+               else torch.zeros_like(mag))
+        bound = ulp + 2.0 ** -12 * float(wt.abs().max()) + mv
+        err = (gt - wt).abs()
+        ratio = float((err / bound).max())
+        out[name] = dict(max_abs_err=float(err.max()),
+                         max_abs=float(wt.abs().max()),
+                         rel_to_max=float(err.max() / wt.abs().max()),
+                         worst_err_over_bound=ratio,
+                         delta_share_of_bound=float((mv / bound).max()))
+        ok = ok and ratio <= 1.0
+    log(f"train_grad {tag}: {out}")
+    if not ok:
+        raise AssertionError(f"train_grad {tag}: the Function's gradients "
+                             f"leave their bound: {out}")
+    return out
+
+
+def train_profile(step_fn):
+    """One training step under ``torch.profiler``: device ms by kind
+    (the flash forward kernels, matrix products, the rest), operations,
+    wall ms of the same step unprofiled is the caller's."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def kind(key):
+        k = key.lower()
+        if "flash_attention" in k:
+            return "flash_forward"
+        if any(w in k for w in ("gemm", "xmma", "cutlass", "cublas",
+                                "nvjet", "matmul")):
+            return "matrix_products"
+        return "other"
+    by = {}
+    for e in dev:
+        by[kind(e.key)] = by.get(kind(e.key), 0.0) + e.self_device_time_total
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(device_ms=sum(by.values()) / 1e3,
+                device_ops=sum(e.count for e in dev),
+                by_kind_ms={k: v / 1e3 for k, v in by.items()},
+                top=[(e.key[:60], round(e.self_device_time_total / 1e3, 3),
+                      e.count) for e in top])
+
+
+def train_paths(args, counted, phases, smi) -> dict:
+    """Step 9 (phases ``train``, ``train_resume``, ``train_learn``,
+    ``train_grad``, ``train_deepseek``); returns the flash kernels'
+    training sub-entries, {kernel: {phase: sub-entry}}."""
+    import shutil
+    from repro_torch.configs import granite_3_2b
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamW, tree_leaves
+
+    dev = torch.device("cuda")
+    cfg = granite_3_2b.CONFIG
+    n_params = cfg.param_count()
+    out = {"flash_attention": {}, "flash_attention_simt": {}}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def expect(phase, n, kernel="flash_attention"):
+        other = ({"flash_attention", "flash_attention_simt"}
+                 - {kernel}).pop()
+        got = phases[phase][kernel]
+        if got != n or phases[phase][other]:
+            raise AssertionError(f"phase {phase}: {got} {kernel} launches "
+                                 f"and {phases[phase][other]} {other}, "
+                                 f"expected {n} and 0 (a forward and a "
+                                 f"remat recompute a layer a step)")
+
+    def report(phase, history, tokens, peak, n):
+        for r in history:
+            flops_share = 6 * n * tokens / r["seconds"] / BF16_TC_OPS_PER_S
+            r.update(tokens_per_s=tokens / r["seconds"],
+                     model_flops_share=flops_share)
+            log(f"{phase} step {r['step']}: loss {r['loss']:.6f} ce "
+                f"{r['ce']:.6f} aux {r['aux']:.6f} grad_norm "
+                f"{r['grad_norm']:.6f} lr {r['lr']:.3e}; {r['seconds']:.3f} "
+                f"s, {r['tokens_per_s']:.1f} tokens/s, model FLOPs share "
+                f"{flops_share:.4f} (6 N tokens / s / 989 TFLOP/s) [{smi}]")
+            if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+                raise AssertionError(f"{phase} step {r['step']}: loss or "
+                                     f"grad norm not finite: {r}")
+        log(f"{phase}: peak memory {peak:.2f} GB (max_memory_allocated)")
+
+    # -- train: the launcher at full width and depth -------------------
+    seq = granite_3_2b.ARCH.shapes["train_4k"].meta["seq"]
+    tokens = TRAIN_BATCH * seq
+    log(f"train: {cfg.name} at full width and depth ({n_params} parameters, "
+        f"bf16, float32 master, m and v), train_4k at seq {seq}, batch CUT "
+        f"from 256 to {TRAIN_BATCH}, {TRAIN_STEPS} steps")
+    argv = ["--arch", cfg.name, "--shape", "train_4k", "--batch",
+            str(TRAIN_BATCH)]
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    run = counted("train", ("flash_attention",), lambda: train.main(
+        argv + ["--steps", str(TRAIN_STEPS)]))
+    wall = time.perf_counter() - t
+    expect("train", 2 * cfg.n_layers * TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    report("train", run.history, tokens, peak, n_params)
+    log(f"train: {TRAIN_STEPS} steps in {wall:.1f} s with the set-up "
+        f"({sum(r['seconds'] for r in run.history):.1f} s in the steps)")
+    # one more step, profiled (outside the counted phases)
+    batch = train.synthetic_batch(
+        train.cut_batch(granite_3_2b.ARCH, "train_4k", TRAIN_BATCH),
+        "train_4k", False, TRAIN_STEPS, dev)
+    step_fn = steps.make_step(granite_3_2b.ARCH, "train_4k", "train")
+    state = {"params": run.params, "opt": run.opt_state}
+    history = run.history
+    del run
+
+    def one_step():
+        state["params"], state["opt"], _ = step_fn(state["params"],
+                                                   state["opt"], batch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    prof = train_profile(one_step)
+    log(f"train profile of one step (wall {step_s:.3f} s unprofiled): "
+        f"device {prof['device_ms']:.1f} ms in {prof['device_ops']} "
+        f"operations, busy {prof['device_ms'] / (step_s * 1e3):.3f}; by "
+        f"kind {prof['by_kind_ms']}; top {prof['top']}")
+    # the kernel at the training shape: layer 0's own q, k, v
+    with Recorder(ops, ("flash_attention",), stop_after=1) as rec, \
+            torch.no_grad():
+        T.forward(state["params"], batch["tokens"], cfg)
+    q, k, v = rec.calls["flash_attention"][0][0][:3]
+    q, k, v = q.detach(), k.detach(), v.detach()
+    del state, step_fn, batch, rec
+    free()
+    check = tc_check(q[:1], k[:1], v[:1], "train, sequence 0")
+    times = kernel_times(lambda: ops.flash_attention(q, k, v),
+                         sdpa_call(q, k, v))
+    bms, bkind = flash_bound(q, k, v)
+    shape_entry = dict(
+        **times, bound_ms=bms, bound_by=bkind,
+        share_of_bound=bms / times["ms"],
+        plain_ms=cuda_time_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=True), min_iters=2),
+        check=check, max_abs_err=check["plain"]["max_abs_err"],
+        shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal "
+              f"(layer 0 of a training step's forward; checked on "
+              f"sequence 0)")
+    log(f"kernel flash_attention at the training shape: {shape_entry}")
+    del q, k, v
+    free()
+
+    # -- train_ckpt, train_resume: checkpoint and resume at full width,
+    #    depth cut (a full-depth checkpoint does not fit the disk's room)
+    ckpt = Path("build") / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    rcfg = dataclasses.replace(cfg, n_layers=RESUME_LAYERS)
+    r_params = rcfg.param_count()
+    log(f"train_resume: {cfg.name} at full width, DEPTH CUT from 40 to "
+        f"{RESUME_LAYERS} layers ({r_params} parameters, a checkpoint "
+        f"{14 * r_params / 1e9:.2f} GB; at full depth "
+        f"{14 * n_params / 1e9:.1f} GB, past what one run may write to "
+        f"the machine's disk with the other phases), {TRAIN_BATCH} x {seq}")
+    rargv = argv + ["--layers", str(RESUME_LAYERS)]
+    torch.cuda.reset_peak_memory_stats()
+    base = counted("train_resume_ref", ("flash_attention",),
+                   lambda: train.main(rargv + ["--steps", str(RESUME_STEPS)]))
+    expect("train_resume_ref", 2 * RESUME_LAYERS * RESUME_STEPS)
+    report("train_resume_ref", base.history, tokens,
+           torch.cuda.max_memory_allocated() / 1e9, r_params)
+    uninterrupted = {r["step"]: r for r in base.history}
+    lrs = [r["lr"] for r in base.history]
+    first = {k: v.detach().cpu() for k, v in T.flatten(base.params).items()}
+    del base
+    free()
+    ck_args = ["--ckpt-dir", str(ckpt), "--ckpt-every", str(RESUME_FROM)]
+    t = time.perf_counter()
+    counted("train_ckpt", ("flash_attention",), lambda: train.main(
+        rargv + ck_args + ["--steps", str(RESUME_FROM)]))
+    save_s = time.perf_counter() - t
+    expect("train_ckpt", 2 * RESUME_LAYERS * RESUME_FROM)
+    t = time.perf_counter()
+    resumed = counted("train_resume", ("flash_attention",),
+                      lambda: train.main(rargv + ck_args
+                                         + ["--steps", str(RESUME_STEPS)]))
+    resume_s = time.perf_counter() - t
+    expect("train_resume", 2 * RESUME_LAYERS * (RESUME_STEPS - RESUME_FROM))
+    if resumed.start != RESUME_FROM:
+        raise AssertionError(f"train_resume started at {resumed.start}")
+    report("train_resume", resumed.history, tokens,
+           torch.cuda.max_memory_allocated() / 1e9, r_params)
+    gaps = [abs(r["loss"] - uninterrupted[r["step"]]["loss"])
+            / abs(uninterrupted[r["step"]]["loss"]) for r in resumed.history]
+    # parameters: Adam moves a parameter by at most lr_t (1 + wd |p|) a
+    # step, so a sign flip of a near-zero gradient between the runs moves
+    # it by up to 2 sum lr_t over the steps, plus a bf16 ulp
+    atol = 2 * sum(lrs) * 1.01
+    worst = 0.0
+    for path, t1 in T.flatten(resumed.params).items():
+        a, b = t1.detach().float().cpu(), first[path].float()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126))) - 7)
+        worst = max(worst, float(((a - b).abs() / (atol + ulp)).max()))
+    log(f"train_resume: {RESUME_FROM} steps and a checkpoint in {save_s:.1f}"
+        f" s; resumed from step {resumed.start} to {RESUME_STEPS} in "
+        f"{resume_s:.1f} s (restore, steps, a checkpoint); loss relative "
+        f"gaps to the uninterrupted run at steps "
+        f"{[r['step'] for r in resumed.history]}: {gaps} (gate "
+        f"{TRAIN_RESUME_LOSS_RTOL}); parameters at step {RESUME_STEPS}: "
+        f"worst |diff| / (2 sum lr_t + ulp) = {worst:.4f}")
+    if max(gaps) > TRAIN_RESUME_LOSS_RTOL or worst > 1.0:
+        raise AssertionError("train_resume: the resumed run leaves the "
+                             "uninterrupted one")
+    train_entry = dict(
+        steps=history, peak_gb=peak, profile=prof,
+        step_s_profiled_step=step_s, resumed_steps=resumed.history,
+        resume_loss_gaps=gaps, resume_param_worst=worst,
+        checkpoint_s=save_s, resume_s=resume_s, train_shape=shape_entry,
+        launches=phases["train"]["flash_attention"],
+        batch=f"{TRAIN_BATCH} x {seq} (train_4k's 256 CUT to "
+              f"{TRAIN_BATCH})")
+    del resumed, first
+    free()
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    # -- train_learn: 2 layers at full width learn one batch ------------
+    cfg2 = dataclasses.replace(cfg, n_layers=LEARN_LAYERS)
+    arch2 = dataclasses.replace(granite_3_2b.ARCH, config=cfg2)
+    params = T.init_params(cfg2, torch.Generator(device=dev).manual_seed(
+        args.seed), dev)
+    opt = AdamW(lr=3e-3, warmup_steps=1)
+    state = opt.init(params)
+    step_fn = steps.make_step(arch2, "train_4k", "train", optimizer=opt)
+    toks = torch.as_tensor(np.random.default_rng(args.seed + 7).integers(
+        0, cfg.vocab, (LEARN_BATCH, LEARN_LEN)), dtype=torch.int32,
+        device=dev)
+
+    def learn():
+        nonlocal params, state
+        losses = []
+        for _ in range(LEARN_STEPS):
+            params, state, m = step_fn(params, state, {"tokens": toks,
+                                                        "labels": toks})
+            losses.append(float(m["loss"]))
+        return losses
+    losses = counted("train_learn", ("flash_attention",), learn)
+    expect("train_learn", 2 * LEARN_LAYERS * LEARN_STEPS)
+    log(f"train_learn: {cfg.name} at full width cut to {LEARN_LAYERS} "
+        f"layers, {LEARN_STEPS} steps at lr 3e-3, warm-up 1, on one "
+        f"{LEARN_BATCH} x {LEARN_LEN} batch (labels = tokens): losses "
+        f"{losses}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0] - 0.1):
+        raise AssertionError(f"train_learn: the loss did not fall by 0.1: "
+                             f"{losses}")
+    del params, state, step_fn
+    free()
+
+    # -- train_grad: the Function against autograd through the plain
+    #    version, at the models' layer shapes, and a whole model ---------
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
+    checks = {}
+    for i, (tag, (b, h, hk, s, d, dv), dt, scale) in enumerate(
+            TRAIN_GRAD_CASES):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                   for shape in ((b, h, s, d), (b, hk, s, d), (b, hk, s, dv)))
+        checks[tag] = grad_check(q, k, v, scale, f"{tag} {str(dt)[6:]}",
+                                 args.seed + i)
+        del q, k, v
+        free()
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params = T.init_params(cfg32, torch.Generator(device=dev).manual_seed(
+        args.seed), dev)
+    toks = torch.as_tensor(np.random.default_rng(args.seed + 13).integers(
+        0, cfg.vocab, (2, 2, 512)), dtype=torch.int32, device=dev)
+    batch = {"tokens": toks[0], "labels": toks[1]}
+
+    def model_grads():
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+            p.grad = None
+        loss, _ = T.loss_fn(params, batch, cfg32)
+        loss.backward()
+        return float(loss.detach()), {k: v.grad.detach().clone()
+                             for k, v in T.flatten(params).items()}
+    kernel_loss, kernel_grads = counted("train_grad",
+                                        ("flash_attention_simt",),
+                                        model_grads)
+    expect("train_grad", 2 * cfg32.n_layers, "flash_attention_simt")
+    saved = ops.flash_attention
+    ops.flash_attention = ref.flash_attention_ref     # all plain
+    try:
+        plain_loss, plain_grads = model_grads()
+    finally:
+        ops.flash_attention = saved
+    model_worst = 0.0
+    for path, gk in kernel_grads.items():
+        gp = plain_grads[path]
+        model_worst = max(model_worst, float((gk - gp).abs().max())
+                          / (1e-4 * float(gp.abs().max())))
+    log(f"train_grad model: {cfg.name} full width at 2 layers in float32, "
+        f"2 x 512 tokens: loss {kernel_loss} (kernel path) against "
+        f"{plain_loss} (plain); every gradient leaf within 1e-4 x its max "
+        f"|plain|: worst {model_worst:.4f} of that")
+    if model_worst > 1.0 or abs(kernel_loss - plain_loss) > 1e-5 * abs(
+            plain_loss):
+        raise AssertionError("train_grad: the kernel path's model gradient "
+                             "leaves the plain one")
+    del params, kernel_grads, plain_grads
+    free()
+
+    # -- train_deepseek: MLA 192/128 and the MoE under backward ---------
+    from repro_torch.configs import deepseek_v2_lite_16b
+    dcfg = dataclasses.replace(deepseek_v2_lite_16b.CONFIG,
+                               n_layers=DEEPSEEK_LAYERS)
+    darch = dataclasses.replace(deepseek_v2_lite_16b.ARCH, config=dcfg)
+    params = T.init_params(dcfg, torch.Generator(device=dev).manual_seed(
+        args.seed), dev)
+    opt = steps.make_optimizer("lm")
+    state = opt.init(params)
+    step_fn = steps.make_step(darch, "train_4k", "train")
+    rng = np.random.default_rng(args.seed + 17)
+    torch.cuda.reset_peak_memory_stats()
+
+    def deepseek():
+        nonlocal params, state
+        hist = []
+        for i in range(DEEPSEEK_STEPS):
+            toks = torch.as_tensor(rng.integers(
+                0, dcfg.vocab, (2, DEEPSEEK_BATCH, DEEPSEEK_LEN)),
+                dtype=torch.int32, device=dev)
+            t0 = time.perf_counter()
+            with DropCounter() as routes:
+                params, state, m = step_fn(params, state,
+                                           {"tokens": toks[0],
+                                            "labels": toks[1]})
+            rec = {"step": i, "seconds": time.perf_counter() - t0,
+                   **{k: float(v) for k, v in m.items()}}
+            # remat: the layers' forward, then their recompute in reverse
+            n = dcfg.n_layers
+            first, again = routes.experts[:n], routes.experts[n:][::-1]
+            rec["remat_routes_equal"] = len(again) == n and all(
+                torch.equal(a, b) for a, b in zip(first, again))
+            hist.append(rec)
+        return hist
+    dhist = counted("train_deepseek", ("flash_attention",), deepseek)
+    expect("train_deepseek", 2 * DEEPSEEK_LAYERS * DEEPSEEK_STEPS)
+    dpeak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"train_deepseek: {dcfg.name} at full width (MLA 192/128, "
+        f"{dcfg.n_experts} experts top-{dcfg.top_k} + {dcfg.n_shared} "
+        f"shared), DEPTH CUT from 27 to {DEEPSEEK_LAYERS} layers, "
+        f"{dcfg.param_count()} parameters, {DEEPSEEK_STEPS} steps at "
+        f"{DEEPSEEK_BATCH} x {DEEPSEEK_LEN}: {dhist}; peak {dpeak:.2f} GB")
+    if not all(np.isfinite(r["loss"]) and r["remat_routes_equal"]
+               for r in dhist):
+        raise AssertionError(f"train_deepseek: a loss is not finite or a "
+                             f"remat recompute routed otherwise: {dhist}")
+    del params, state, step_fn
+    free()
+    out["flash_attention"]["train"] = dict(
+        **train_entry, grad_check_granite=checks["granite"],
+        grad_check_deepseek=checks["deepseek"],
+        learn_losses=losses, deepseek_steps=dhist, deepseek_peak_gb=dpeak,
+        launches_learn=phases["train_learn"]["flash_attention"],
+        launches_deepseek=phases["train_deepseek"]["flash_attention"])
+    out["flash_attention_simt"]["train"] = dict(
+        grad_check=checks["float32"], model_grad_worst=model_worst,
+        launches=phases["train_grad"]["flash_attention_simt"])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3440,7 +3949,9 @@ def main() -> int:
                                  f"launched: {counts}")
         return out
 
+    log(f"written by this process: {written_gb()} GB")
     entries = ssh_paths(args, counted, phases)
+    log(f"written by this process: {written_gb()} GB")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"SSH state freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
@@ -3451,7 +3962,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"subsequence phases: {time.perf_counter() - t:.1f} s; state "
         f"freed, {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
-        f"allocated")
+        f"allocated; written by this process: {written_gb()} GB")
     for e in entries:
         if "launches_by_phase" in e:
             e["launches_by_phase"].update(
@@ -3465,13 +3976,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     t = time.perf_counter()
     suite = lm_suite(args, counted, phases)
-    log(f"LM suite phases: {time.perf_counter() - t:.1f} s")
+    log(f"LM suite phases: {time.perf_counter() - t:.1f} s; written by "
+        f"this process: {written_gb()} GB")
     for e in entries:
         if e["name"] in suite:
             e["suite_shapes"] = suite[e["name"]]
             e.setdefault("launches_by_phase", {}).update(
                 {p: c[e["name"]] for p, c in phases.items()
                  if p.startswith("lm_")})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    trained = train_paths(args, counted, phases, smi)
+    log(f"training phases: {time.perf_counter() - t:.1f} s; written by "
+        f"this process: {written_gb()} GB")
+    for e in entries:
+        if e["name"] in trained:
+            e["train_shapes"] = trained[e["name"]]
+            e.setdefault("launches_by_phase", {}).update(
+                {p: c[e["name"]] for p, c in phases.items()
+                 if p.startswith("train")})
 
     for e in entries:
         log(f"kernel {e['name']}: device ms {e['ms']:.4f} call ms "
@@ -3487,7 +4011,7 @@ def main() -> int:
             f" by events alone {e.get('events_ms')} ms")
         for extra in ("query_shape", "sequential_shape", "long_shape",
                       "engine_shapes", "stream_shape", "fleet_shapes",
-                      "suite_shapes"):
+                      "suite_shapes", "train_shapes"):
             if extra in e:
                 log(f"kernel {e['name']} at the {extra.split('_')[0]} shape: "
                     f"{e[extra]}")

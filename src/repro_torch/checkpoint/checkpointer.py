@@ -12,10 +12,18 @@ A checkpoint of step s is the directory ``step_%010d``:
 It is written to a temporary directory and published with ``os.replace``,
 so a crashed writer never leaves a half-written step behind; the newest
 ``keep`` steps are kept.  Trees are nested dicts (keys taken in sorted
-order, as jax flattens dicts), lists and tuples of arrays; an array's key
-is its path joined by ``/`` (``"a/b"``, ``"layers/0"``).  Leaves may be
-numpy arrays, CPU or CUDA tensors, or Python numbers; a restore returns
-numpy arrays in the structure of ``tree_like``.
+order, as jax flattens dicts), NamedTuples, lists and tuples of arrays;
+an array's key is its path joined by ``/``, a NamedTuple's field named
+``.<field>`` as jax's ``GetAttrKey`` prints it (``"a/b"``, ``"layers/0"``,
+``"opt/.m/embed"``).  Leaves may be numpy arrays, CPU or CUDA tensors, or
+Python numbers; a restore returns numpy arrays in the structure of
+``tree_like``.
+
+bfloat16 is stored as the reference stores it: numpy has no bfloat16, so
+``np.savez`` writes the 2-byte void type ``|V2`` and the manifest says
+``"bfloat16"``.  The port writes a bf16 tensor through a ``uint16`` view
+(no ``ml_dtypes`` needed) and restores such an array, by the manifest's
+dtype, as a ``torch.bfloat16`` CPU tensor, bit for bit.
 """
 from __future__ import annotations
 
@@ -33,20 +41,53 @@ import torch
 Tree = Any
 
 
-def _host(leaf) -> np.ndarray:
+BF16 = "bfloat16"
+
+
+def _host(leaf) -> Tuple[np.ndarray, str]:
+    """(the leaf as a numpy array, the dtype name the manifest records);
+    a bf16 tensor becomes its bits as ``|V2``."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.uint16).numpy().view(np.dtype("V2")), BF16
+        return t.numpy(), str(t.numpy().dtype)
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _snapshot(leaf):
+    """A host copy of ``leaf`` that later in-place updates of it do not
+    reach (a tensor stays a tensor, so bf16 keeps its type)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True)
+    return np.array(leaf, copy=True)
+
+
+def _from_disk(arr: np.ndarray, dtype: str):
+    """An array read back, by its manifest dtype: ``|V2`` bfloat16 as a
+    ``torch.bfloat16`` tensor, the rest as numpy arrays."""
+    if dtype == BF16:
+        return torch.from_numpy(
+            np.ascontiguousarray(arr).view(np.uint16)).view(torch.bfloat16)
+    return arr
+
+
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
 
 
 def _flatten_with_paths(tree: Tree, prefix: str = ""
                         ) -> List[Tuple[str, Any]]:
-    """(key, leaf) pairs in jax's order: dict keys sorted, sequences by
-    index; ``None`` holds no leaf."""
+    """(key, leaf) pairs in jax's order: dict keys sorted, NamedTuple
+    fields in order as ``.<field>``, sequences by index; ``None`` holds no
+    leaf."""
     if tree is None:
         return []
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif _is_namedtuple(tree):
+        items = [(f".{f}", getattr(tree, f)) for f in tree._fields]
     elif isinstance(tree, (list, tuple)):
         items = [(str(i), v) for i, v in enumerate(tree)]
     else:
@@ -65,6 +106,11 @@ def _unflatten(tree_like: Tree, leaves: Dict[str, Any], prefix: str = ""
         return {k: _unflatten(v, leaves, f"{prefix}/{k}" if prefix
                               else str(k))
                 for k, v in tree_like.items()}
+    if _is_namedtuple(tree_like):
+        return type(tree_like)._make(
+            _unflatten(getattr(tree_like, f), leaves,
+                       f"{prefix}/.{f}" if prefix else f".{f}")
+            for f in tree_like._fields)
     if isinstance(tree_like, (list, tuple)):
         return type(tree_like)(
             _unflatten(v, leaves, f"{prefix}/{i}" if prefix else str(i))
@@ -86,11 +132,11 @@ def save_checkpoint(directory: str | Path, step: int, tree: Tree,
                                 "n_shards": n_shards, "arrays": {}}
     shards: List[Dict[str, np.ndarray]] = [{} for _ in range(n_shards)]
     for key, leaf in _flatten_with_paths(tree):
-        arr = _host(leaf)
+        arr, dtype = _host(leaf)
         ax = (0 if arr.ndim and arr.shape[0] % n_shards == 0
               and n_shards > 1 else None)
         manifest["arrays"][key] = {"shape": list(arr.shape),
-                                   "dtype": str(arr.dtype),
+                                   "dtype": dtype,
                                    "shard_axis": ax}
         if ax is None:
             shards[0][key] = arr
@@ -130,7 +176,8 @@ def restore_checkpoint(directory: str | Path, tree_like: Tree,
                        step: Optional[int] = None) -> Tuple[int, Tree]:
     """Restore step ``step`` (the latest when None) into the structure of
     ``tree_like``, whose leaves give the expected shapes (arrays or
-    tensors); returns ``(step, tree of numpy arrays)``."""
+    tensors); returns ``(step, tree of numpy arrays)``, bfloat16 arrays
+    as ``torch.bfloat16`` tensors."""
     directory = Path(directory)
     step = step if step is not None else latest_step(directory)
     if step is None:
@@ -143,10 +190,11 @@ def restore_checkpoint(directory: str | Path, tree_like: Tree,
         arrays: Dict[str, np.ndarray] = {}
         for key, info in manifest["arrays"].items():
             if info["shard_axis"] is None:
-                arrays[key] = shards[0][key]
+                arr = shards[0][key]
             else:
-                arrays[key] = np.concatenate(
+                arr = np.concatenate(
                     [s[key] for s in shards], axis=info["shard_axis"])
+            arrays[key] = _from_disk(arr, info["dtype"])
     finally:
         for s in shards:
             s.close()
@@ -184,7 +232,7 @@ class Checkpointer:
             return
         # the writer must not see later in-place updates of the caller's
         # arrays: copy every leaf to the host now
-        host = _unflatten(tree, {k: _host(v).copy()
+        host = _unflatten(tree, {k: _snapshot(v)
                                  for k, v in _flatten_with_paths(tree)})
 
         def write():

@@ -3,6 +3,7 @@
 ``repro.configs.dbrx_132b``)."""
 import dataclasses
 
+from repro_torch.configs.base import ArchDef, lm_shapes
 from repro_torch.models.transformer import LMConfig
 
 CONFIG = LMConfig(
@@ -15,3 +16,6 @@ SMOKE = dataclasses.replace(
     CONFIG, n_layers=2, d_model=96, n_heads=6, n_kv_heads=2, d_ff=128,
     vocab=256, n_experts=4, top_k=2, moe_d_ff=64, moe_group_size=64,
     q_chunk=16, kv_chunk=16)
+
+ARCH = ArchDef(name="dbrx-132b", family="lm", config=CONFIG,
+               smoke_config=SMOKE, shapes=lm_shapes())

@@ -9,6 +9,7 @@ config (bracketed values used here) has 64 routed experts.
 """
 import dataclasses
 
+from repro_torch.configs.base import ArchDef, lm_shapes
 from repro_torch.models.transformer import LMConfig
 
 CONFIG = LMConfig(
@@ -24,3 +25,6 @@ SMOKE = dataclasses.replace(
     vocab=256, n_experts=8, top_k=2, n_shared=1, moe_d_ff=32,
     moe_group_size=64, kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8,
     v_head_dim=16, q_chunk=16, kv_chunk=16)
+
+ARCH = ArchDef(name="deepseek-v2-lite-16b", family="lm", config=CONFIG,
+               smoke_config=SMOKE, shapes=lm_shapes())

@@ -2,6 +2,7 @@
 d_ff=8192, vocab=49155 (counterpart of ``repro.configs.granite_3_2b``)."""
 import dataclasses
 
+from repro_torch.configs.base import ArchDef, lm_shapes
 from repro_torch.models.transformer import LMConfig
 
 CONFIG = LMConfig(
@@ -11,3 +12,6 @@ CONFIG = LMConfig(
 SMOKE = dataclasses.replace(
     CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
     vocab=256, q_chunk=16, kv_chunk=16)
+
+ARCH = ArchDef(name="granite-3-2b", family="lm", config=CONFIG,
+               smoke_config=SMOKE, shapes=lm_shapes())

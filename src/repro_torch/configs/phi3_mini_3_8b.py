@@ -3,6 +3,7 @@ d_ff=8192, vocab=32064, RoPE SwiGLU (counterpart of
 ``repro.configs.phi3_mini_3_8b``)."""
 import dataclasses
 
+from repro_torch.configs.base import ArchDef, lm_shapes
 from repro_torch.models.transformer import LMConfig
 
 CONFIG = LMConfig(
@@ -12,3 +13,6 @@ CONFIG = LMConfig(
 SMOKE = dataclasses.replace(
     CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
     vocab=256, q_chunk=16, kv_chunk=16)
+
+ARCH = ArchDef(name="phi3-mini-3.8b", family="lm", config=CONFIG,
+               smoke_config=SMOKE, shapes=lm_shapes())

@@ -160,12 +160,37 @@ def cs_tables(bucket: torch.Tensor, sign: torch.Tensor, width: int
     return ref.cs_tables_ref(bucket, sign, width)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: the forward is the flash kernel on a
+    CUDA tensor and the plain version on the CPU; the backward is
+    ``ref.flash_attention_bwd_ref``, plain PyTorch chunked over query
+    rows, on either (the reference has no backward kernel: ``jax.grad``
+    differentiates its chunked jnp attention).  It keeps q, k, v and the
+    output for the backward, no (S, T) logits."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        if _route(q):
+            o = _fa.flash_attention(q, k, v, causal, scale)
+        else:
+            o = ref.flash_attention_ref(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, o, do, ctx.causal,
+                                                 ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None
                     ) -> torch.Tensor:
     """Fused attention q (B, H, S, D), k (B, Hk, T, D), v (B, Hk, T, Dv)
     -> (B, H, S, Dv); query head h reads KV head h // (H / Hk); under
-    ``causal`` query i sees keys 0..i."""
-    if _route(q):
-        return _fa.flash_attention(q, k, v, causal, scale)
-    return ref.flash_attention_ref(q, k, v, causal, scale)
+    ``causal`` query i sees keys 0..i.  Differentiable
+    (:class:`FlashAttention`; no graph where no input requires grad)."""
+    return FlashAttention.apply(q, k, v, causal, scale)

@@ -253,15 +253,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The reference's oracle (``repro/kernels/ref.py:126-136``) with the
     KV heads repeated (head h reads KV head h // (H / Hk)), computed in
-    float32 throughout and rounded to q's type once, as the kernel does:
-    the (B, H, S, T) float32 logits are materialised.  Under ``causal``
-    query i sees keys 0..i, as the TPU kernel has it; that is the
-    reference's mask when S == T (it aligns the queries to the end of the
-    keys when S < T).
+    float32 throughout (float64 for float64 inputs, which gradient checks
+    take) and rounded to q's type once, as the kernel does: the (B, H, S,
+    T) logits are materialised.  Under ``causal`` query i sees keys 0..i,
+    as the TPU kernel has it; that is the reference's mask when S == T
+    (it aligns the queries to the end of the keys when S < T).
     """
     h, s, d = q.shape[1:]
     hk, t = k.shape[1], k.shape[2]
-    qf, kf, vf = q.float(), k.float(), v.float()
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf = q.to(acc), k.to(acc), v.to(acc)
     if h != hk:
         kf = kf.repeat_interleave(h // hk, dim=1)
         vf = vf.repeat_interleave(h // hk, dim=1)
@@ -274,6 +275,84 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     del logits
     return torch.einsum("bhst,bhtd->bhsd", probs, vf).to(q.dtype)
+
+
+#: elements of one (B, H, rows, keys) block of the chunked backward: four
+#: such float32 tensors (logits, weights, dP, dS) live at once, 2 GB
+BWD_BLOCK_ELEMS = 1 << 27
+
+
+def bwd_block_rows(b: int, h: int, s: int, t: int) -> int:
+    """Query rows a block of :func:`flash_attention_bwd_ref`: the most
+    that keep B * H * rows * T within ``BWD_BLOCK_ELEMS``, a multiple of
+    64 when more than 64 fit, at least 1, at most S."""
+    rows = max(1, BWD_BLOCK_ELEMS // max(1, b * h * t))
+    if rows > 64:
+        rows -= rows % 64
+    return min(rows, s)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, causal: bool = False,
+                            scale: Optional[float] = None):
+    """Gradients (dq, dk, dv) of :func:`flash_attention_ref` at output
+    ``o`` and output gradient ``do``, chunked over blocks of query rows.
+
+    q (B, H, S, D), k (B, Hk, T, D), v (B, Hk, T, Dv), o and do (B, H, S,
+    Dv) -> dq, dk, dv in the inputs' types.  Each block recomputes its
+    logits S = q kᵀ · scale under the causal mask (a causal block reads
+    only the keys up to its last row), the weights P = softmax(S) in
+    float32 (float64 for float64 inputs), then dV += Pᵀ dO, dP = dO Vᵀ,
+    dS = P ∘ (dP − rowsum(dO ∘ O)), dQ = dS K · scale, dK += dSᵀ Q ·
+    scale.  The query heads of a KV head (h // (H / Hk)) are summed into
+    its dK and dV.  ``o`` is the forward's output as it was returned
+    (from the tensor-core kernel, computed with P rounded to bf16), so in
+    bf16 rowsum(dO ∘ O) carries that rounding beside the float32 P.
+
+    This is the gradient ``jax.grad`` takes of the reference's chunked
+    ``chunked_attention`` (the reference has no backward kernel), without
+    the (B, H, S, T) logits that autograd through
+    :func:`flash_attention_ref` would keep: a block holds B * H * rows *
+    T elements (:func:`bwd_block_rows`).
+    """
+    b, h, s, d = q.shape
+    hk, t, dv_dim = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // hk
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scale = d ** -0.5 if scale is None else scale
+    rows = bwd_block_rows(b, h, s, t)
+    # (B, Hk, g, ., .): query head h = kv * g + j reads KV head kv
+    qf = q.to(acc).reshape(b, hk, g, s, d)
+    dof = do.to(acc).reshape(b, hk, g, s, dv_dim)
+    delta = (dof * o.to(acc).reshape(b, hk, g, s, dv_dim)).sum(-1)
+    kf, vf = k.to(acc), v.to(acc)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros((b, hk, t, d), dtype=acc, device=q.device)
+    dv = torch.zeros((b, hk, t, dv_dim), dtype=acc, device=q.device)
+    for r0 in range(0, s, rows):
+        r1 = min(s, r0 + rows)
+        tk = min(t, r1) if causal else t        # keys any row here sees
+        q_b, do_b = qf[:, :, :, r0:r1], dof[:, :, :, r0:r1]
+        k_b, v_b = kf[:, :, :tk], vf[:, :, :tk]
+        logits = torch.einsum("bkgsd,bktd->bkgst", q_b, k_b).mul_(scale)
+        if causal:
+            above = (torch.arange(r0, r1, device=q.device)[:, None]
+                     < torch.arange(tk, device=q.device)[None, :])
+            logits.masked_fill_(above, float("-inf"))
+        p = torch.softmax(logits, dim=-1)
+        del logits
+        dv[:, :, :tk] += torch.einsum("bkgst,bkgsd->bktd", p, do_b)
+        dp = torch.einsum("bkgsd,bktd->bkgst", do_b, v_b)
+        ds = dp.sub_(delta[:, :, :, r0:r1, None]).mul_(p)
+        del p
+        dq[:, :, :, r0:r1] = torch.einsum("bkgst,bktd->bkgsd", ds,
+                                          k_b).mul_(scale)
+        dk[:, :, :tk] += torch.einsum("bkgst,bkgsd->bktd", ds,
+                                      q_b).mul_(scale)
+        del ds
+    return (dq.reshape(b, h, s, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def simt_tiling(d: int):

@@ -37,14 +37,12 @@ import numpy as np
 import torch
 
 from repro_torch.bench.timing import StageTimer
-from repro_torch.configs import (dbrx_132b, deepseek_v2_lite_16b,
-                                 granite_3_2b, granite_3_8b, phi3_mini_3_8b)
+from repro_torch.configs.registry import get_arch, list_archs
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 
-LM_ARCHS = {m.CONFIG.name: m for m in (
-    granite_3_2b, granite_3_8b, phi3_mini_3_8b, dbrx_132b,
-    deepseek_v2_lite_16b)}
+#: the LM arches of ``configs.registry`` (``ArchDef``s) by ``--arch`` id
+LM_ARCHS = {name: get_arch(name) for name in list_archs("lm")}
 
 
 @dataclasses.dataclass
@@ -301,7 +299,6 @@ def main(argv=None) -> int:
                     help="ssh: kernel backend knob of the query path")
     args = ap.parse_args(argv)
     if args.arch.startswith("ssh"):
-        from repro_torch.configs.registry import get_arch
         arch = get_arch(args.arch)
         if args.sequential:
             serve_ssh_sequential(arch, args.requests, backend=args.backend,
@@ -316,8 +313,8 @@ def main(argv=None) -> int:
         return 0
     if args.arch not in LM_ARCHS:
         ap.error(f"--arch {args.arch}: the port serves {sorted(LM_ARCHS)}")
-    mod = LM_ARCHS[args.arch]
-    cfg = mod.SMOKE if args.smoke else mod.CONFIG
+    arch = LM_ARCHS[args.arch]
+    cfg = arch.smoke_config if args.smoke else arch.config
     dev = ops.resolve_device(args.device)
     res = serve_lm(cfg, batch=args.batch, prompt_len=args.prompt_len,
                    gen_len=args.gen_len, seed=args.seed, device=dev)

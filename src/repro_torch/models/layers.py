@@ -7,9 +7,12 @@ version on the CPU.  The reference computes the same function chunk by
 chunk in jnp; it rounds the softmax weights to the model dtype before
 the product with V, as the tensor-core kernel does, where the plain
 version and the float32 kernel keep them in float32, so the two agree
-to float32 reordering in float32 and to bf16 rounding in bf16.
-:func:`decode_attention` (one query token against the cache) is plain
-PyTorch, as the reference's is plain jnp.
+to float32 reordering in float32 and to bf16 rounding in bf16.  Its gradient, where the inputs require one,
+is ``ops.FlashAttention``'s backward: plain PyTorch chunked over query
+rows, the gradient ``jax.grad`` takes of the reference's chunked
+computation.  :func:`decode_attention` (one query token against the
+cache) and :func:`cross_entropy_loss` are plain PyTorch, as the
+reference's are plain jnp.
 """
 from __future__ import annotations
 
@@ -104,3 +107,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", probs.to(v.dtype), v)
     return out.reshape(b, 1, h, dv).to(v.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross entropy, logits (..., V) upcast to float32:
+    logsumexp - the gold logit, averaged over the tokens (over the masked
+    ones, at least 1, when ``mask`` is given)."""
+    logits = logits.float()
+    nll = (torch.logsumexp(logits, dim=-1)
+           - logits.gather(-1, labels.long()[..., None])[..., 0])
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

@@ -1,5 +1,5 @@
-"""Decoder-only transformer for serving: prefill and KV-cache decode
-(counterpart of ``repro.models.transformer``).
+"""Decoder-only transformer: the training forward and loss, prefill and
+KV-cache decode (counterpart of ``repro.models.transformer``).
 
 Every LM configuration of the repo: dense SwiGLU + GQA (granite-3-2b,
 granite-3-8b, phi3-mini), MoE + GQA (dbrx) and MoE with shared experts +
@@ -13,10 +13,15 @@ axis: ``wq`` (L, d, H, hd), ``wk``/``wv`` (L, d, Hk, hd), ``wo``
 dtype, ``we_gate``/``we_up`` (L, E, d, ff), ``we_down`` (L, E, ff, d)
 and, with shared experts, ``ws_gate``/``ws_up`` (L, d, n_shared ff),
 ``ws_down`` (L, n_shared ff, d); norms (L, d); ``embed`` (V, d),
-``head`` (d, V), ``ln_f`` (d,).  The layers run in a Python loop
-(PyTorch runs eagerly; the reference's ``lax.scan`` and remat have no
-counterpart in inference), and the reference's sharding constraints
-are dropped: this runs on one card.
+``head`` (d, V), ``ln_f`` (d,).  The layers run in a Python loop over
+the stacked tensors unbound along L (PyTorch runs eagerly: the
+reference's ``lax.scan``), so that their gradients are stacked once and
+not scattered into a zeroed (L, ...) tensor a layer.  Under grad with
+``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` with ``nothing_saveable``): only the
+layer's input is kept and its forward, the flash kernel included, runs
+again in the backward.  The reference's sharding constraints are
+dropped: this runs on one card.
 
 The cache is ``{"k", "v": (L, B, T, Hk, hd), "length": (B,) int32}``,
 for MLA the compressed ``{"c": (L, B, T, r), "k_rope": (L, B, T, dr),
@@ -31,6 +36,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers
@@ -244,58 +250,79 @@ def _mla_attention(p, x: torch.Tensor, cfg: LMConfig,
     return o.flatten(2) @ p["wo"].flatten(0, 1)
 
 
-def _ffn(p, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+def _ffn(p, x: torch.Tensor, cfg: LMConfig
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense SwiGLU, or the routed experts plus the shared ones
-    (``transformer.py:206-215``).  The MoE auxiliary loss is dropped: it
-    serves training only (ROADMAP.md §1 item 7.4)."""
+    (``transformer.py:206-215``), and the layer's MoE auxiliary loss
+    (float32 zero for a dense model)."""
     if not cfg.moe:
-        return layers.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
-    y, _ = moe_ffn(x, p["router"], p["we_gate"], p["we_up"], p["we_down"],
-                   cfg.moe_cfg)
+        return (layers.swiglu(x, p["w_gate"], p["w_up"], p["w_down"]),
+                x.new_zeros((), dtype=torch.float32))
+    y, aux = moe_ffn(x, p["router"], p["we_gate"], p["we_up"],
+                     p["we_down"], cfg.moe_cfg)
     if cfg.n_shared:
         y = y + layers.swiglu(x, p["ws_gate"], p["ws_up"], p["ws_down"])
-    return y
+    return y, aux
 
 
-def _layer(p, x: torch.Tensor, cfg: LMConfig,
-           positions: torch.Tensor) -> torch.Tensor:
+def _layer(p, x: torch.Tensor, cfg: LMConfig, positions: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     attn = _mla_attention if cfg.mla else _gqa_attention
     h = x + attn(p, layers.rms_norm(x, p["ln_attn"]), cfg, positions)
-    return h + _ffn(p, layers.rms_norm(h, p["ln_mlp"]), cfg)
+    y, aux = _ffn(p, layers.rms_norm(h, p["ln_mlp"]), cfg)
+    return h + y, aux
 
 
 def _trunk(params: Params, tokens: torch.Tensor, cfg: LMConfig
-           ) -> torch.Tensor:
-    """tokens (B, S) -> final-normed hidden states (B, S, d)."""
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (final-normed hidden states (B, S, d), the MoE
+    auxiliary loss summed over the layers)."""
     x = params["embed"][tokens].to(cfg.torch_dtype)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = x.new_zeros((), dtype=torch.float32)
     for i in range(cfg.n_layers):
-        x = _layer(_layer_params(params, i), x, cfg, positions)
-    return layers.rms_norm(x, params["ln_f"])
+        p = {k: v[i] for k, v in per_layer.items()}
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                _layer, p, x, cfg, positions, use_reentrant=False)
+        else:
+            x, a = _layer(p, x, cfg, positions)
+        aux = aux + a
+    return layers.rms_norm(x, params["ln_f"]), aux
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LMConfig
-            ) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V).  The reference also returns the
-    MoE auxiliary loss (zero for a dense model); it serves the training
-    loss, which waits for the port of training (ROADMAP.md §1 item
-    7.4)."""
-    return _trunk(params, tokens, cfg) @ params["head"]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (logits (B, S, V), the MoE auxiliary loss summed
+    over the layers, float32 zero for a dense model)."""
+    x, aux = _trunk(params, tokens, cfg)
+    return x @ params["head"], aux
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: LMConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(ce + 0.01 aux, {"ce", "aux"}) on ``batch`` {"tokens", "labels"}
+    (``transformer.py:253-259``)."""
+    logits, aux = forward(params, batch["tokens"], cfg)
+    ce = layers.cross_entropy_loss(logits, batch["labels"])
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig
             ) -> torch.Tensor:
     """Prefill serve step: tokens (B, S) -> last-position logits
     (B, 1, V).  The head runs on the last position only: the same
-    numbers as ``forward(...)[:, -1:]`` without the (B, S, V) logits."""
-    return _trunk(params, tokens, cfg)[:, -1:] @ params["head"]
+    numbers as ``forward(...)[0][:, -1:]`` without the (B, S, V)
+    logits."""
+    return _trunk(params, tokens, cfg)[0][:, -1:] @ params["head"]
 
 
-def init_cache(cfg: LMConfig, batch: int, max_len: int,
-               device=None) -> Params:
-    """An empty cache on ``device`` (CUDA unless the caller asks for the
-    CPU): K and V, or for MLA the latent and the rope key."""
-    dev = ops.resolve_device(device)
+def cache_shapes(cfg: LMConfig, batch: int, max_len: int
+                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Every cache tensor's (shape, dtype): K and V, or for MLA the
+    latent and the rope key, and the lengths."""
     n, dt = cfg.n_layers, cfg.torch_dtype
     if cfg.mla:
         tensors = {"c": (n, batch, max_len, cfg.kv_lora_rank),
@@ -303,10 +330,18 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
     else:
         shape = (n, batch, max_len, cfg.n_kv_heads, cfg.hd)
         tensors = {"k": shape, "v": shape}
-    cache = {k: torch.zeros(shape, dtype=dt, device=dev)
-             for k, shape in tensors.items()}
-    cache["length"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
-    return cache
+    out = {k: (shape, dt) for k, shape in tensors.items()}
+    out["length"] = ((batch,), torch.int32)
+    return out
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               device=None) -> Params:
+    """An empty cache on ``device`` (CUDA unless the caller asks for the
+    CPU)."""
+    dev = ops.resolve_device(device)
+    return {k: torch.zeros(shape, dtype=dt, device=dev)
+            for k, (shape, dt) in cache_shapes(cfg, batch, max_len).items()}
 
 
 def _cache_insert(cache_l: torch.Tensor, new: torch.Tensor,
@@ -371,6 +406,6 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
         p = _layer_params(params, i)
         h = x + attn(p, layers.rms_norm(x, p["ln_attn"]), cache, i, lengths,
                      cfg)
-        x = h + _ffn(p, layers.rms_norm(h, p["ln_mlp"]), cfg)
+        x = h + _ffn(p, layers.rms_norm(h, p["ln_mlp"]), cfg)[0]
     logits = layers.rms_norm(x, params["ln_f"]) @ params["head"]
     return logits, dict(cache, length=lengths + 1)

@@ -1032,3 +1032,69 @@ def test_launch_counts_stay_exact_under_threads(cuda):
         sys.setswitchinterval(switch)
     torch.cuda.synchronize()
     assert ops.launch_counts()["collision_count"] == calls * threads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hk,d,dv", [(4, 2, 64, 64), (4, 4, 192, 128)])
+def test_flash_function_gradients_on_the_card(cuda, dtype, h, hk, d, dv):
+    """``ops.FlashAttention`` on the card (the kernel's forward, launched
+    once; the chunked plain backward) against the same Function on a CPU
+    copy: float32 within 1e-5 of the max gradient, bf16 within 2^-6 of it
+    (the tensor-core forward rounds P to bf16, which enters the backward
+    through rowsum(dO o O); chip_smoke.py's train_grad holds it per
+    element)."""
+    rng = np.random.default_rng(d + h)
+    shapes = ((2, h, 150, d), (2, hk, 150, d), (2, hk, 150, dv),
+              (2, h, 150, dv))
+    q, k, v, do = (torch.tensor(rng.normal(size=s), dtype=torch.float32)
+                   .to(dtype) for s in shapes)
+    leaves = [x.to(cuda).requires_grad_(True) for x in (q, k, v)]
+    ops.reset_launch_counts()
+    o = ops.flash_attention(*leaves, causal=True)
+    o.backward(do.to(cuda))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] + counts["flash_attention_simt"] == 1
+    cpu = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ops.flash_attention(*cpu, causal=True).backward(do)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    for got, want in zip(leaves, cpu):
+        err = (got.grad.float().cpu() - want.grad.float()).abs().max()
+        assert float(err) <= tol * float(want.grad.float().abs().max())
+
+
+def test_train_step_on_the_card_matches_cpu(cuda):
+    """Two float32 training steps of the SMOKE granite through
+    ``launch.steps`` on the card and on the CPU from the same weights:
+    losses within 1e-5, parameters within 2 x sum lr_t (Adam's step)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    arch = get_arch("granite-3-2b")
+    arch = dataclasses.replace(arch, smoke_config=dataclasses.replace(
+        arch.smoke_config, dtype="float32"))
+    runs = {}
+    for dev in ("cpu", cuda):
+        params = steps.init_fn(arch, "train_4k", smoke=True, device="cpu")(
+            torch.Generator().manual_seed(3))
+        params = T.unflatten({k: v.to(dev) for k, v in
+                              T.flatten(params).items()})
+        opt = steps.make_optimizer("lm")
+        state = opt.init(params)
+        step = steps.make_step(arch, "train_4k", "train", smoke=True)
+        toks = torch.tensor(np.random.default_rng(0).integers(
+            0, 256, (2, 2, 64)), device=dev)
+        losses = []
+        for _ in range(2):
+            params, state, m = step(params, state, {"tokens": toks[0],
+                                                    "labels": toks[1]})
+            losses.append(float(m["loss"]))
+        runs[str(dev)] = (losses, {k: v.detach().cpu() for k, v in
+                                   T.flatten(params).items()})
+    (cpu_l, cpu_p), (gpu_l, gpu_p) = runs["cpu"], runs[str(cuda)]
+    np.testing.assert_allclose(gpu_l, cpu_l, rtol=1e-5)
+    atol = 2 * sum(steps.make_optimizer("lm").schedule(i) for i in (1, 2))
+    for k in cpu_p:
+        assert float((gpu_p[k] - cpu_p[k]).abs().max()) <= atol * 1.01, k

@@ -67,7 +67,11 @@ for name in ("repro_torch.streaming.count_sketch",
              "repro_torch.configs.granite_3_8b",
              "repro_torch.configs.phi3_mini_3_8b",
              "repro_torch.configs.dbrx_132b",
-             "repro_torch.configs.deepseek_v2_lite_16b"):
+             "repro_torch.configs.deepseek_v2_lite_16b",
+             "repro_torch.configs.base", "repro_torch.train",
+             "repro_torch.train.optimizer",
+             "repro_torch.train.grad_compress",
+             "repro_torch.launch.steps", "repro_torch.launch.train"):
     assert name in names, name
 print(len(names), "modules")
 """

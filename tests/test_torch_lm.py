@@ -258,7 +258,8 @@ def test_configs_equal_the_reference(arch, name):
 def test_serving_archs_are_the_configs():
     assert set(serve.LM_ARCHS) == set(CONFIGS)
     for arch, (mod, _) in CONFIGS.items():
-        assert serve.LM_ARCHS[arch] is mod
+        assert serve.LM_ARCHS[arch] is mod.ARCH
+        assert mod.ARCH.config is mod.CONFIG and mod.ARCH.smoke_config is mod.SMOKE
 
 
 def test_init_params_distributions_and_seed():
@@ -334,7 +335,8 @@ def test_prefill_and_forward_match_jax(smoke_state):
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-4, atol=1e-5)
     full_want, _ = jT.forward(jparams, jnp.asarray(toks, jnp.int32),
                               JSMOKE32)
-    full = T.forward(params, torch.tensor(toks), SMOKE32)
+    full, aux = T.forward(params, torch.tensor(toks), SMOKE32)
+    assert aux.dtype == torch.float32 and float(aux) == 0.0    # dense
     np.testing.assert_allclose(full.numpy(), _np(full_want), rtol=1e-4,
                                atol=1e-5)
     torch.testing.assert_close(full[:, -1:], got, rtol=1e-5, atol=1e-6)
@@ -514,7 +516,7 @@ def test_moe_mla_prefill_and_forward_match_jax(new_state):
     cfg, jcfg = _configs(arch, "float32")
     toks = _tokens(2, 37)               # 74 tokens: a group of 64 + a tail
     full_want, _ = jT.forward(jparams, jnp.asarray(toks, jnp.int32), jcfg)
-    full = T.forward(params, torch.tensor(toks), cfg)
+    full, _ = T.forward(params, torch.tensor(toks), cfg)
     assert full.shape == (2, 37, cfg.vocab)
     _close(full, full_want)
     got = T.prefill(params, torch.tensor(toks), cfg)
