@@ -297,6 +297,43 @@
    1e-4 of each leaf's max.  ``train_deepseek``: deepseek-v2-lite-16b at
    full width, DEPTH CUT to 2 of 27 layers, 3 steps at 2 x 2,048: finite
    losses, and every remat recompute routes the tokens as its forward.
+10. The recsys and GNN families (the LM state freed first; phases
+   ``recsys_*`` and ``gnn_*``; no kernel of the port runs in them, and
+   their launch counts are logged at 0), float32 as the configs declare,
+   parameters drawn on the card from ``--seed``, each model freed before
+   the next, through ``launch/steps`` (``init_fn``, ``make_step``) and
+   ``launch/train.main``.  For each of dlrm-rm2, bst, mind and dien:
+   ``recsys_<model>_check``, the config at full widths with its
+   vocabulary alone CUT to 10,000 rows: the serve scores of 512 samples
+   and the losses of two train steps on the card against the same
+   parameters and batch on the CPU, within 1e-4 of the CPU's largest
+   magnitude; ``recsys_<model>``, the config at its published widths and
+   vocabulary (dlrm-rm2's 26 x 1,000,000 x 64 tables, 6.66 GB): serve_p99
+   (512) and serve_bulk (262,144) on ``data.recsys_data``'s zipf batches
+   (ms a batch by CUDA events, samples/s), retrieval_cand (10^6
+   candidates, ms a call), then 5 train steps at train_batch (65,536; s a
+   step, samples/s, peak GB), the batch CUT by powers of two where the
+   reckoning (5 copies of the parameters plus the autograd residuals a
+   sample, counted by saved-tensor hooks on the card) passes 60 GB.
+   ``recsys_bst_learn``: bst at full width, 8 steps at lr 1e-3, warm-up
+   1, on one 4,096-sample batch: the loss falls by 1 %.
+   ``recsys_launcher``: ``launch.train --arch bst --steps 2`` at full
+   width.  NequIP (5 layers, 32 channels, l_max 2): ``gnn_check``, the
+   molecule cell (128 graphs, 3,840 nodes, 8,192 edges) on the card
+   against the CPU (energies and forces within 1e-4 of their largest
+   magnitude) and rotated and shifted against itself (energies equal,
+   forces rotating, within 1e-4); ``gnn_learn``, 8 steps on one molecule
+   batch: the loss falls by 1 %; ``gnn_<cell>``, 5 train steps (s a step,
+   edges/s, peak GB) at molecule, full_graph_sm (2,708 nodes, 10,556
+   edges, d_feat 1,433), minibatch_lg (1,024 seeds sampled at fanout
+   15-10 from a random CSR graph of Reddit's 232,965 nodes: 169,984
+   nodes, 168,960 edges, d_feat 602) and ogb_products with nodes and
+   edges CUT by the smallest power of two whose peak, reckoned from
+   minibatch_lg's peak a sampled edge, stays under 60 GB, then halved
+   while twice the measured peak stays under 60 GB (the full cell's
+   reckoning logged beside it).  No recsys or GNN checkpoint is written
+   on the card (a DLRM one is ~33 GB); the round trip is tested on the
+   CPU.
 
 Prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Imports nothing of JAX.
@@ -428,6 +465,35 @@ TRAIN_GRAD_CASES = (
     ("granite", (1, 32, 8, 4096, 64, 64), torch.bfloat16, None),
     ("deepseek", (1, 16, 16, 2048, 192, 128), torch.bfloat16, 192 ** -0.5),
     ("float32", (1, 32, 8, 1024, 64, 64), torch.float32, None))
+# step 10, the recsys and GNN families at full width in float32.  Recsys:
+# each config at its published widths and vocabularies, serve_p99 and
+# serve_bulk on data.recsys_data's batches (zipf ids), retrieval_cand,
+# RECSYS_TRAIN_STEPS train steps at train_batch; a train cell whose
+# reckoned peak (5 copies of the parameters: themselves, gradients, m, v
+# and the float32 master; the autograd residuals a sample, counted by
+# saved-tensor hooks on a RECKON_BATCH-sample forward on the card, times
+# the batch) passes MEMORY_BUDGET_GB has its batch CUT by powers of two.
+# The CUDA-against-CPU gate runs each config at full widths with the
+# vocabulary alone cut to RECSYS_CHECK_VOCAB rows, on RECSYS_CHECK_BATCH
+# samples.  NequIP: GNN_TRAIN_STEPS train steps at each cell on the
+# data.graph generators; minibatch_lg samples 1,024 seeds at fanout
+# 15-10 from a random CSR graph of Reddit's node count with
+# MB_GRAPH_DEGREE in-edges a node; ogb_products has nodes and edges CUT
+# by the smallest power of two whose peak, reckoned from minibatch_lg's
+# measured peak a sampled edge, stays under MEMORY_BUDGET_GB, then
+# halved while twice its own measured peak stays under it.
+RECSYS_ARCHS = ("dlrm-rm2", "bst", "mind", "dien")
+RECSYS_TRAIN_STEPS = 5
+RECSYS_CHECK_VOCAB, RECSYS_CHECK_BATCH = 10_000, 512
+RECKON_BATCH = 256
+MEMORY_BUDGET_GB = 60.0
+# card against CPU, relative to the largest magnitude; the symmetry gates
+FAMILY_RTOL = 1e-4
+FAMILY_LEARN_STEPS, FAMILY_LEARN_BATCH = 8, 4096
+GNN_CELLS = ("molecule", "full_graph_sm", "minibatch_lg", "ogb_products")
+GNN_TRAIN_STEPS = 5
+MB_GRAPH_NODES, MB_GRAPH_DEGREE = 232_965, 50
+MB_SEEDS, MB_FANOUTS = 1024, (15, 10)
 
 
 def log(*a):
@@ -3892,6 +3958,481 @@ def train_paths(args, counted, phases, smi) -> dict:
     return out
 
 
+def _to(tree, dev):
+    """A copy of a parameter tree (or batch dict) on ``dev``."""
+    from repro_torch.train.optimizer import tree_map
+    return tree_map(lambda t: t.detach().to(dev, copy=True), tree)
+
+
+def _n_bytes(tree) -> int:
+    from repro_torch.train.optimizer import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def saved_bytes(loss_fn, params, batch) -> int:
+    """Bytes of the autograd residuals one forward of ``loss_fn`` keeps
+    for its backward: every saved tensor's storage once, the parameters'
+    own left out (counted by ``saved_tensors_hooks``)."""
+    from repro_torch.train.optimizer import tree_leaves
+    leaves = tree_leaves(params)
+    own = {p.untyped_storage().data_ptr() for p in leaves}
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in own:
+            seen[st.data_ptr()] = st.nbytes()
+        # a detached alias: the tensor itself would hold its own grad_fn
+        # from inside the graph, a cycle no collector sees, which keeps
+        # the graph and every parameter alive
+        return t.detach()
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, _ = loss_fn(params, batch)
+        del loss
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return sum(seen.values())
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want| (on the CPU, in float64)."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def recsys_batch(name, cfg, n, seed, dev, labels=True):
+    """``data.recsys_data``'s batch of ``n`` samples for arch ``name``
+    (zipf ids) as tensors on ``dev``."""
+    from repro_torch.data import recsys_data
+    if name == "dlrm-rm2":
+        b = recsys_data.dlrm_batch(n, cfg.n_dense, cfg.n_sparse, cfg.vocab,
+                                   seed=seed)
+    else:
+        b = recsys_data.seq_batch(n, cfg.seq_len, cfg.vocab,
+                                  getattr(cfg, "n_profile", 8), seed=seed)
+        if name != "bst":
+            del b["profile"]
+    if not labels:
+        del b["labels"]
+    return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+
+def recsys_retrieval_batch(name, cfg, n_cand, seed, dev):
+    from repro_torch.data import recsys_data
+    r = recsys_data.retrieval_batch(n_cand, getattr(cfg, "seq_len", 1),
+                                    cfg.vocab, seed=seed)
+    keep = (("dense", "sparse", "cand_ids") if name == "dlrm-rm2"
+            else ("history", "cand_ids"))
+    return {k: torch.as_tensor(r[k], device=dev) for k in keep}
+
+
+def finite(t, shape, what):
+    if tuple(t.shape) != tuple(shape) or not bool(torch.isfinite(t).all()):
+        raise AssertionError(f"{what}: shape {tuple(t.shape)} (expected "
+                             f"{tuple(shape)}) or a value not finite")
+
+
+def recsys_check(name, args, dev) -> dict:
+    """Card against CPU at full widths, the vocabulary CUT to
+    RECSYS_CHECK_VOCAB rows: serve scores, and the losses of two train
+    steps from the same parameters on the same batch."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import steps
+    arch = get_arch(name)
+    small = dataclasses.replace(arch.config, vocab=RECSYS_CHECK_VOCAB)
+    arch = dataclasses.replace(arch, config=small)
+    params = steps.init_fn(arch, "train_batch", device=dev)(
+        torch.Generator(device=dev).manual_seed(args.seed))
+    host = _to(params, "cpu")
+    batch = recsys_batch(name, small, RECSYS_CHECK_BATCH, args.seed + 1, dev)
+    hbatch = _to(batch, "cpu")
+    serve = steps.make_step(arch, "serve_p99", "serve")
+    feats = {k: v for k, v in batch.items() if k != "labels"}
+    serve_err = rel_err(serve(params, feats),
+                        serve(host, {k: v for k, v in hbatch.items()
+                                     if k != "labels"}))
+
+    def two_steps(p, b):
+        opt = steps.make_optimizer("recsys")
+        state = opt.init(p)
+        step = steps.make_step(arch, "train_batch", "train")
+        losses = []
+        for _ in range(2):
+            p, state, m = step(p, state, b)
+            losses.append(float(m["loss"]))
+        return losses
+    card, cpu = two_steps(params, batch), two_steps(host, hbatch)
+    gaps = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    log(f"{name}_check: full widths, vocabulary CUT to {RECSYS_CHECK_VOCAB}"
+        f" rows, {RECSYS_CHECK_BATCH} samples: serve scores card against "
+        f"CPU max |diff| / max |CPU| {serve_err:.3e}; train losses card "
+        f"{card} CPU {cpu}, relative gaps {gaps} (gate {FAMILY_RTOL})")
+    if serve_err > FAMILY_RTOL or max(gaps) > FAMILY_RTOL:
+        raise AssertionError(f"{name}_check: the card leaves the CPU")
+    return dict(serve_rel_err=serve_err, loss_rel_gaps=gaps)
+
+
+def recsys_full(name, args, dev, smi) -> dict:
+    """One recsys config at its published widths and vocabulary: serve at
+    serve_p99 and serve_bulk, retrieval at retrieval_cand, then
+    RECSYS_TRAIN_STEPS train steps at train_batch (CUT where the
+    reckoning passes MEMORY_BUDGET_GB)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import steps, train
+    arch = get_arch(name)
+    cfg = arch.config
+    params = steps.init_fn(arch, "train_batch", device=dev)(
+        torch.Generator(device=dev).manual_seed(args.seed))
+    p_bytes = _n_bytes(params)
+    out = dict(param_gb=p_bytes / 1e9, params=p_bytes // 4)
+    for shape in ("serve_p99", "serve_bulk"):
+        b = arch.shapes[shape].meta["batch"]
+        feats = recsys_batch(name, cfg, b, args.seed + 2, dev, labels=False)
+        fn = steps.make_step(arch, shape, "serve")
+        finite(fn(params, feats), (b,), f"{name} {shape}")
+        ms = cuda_time_ms(lambda: fn(params, feats))
+        out[shape] = dict(batch=b, ms=ms, samples_per_s=b / ms * 1e3)
+        del feats
+    meta = arch.shapes["retrieval_cand"].meta
+    rb = recsys_retrieval_batch(name, cfg, meta["n_candidates"],
+                                args.seed + 3, dev)
+    fn = steps.make_step(arch, "retrieval_cand", "retrieval")
+    finite(fn(params, rb), (meta["n_candidates"],), f"{name} retrieval")
+    out["retrieval_cand"] = dict(n_candidates=meta["n_candidates"],
+                                 ms=cuda_time_ms(lambda: fn(params, rb)))
+    del rb
+    # the train cell: reckon, cut, run
+    full = arch.shapes["train_batch"].meta["batch"]
+    per_sample = saved_bytes(
+        steps._loss_for(arch, "train_batch", False), params,
+        recsys_batch(name, cfg, RECKON_BATCH, args.seed + 4, dev)
+    ) / RECKON_BATCH
+    static = 5 * p_bytes
+    b = full
+    while static + per_sample * b > MEMORY_BUDGET_GB * 1e9 and b > 1:
+        b //= 2
+    reckon = (f"reckoned peak {(static + per_sample * full) / 1e9:.2f} GB at "
+              f"{full} samples: 5 x {p_bytes / 1e9:.3f} GB of parameters, "
+              f"gradients, m, v and master, plus {per_sample / 1e3:.1f} KB "
+              f"of autograd residuals a sample (counted on {RECKON_BATCH})")
+    if b < full:
+        arch = train.cut_batch(arch, "train_batch", b)
+        log(f"{name} train_batch: batch CUT from {full} to {b} samples: "
+            f"{reckon}, past the {MEMORY_BUDGET_GB} GB budget; at {b}: "
+            f"{(static + per_sample * b) / 1e9:.2f} GB")
+    else:
+        log(f"{name} train_batch: {reckon}, under {MEMORY_BUDGET_GB} GB: "
+            f"no cut")
+    opt = steps.make_optimizer("recsys")
+    state = opt.init(params)
+    step = steps.make_step(arch, "train_batch", "train")
+    batches = [recsys_batch(name, cfg, b, args.seed + 10 + i, dev)
+               for i in range(RECSYS_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss = float(m["loss"])
+        s = time.perf_counter() - t0
+        hist.append(dict(step=i, loss=loss, grad_norm=float(m["grad_norm"]),
+                         seconds=s, samples_per_s=b / s))
+        if not np.isfinite(loss):
+            raise AssertionError(f"{name} train step {i}: loss {loss}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steady = float(np.mean([r["seconds"] for r in hist[1:]]))
+    out["train_batch"] = dict(
+        batch=b, full_batch=full, steps=hist, peak_gb=peak,
+        reckoned_gb=(static + per_sample * b) / 1e9,
+        residual_kb_per_sample=per_sample / 1e3, s_per_step=steady,
+        samples_per_s=b / steady,
+        profile=profile_step(step, params, state, batches[0],
+                             f"{name} train_batch", steady))
+    p99, bulk = out["serve_p99"], out["serve_bulk"]
+    log(f"recsys {name}: {p_bytes / 1e9:.3f} GB of parameters; serve_p99 "
+        f"{p99['ms']:.4f} ms a batch of {p99['batch']} "
+        f"({p99['samples_per_s']:.0f} samples/s); serve_bulk "
+        f"{bulk['ms']:.3f} ms a batch of {bulk['batch']} "
+        f"({bulk['samples_per_s']:.0f} samples/s); retrieval_cand "
+        f"{out['retrieval_cand']['ms']:.4f} ms a call of "
+        f"{meta['n_candidates']} candidates; train_batch at {b}: "
+        f"{steady:.4f} s a step "
+        f"(mean of steps 1-{RECSYS_TRAIN_STEPS - 1}; step 0 "
+        f"{hist[0]['seconds']:.4f} s), {b / steady:.0f} samples/s, peak "
+        f"{peak:.2f} GB (reckoned {out['train_batch']['reckoned_gb']:.2f}), "
+        f"losses {[r['loss'] for r in hist]} [{smi}]")
+    return out
+
+
+def profile_step(step, params, state, batch, what, steady_s) -> dict:
+    """One more train step under ``torch.profiler`` (``train_profile``):
+    device ms and operations, busy share of the mean unprofiled step."""
+    box = {"params": params, "state": state}
+
+    def one():
+        box["params"], box["state"], _ = step(box["params"], box["state"],
+                                              batch)
+    prof = train_profile(one)
+    prof["busy"] = prof["device_ms"] / (steady_s * 1e3)
+    log(f"{what}: profile of one step: device {prof['device_ms']:.2f} ms in "
+        f"{prof['device_ops']} operations, busy {prof['busy']:.3f} of the "
+        f"mean step; by kind {prof['by_kind_ms']}; top {prof['top']}")
+    return prof
+
+
+def learn_one_batch(step, params, state, batch, what) -> list:
+    """FAMILY_LEARN_STEPS steps on one batch; the loss must fall by 1 %."""
+    losses = []
+    for _ in range(FAMILY_LEARN_STEPS):
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    log(f"{what}: {FAMILY_LEARN_STEPS} steps at lr 1e-3, warm-up 1, on one "
+        f"batch: losses {losses}")
+    if not (all(np.isfinite(losses)) and losses[-1] < 0.99 * losses[0]):
+        raise AssertionError(f"{what}: the loss did not fall: {losses}")
+    return losses
+
+
+def gnn_batch(cell, seed, dev, cut=1) -> dict:
+    """A batch of NequIP cell ``cell`` from ``data.graph``: molecule_batch
+    (128 graphs of 30 nodes and 64 edges), random_graph (full_graph_sm;
+    ogb_products with nodes and edges divided by ``cut``), or the
+    neighbourhood of 1,024 seeds sampled at fanout 15-10 from a random
+    CSR graph (minibatch_lg; node features drawn on the card for the
+    whole graph and gathered, so a node sampled twice keeps its
+    features)."""
+    from repro_torch.configs import nequip
+    from repro_torch.data import graph
+    meta = nequip.SHAPES[cell].meta
+    if cell == "molecule":
+        g = meta["n_graphs"]
+        arrays = graph.molecule_batch(g, meta["n_nodes"] // g,
+                                      meta["n_edges"] // g, meta["d_feat"],
+                                      seed=seed)
+    elif cell == "minibatch_lg":
+        rng = np.random.default_rng(seed)
+        n, e = MB_GRAPH_NODES, MB_GRAPH_NODES * MB_GRAPH_DEGREE
+        csr = graph.CSRGraph.from_edges(
+            rng.integers(0, n, e).astype(np.int32),
+            rng.integers(0, n, e).astype(np.int32), n)
+        seeds = rng.choice(n, MB_SEEDS, replace=False).astype(np.int32)
+        sub = graph.sample_neighbors(csr, seeds, MB_FANOUTS, seed=seed)
+        nodes = torch.as_tensor(sub["nodes"], device=dev).long()
+        feats = torch.randn((n, meta["d_feat"]), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(seed))
+        pos = torch.as_tensor(rng.normal(0, 3.0, (n, 3)), dtype=torch.float32,
+                              device=dev)
+        out = {"node_feat": feats[nodes], "positions": pos[nodes],
+               "edge_src": torch.as_tensor(sub["edge_src"], device=dev),
+               "edge_dst": torch.as_tensor(sub["edge_dst"], device=dev),
+               "node_targets": torch.as_tensor(
+                   rng.normal(0, 1, len(nodes)), dtype=torch.float32,
+                   device=dev)}
+        if (len(nodes), len(sub["edge_src"])) != (meta["n_nodes"],
+                                                  meta["n_edges"]):
+            raise AssertionError(f"minibatch_lg: {len(nodes)} nodes, "
+                                 f"{len(sub['edge_src'])} edges")
+        return out
+    else:
+        arrays = graph.random_graph(meta["n_nodes"] // cut,
+                                    meta["n_edges"] // cut, meta["d_feat"],
+                                    seed=seed)
+    return {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+
+
+def gnn_check(args, dev) -> dict:
+    """The molecule cell on the card: against the CPU (energies and
+    forces), and invariance under a rotation and a shift."""
+    from repro_torch.configs import nequip
+    from repro_torch.launch import steps
+    from repro_torch.models import equivariant, nequip as NQ
+    arch = nequip.ARCH
+    cfg = arch.cell_config("molecule")
+    n_graphs = arch.shapes["molecule"].meta["n_graphs"]
+    params = steps.init_fn(arch, "molecule", device=dev)(
+        torch.Generator(device=dev).manual_seed(args.seed))
+    batch = gnn_batch("molecule", args.seed + 1, dev)
+    host, hbatch = _to(params, "cpu"), _to(batch, "cpu")
+    with torch.no_grad():
+        e_card = NQ.forward(params, batch, cfg, n_graphs=n_graphs)
+        e_cpu = NQ.forward(host, hbatch, cfg, n_graphs=n_graphs)
+    f_card = NQ.forces(params, batch, cfg)
+    f_cpu = NQ.forces(host, hbatch, cfg)
+    rot = torch.as_tensor(equivariant.random_rotation(args.seed + 5),
+                          dtype=torch.float32, device=dev)
+    moved = dict(batch, positions=batch["positions"] @ rot.T + 3.0)
+    with torch.no_grad():
+        e_rot = NQ.forward(params, moved, cfg, n_graphs=n_graphs)
+    f_rot = NQ.forces(params, moved, cfg)
+    errs = dict(energy_cpu=rel_err(e_card, e_cpu),
+                forces_cpu=rel_err(f_card, f_cpu),
+                energy_rotated=rel_err(e_rot, e_card),
+                forces_rotated=rel_err(f_rot, f_card @ rot.T))
+    log(f"gnn_check: nequip molecule cell ({n_graphs} graphs, "
+        f"{batch['positions'].shape[0]} nodes, {batch['edge_src'].shape[0]} "
+        f"edges, float32): max |diff| / max |reference| of energies and "
+        f"forces, card against CPU and rotated + shifted against rotated "
+        f"by R: {errs} (gate {FAMILY_RTOL}); energies range "
+        f"[{float(e_cpu.min()):.4f}, {float(e_cpu.max()):.4f}]")
+    if max(errs.values()) > FAMILY_RTOL:
+        raise AssertionError(f"gnn_check: {errs}")
+    return errs
+
+
+def gnn_train(cell, args, dev, smi, cut=1) -> dict:
+    """GNN_TRAIN_STEPS train steps of NequIP on one batch of ``cell``."""
+    from repro_torch.configs import nequip
+    from repro_torch.launch import steps
+    arch = nequip.ARCH
+    batch = gnn_batch(cell, args.seed + 1, dev, cut)
+    n, e = batch["positions"].shape[0], batch["edge_src"].shape[0]
+    params = steps.init_fn(arch, cell, device=dev)(
+        torch.Generator(device=dev).manual_seed(args.seed))
+    opt = steps.make_optimizer("gnn")
+    state = opt.init(params)
+    step = steps.make_step(arch, cell, "train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    for i in range(GNN_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss = float(m["loss"])
+        s = time.perf_counter() - t0
+        hist.append(dict(step=i, loss=loss, seconds=s, edges_per_s=e / s))
+        if not np.isfinite(loss):
+            raise AssertionError(f"gnn {cell} step {i}: loss {loss}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steady = float(np.mean([r["seconds"] for r in hist[1:]]))
+    out = dict(nodes=n, edges=e, d_feat=arch.cell_config(cell).d_feat,
+               cut=cut, steps=hist, s_per_step=steady,
+               edges_per_s=e / steady, peak_gb=peak,
+               profile=profile_step(step, params, state, batch,
+                                    f"gnn {cell}", steady))
+    log(f"gnn {cell}{f' CUT 1/{cut}' if cut > 1 else ''}: {n} nodes, {e} "
+        f"edges, d_feat {out['d_feat']}: {steady:.4f} s a step (mean of "
+        f"steps 1-{GNN_TRAIN_STEPS - 1}; step 0 {hist[0]['seconds']:.4f} "
+        f"s), {e / steady:.0f} edges/s, peak {peak:.2f} GB, losses "
+        f"{[r['loss'] for r in hist]} [{smi}]")
+    return out
+
+
+def family_paths(args, counted, phases, smi) -> dict:
+    """Step 10 (phases ``recsys_*`` and ``gnn_*``): the recsys and GNN
+    families at full width on the card; returns their numbers."""
+    from repro_torch.configs import nequip
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import steps, train
+    from repro_torch.train.optimizer import AdamW
+
+    dev = torch.device("cuda")
+    out = {"recsys": {}, "gnn": {}}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for name in RECSYS_ARCHS:
+        short = name.split("-")[0]
+        check = counted(f"recsys_{short}_check", (),
+                        lambda: recsys_check(name, args, dev))
+        free()
+        full = counted(f"recsys_{short}", (),
+                       lambda: recsys_full(name, args, dev, smi))
+        out["recsys"][name] = dict(full, check=check)
+        free()
+
+    # BST learns one batch; the launcher at full width
+    arch = get_arch("bst")
+    params = steps.init_fn(arch, "train_batch", device=dev)(
+        torch.Generator(device=dev).manual_seed(args.seed))
+    opt = AdamW(lr=1e-3, weight_decay=1e-4, warmup_steps=1)
+    batch = recsys_batch("bst", arch.config, FAMILY_LEARN_BATCH,
+                         args.seed + 6, dev)
+    out["recsys"]["bst"]["learn_losses"] = counted(
+        "recsys_bst_learn", (), lambda: learn_one_batch(
+            steps.make_step(arch, "train_batch", "train", optimizer=opt),
+            params, opt.init(params), batch,
+            f"recsys_bst_learn: bst at full width, {FAMILY_LEARN_BATCH} "
+            f"samples"))
+    del params, batch
+    free()
+    t = time.perf_counter()
+    run = counted("recsys_launcher", (), lambda: train.main(
+        ["--arch", "bst", "--steps", "2"]))
+    log(f"recsys_launcher: launch.train --arch bst --steps 2 at full width, "
+        f"train_batch 65,536: {run.history} ({time.perf_counter() - t:.1f} "
+        f"s with the set-up)")
+    del run
+    free()
+
+    # NequIP
+    out["gnn"]["check"] = counted("gnn_check", (),
+                                  lambda: gnn_check(args, dev))
+    free()
+    arch = nequip.ARCH
+    params = steps.init_fn(arch, "molecule", device=dev)(
+        torch.Generator(device=dev).manual_seed(args.seed))
+    opt = AdamW(lr=1e-3, weight_decay=1e-4, warmup_steps=1)
+    batch = gnn_batch("molecule", args.seed + 7, dev)
+    out["gnn"]["learn_losses"] = counted(
+        "gnn_learn", (), lambda: learn_one_batch(
+            steps.make_step(arch, "molecule", "train", optimizer=opt),
+            params, opt.init(params), batch,
+            "gnn_learn: nequip molecule cell"))
+    del params, batch
+    free()
+    for cell in GNN_CELLS[:3]:
+        out["gnn"][cell] = counted(f"gnn_{cell}", (),
+                                   lambda: gnn_train(cell, args, dev, smi))
+        free()
+    # ogb_products: reckoned from minibatch_lg's peak a sampled edge
+    mb = out["gnn"]["minibatch_lg"]
+    per_edge = mb["peak_gb"] * 1e9 / mb["edges"]
+    meta = nequip.SHAPES["ogb_products"].meta
+    cut = 1
+    while per_edge * meta["n_edges"] / cut > MEMORY_BUDGET_GB * 1e9:
+        cut *= 2
+    gather = meta["n_edges"] * arch.config.channels * 5 * 4
+    log(f"gnn ogb_products: {meta['n_nodes']} nodes, {meta['n_edges']} "
+        f"edges; minibatch_lg's peak is {per_edge / 1e3:.2f} KB a sampled "
+        f"edge ({mb['peak_gb']:.2f} GB over {mb['edges']} edges, "
+        f"{arch.config.n_layers} layers, {arch.config.channels} channels, "
+        f"l_max {arch.config.l_max}), so the full cell reckons at "
+        f"{per_edge * meta['n_edges'] / 1e12:.2f} TB (one l = 2 gather of "
+        f"the node features alone {gather / 1e9:.1f} GB), past one card "
+        f"and four: nodes and edges CUT by {cut} (the smallest power of two"
+        f" under {MEMORY_BUDGET_GB} GB: reckoned "
+        f"{per_edge * meta['n_edges'] / cut / 1e9:.2f} GB)")
+    res = counted("gnn_ogb_products", (),
+                  lambda: gnn_train("ogb_products", args, dev, smi, cut))
+    res["reckoned_gb"] = per_edge * meta["n_edges"] / cut / 1e9
+    # minibatch_lg has a node an edge, ogb_products one for 25: its own
+    # measured peak, doubled, bounds the next power of two from above
+    larger = []
+    while cut > 1 and 2 * res["peak_gb"] < MEMORY_BUDGET_GB:
+        log(f"gnn ogb_products: peak {res['peak_gb']:.2f} GB at 1/{cut}, "
+            f"twice that under {MEMORY_BUDGET_GB} GB: the cut halved to "
+            f"1/{cut // 2}")
+        larger.append(res)
+        cut //= 2
+        free()
+        res = counted("gnn_ogb_products", (),
+                      lambda: gnn_train("ogb_products", args, dev, smi, cut))
+    res.update(full_reckoned_tb=per_edge * meta["n_edges"] / 1e12,
+               larger_cuts=larger)
+    out["gnn"]["ogb_products"] = res
+    free()
+    log(f"step 10 numbers: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3996,6 +4537,13 @@ def main() -> int:
             e.setdefault("launches_by_phase", {}).update(
                 {p: c[e["name"]] for p, c in phases.items()
                  if p.startswith("train")})
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"LM state freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+        f"allocated")
+    t = time.perf_counter()
+    family_paths(args, counted, phases, smi)
+    log(f"recsys and GNN phases: {time.perf_counter() - t:.1f} s")
 
     for e in entries:
         log(f"kernel {e['name']}: device ms {e['ms']:.4f} call ms "

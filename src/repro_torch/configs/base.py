@@ -1,20 +1,25 @@
-"""``ArchDef`` — the contract between the LM configs, the step builders
+"""``ArchDef`` — the contract between the configs, the step builders
 and the train launcher (counterpart of ``repro.configs.base``).
 
-Each LM config module exports ``ARCH = ArchDef(...)``.  ``input_specs``
-returns a :class:`TensorSpec` for every model input of a shape cell
-(shape and dtype, no allocation), and ``kind`` selects the step the cell
-runs (train / prefill / decode).  The reference's specs are
-``jax.ShapeDtypeStruct``; the port keeps its own record with a torch
-dtype.  Only the ``lm`` family has spec builders here: the gnn and
-recsys builders come with their models (ROADMAP.md §1 item 7.5), the ssh
-ones with the benchmarks (item 4; the SSH arches are
+Each lm, gnn and recsys config module exports ``ARCH = ArchDef(...)``.
+``input_specs`` returns a :class:`TensorSpec` for every model input of a
+shape cell (shape and dtype, no allocation), and ``kind`` selects the
+step the cell runs (train / prefill / decode / serve / retrieval).  The
+reference's specs are ``jax.ShapeDtypeStruct``; the port keeps its own
+record with a torch dtype.  The ssh spec builders come with the
+benchmarks (ROADMAP.md §1 item 4; the SSH arches are
 ``configs.registry.SSHArch``).
+
+GNN note: node and edge counts are padded to multiples of 4096, as the
+reference pads them to shard evenly on its meshes; padding edges are
+self-loops, which the model masks by the zero-length-edge rule (see
+``repro_torch.models.nequip``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Tuple
+import math
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,32 +31,36 @@ class TensorSpec(NamedTuple):
     dtype: torch.dtype
 
 
+def _pad_to(n: int, mult: int) -> int:
+    return int(math.ceil(n / mult) * mult)
+
+
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:
-    kind: str                      # train | prefill | decode
+    kind: str                # train | prefill | decode | serve | retrieval
     meta: Dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchDef:
     name: str
-    family: str                    # lm (gnn, recsys: item 7.5)
+    family: str                    # lm | gnn | recsys
     config: Any
     smoke_config: Any
     shapes: Dict[str, ShapeCell]
+    # optional per-shape config override (the GNN's d_feat differs per cell)
+    config_for_shape: Optional[Callable[[Any, str], Any]] = None
 
     def cell_config(self, shape: str) -> Any:
-        """The config a cell runs (the reference's per-shape override
-        serves its gnn cells only, item 7.5)."""
+        """The config a cell runs: ``config``, through
+        ``config_for_shape`` where the arch has one."""
+        if self.config_for_shape is not None:
+            return self.config_for_shape(self.config, shape)
         return self.config
 
     def input_specs(self, shape: str) -> Tuple[str, Dict[str, Any]]:
         cell = self.shapes[shape]
         cfg = self.cell_config(shape)
-        if self.family not in _SPEC_BUILDERS:
-            raise NotImplementedError(
-                f"no input specs for family {self.family!r} in the port "
-                "(ROADMAP.md §1 item 7.5: recsys and gnn)")
         return cell.kind, _SPEC_BUILDERS[self.family](cfg, cell)
 
 
@@ -70,7 +79,53 @@ def lm_specs(cfg, cell: ShapeCell) -> Dict[str, Any]:
     raise ValueError(cell.kind)
 
 
-_SPEC_BUILDERS = {"lm": lm_specs}
+def gnn_specs(cfg, cell: ShapeCell) -> Dict[str, Any]:
+    m = cell.meta
+    n = _pad_to(m["n_nodes"], 4096)
+    e = _pad_to(m["n_edges"], 4096)
+    specs = {
+        "node_feat": TensorSpec((n, m["d_feat"]), torch.float32),
+        "positions": TensorSpec((n, 3), torch.float32),
+        "edge_src": TensorSpec((e,), torch.int32),
+        "edge_dst": TensorSpec((e,), torch.int32),
+    }
+    if m.get("n_graphs"):
+        specs["graph_ids"] = TensorSpec((n,), torch.int32)
+        specs["energy"] = TensorSpec((m["n_graphs"],), torch.float32)
+    else:
+        specs["node_targets"] = TensorSpec((n,), torch.float32)
+    return specs
+
+
+def recsys_specs(cfg, cell: ShapeCell) -> Dict[str, Any]:
+    m = cell.meta
+    b = m["batch"]
+    name = cfg.name
+    if cell.kind == "retrieval":
+        nc = m["n_candidates"]
+        if name.startswith("dlrm"):
+            return {"dense": TensorSpec((1, cfg.n_dense), torch.float32),
+                    "sparse": TensorSpec((1, cfg.n_sparse), torch.int32),
+                    "cand_ids": TensorSpec((nc,), torch.int32)}
+        return {"history": TensorSpec((1, cfg.seq_len), torch.int32),
+                "cand_ids": TensorSpec((nc,), torch.int32)}
+    # train / serve share the batch structure (train adds labels)
+    if name.startswith("dlrm"):
+        specs = {"dense": TensorSpec((b, cfg.n_dense), torch.float32),
+                 "sparse": TensorSpec((b, cfg.n_sparse), torch.int32)}
+    elif name.startswith("bst"):
+        specs = {"history": TensorSpec((b, cfg.seq_len), torch.int32),
+                 "target": TensorSpec((b,), torch.int32),
+                 "profile": TensorSpec((b, cfg.n_profile), torch.int32)}
+    else:  # mind / dien
+        specs = {"history": TensorSpec((b, cfg.seq_len), torch.int32),
+                 "target": TensorSpec((b,), torch.int32)}
+    if cell.kind == "train":
+        specs["labels"] = TensorSpec((b,), torch.float32)
+    return specs
+
+
+_SPEC_BUILDERS = {"lm": lm_specs, "gnn": gnn_specs, "recsys": recsys_specs}
 
 
 # canonical LM shape set (assignment block)
@@ -80,4 +135,14 @@ def lm_shapes() -> Dict[str, ShapeCell]:
         "prefill_32k": ShapeCell("prefill", {"seq": 32768, "batch": 32}),
         "decode_32k": ShapeCell("decode", {"seq": 32768, "batch": 128}),
         "long_500k": ShapeCell("decode", {"seq": 524288, "batch": 1}),
+    }
+
+
+def recsys_shapes() -> Dict[str, ShapeCell]:
+    return {
+        "train_batch": ShapeCell("train", {"batch": 65536}),
+        "serve_p99": ShapeCell("serve", {"batch": 512}),
+        "serve_bulk": ShapeCell("serve", {"batch": 262144}),
+        "retrieval_cand": ShapeCell("retrieval",
+                                    {"batch": 1, "n_candidates": 1_000_000}),
     }

@@ -1,10 +1,10 @@
 """``--arch`` registry (counterpart of ``repro.configs.registry``): the
 SSH arches as objects with ``index_spec()`` and ``search_config()``,
-what ``launch.build_index`` and ``launch.serve`` read, and the LM arches
-as ``configs.base.ArchDef`` (shape cells, input specs), what
-``launch.serve``, ``launch.steps`` and ``launch.train`` read.  The
-reference's gnn and recsys arches are queued (ROADMAP.md §1 item 7.5),
-the SSH arches' shape cells with the benchmarks (item 4)."""
+what ``launch.build_index`` and ``launch.serve`` read, and the lm, gnn
+and recsys arches as ``configs.base.ArchDef`` (shape cells, input
+specs), what ``launch.serve``, ``launch.steps`` and ``launch.train``
+read.  The SSH arches' shape cells come with the benchmarks (ROADMAP.md
+§1 item 4)."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,6 +20,11 @@ _MODULES = {
     "phi3-mini-3.8b": "repro_torch.configs.phi3_mini_3_8b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "granite-3-2b": "repro_torch.configs.granite_3_2b",
+    "nequip": "repro_torch.configs.nequip",
+    "bst": "repro_torch.configs.bst",
+    "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
+    "mind": "repro_torch.configs.mind",
+    "dien": "repro_torch.configs.dien",
     "ssh-ecg": "repro_torch.configs.ssh_ecg",
     "ssh-randomwalk": "repro_torch.configs.ssh_randomwalk",
 }
@@ -52,14 +57,15 @@ class SSHArch:
 
 
 def list_archs(family: Optional[str] = None) -> List[str]:
-    """Every arch id, or those of one family ("lm", "ssh")."""
+    """Every arch id, or those of one family ("lm", "gnn", "recsys",
+    "ssh")."""
     if family is None:
         return sorted(_MODULES)
     return [n for n in sorted(_MODULES) if get_arch(n).family == family]
 
 
 def get_arch(name: str):
-    """The ``SSHArch`` or LM ``ArchDef`` of ``name``."""
+    """The ``SSHArch`` or ``ArchDef`` of ``name``."""
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; the port serves "
                        f"{list_archs()}")

@@ -18,7 +18,9 @@ through the same functions:
 * :func:`index_from_arrays` adds the index arrays (``signatures``,
   ``keys``, ``series`` and, when cached, the envelopes);
 * :func:`lm_params_from_arrays` takes an LM's parameter pytree
-  (``repro.models.transformer.init_params``) as numpy arrays.
+  (``repro.models.transformer.init_params``) as numpy arrays;
+* :func:`params_from_arrays` takes any other model's parameter tree
+  (recsys, NequIP: nested dicts and lists) as numpy arrays.
 
 Nothing here imports the reference: its arrays arrive as numpy.
 """
@@ -120,7 +122,7 @@ def _lm_leaf(a, dev) -> torch.Tensor:
         return torch.tensor(a.astype(np.float32), device=dev).to(
             torch.bfloat16)
     if a.dtype != np.float32:
-        raise TypeError(f"LM parameters are float32 or bfloat16, got "
+        raise TypeError(f"parameters are float32 or bfloat16, got "
                         f"{a.dtype}")
     return torch.tensor(a, device=dev)
 
@@ -148,3 +150,21 @@ def lm_params_from_arrays(arrays: Mapping, cfg, device=None) -> dict:
                              f"the config implies {shape} {dt}")
         out[path] = t
     return transformer.unflatten(out)
+
+
+def params_from_arrays(arrays, device=None):
+    """A parameter tree of nested dicts and lists (the recsys models'
+    ``[{"w", "b"}, ...]`` MLPs and BST blocks, NequIP's stacked layers
+    with ``self_mix`` keyed by ``str(l)``) with numpy leaves, as tensors
+    on ``device`` (CUDA unless the caller asks for the CPU) in the same
+    structure: float32 as it is, ``ml_dtypes.bfloat16`` as
+    ``torch.bfloat16``; any other dtype is refused."""
+    dev = ops.resolve_device(device)
+
+    def walk(tree):
+        if isinstance(tree, Mapping):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v) for v in tree]
+        return _lm_leaf(tree, dev)
+    return walk(arrays)

@@ -3,8 +3,8 @@
 
 State: float32 first and second moments and float32 master weights,
 whatever the parameters' type (bf16 in production), in trees that mirror
-the parameter tree (nested dicts), and the step count, a 0-d int32 CPU
-tensor: the schedule is computed on the host without waiting for the
+the parameter tree (nested dicts and lists), and the step count, a 0-d
+int32 CPU tensor: the schedule is computed on the host without waiting for the
 card.  ``update`` follows the reference's arithmetic: float32 gradients,
 a global-norm clip over every leaf, the warm-up at the new step, bias
 correction, weight decay decoupled on the master, parameters re-cast to
@@ -28,17 +28,24 @@ CHUNK = 1 << 25
 
 
 def tree_leaves(tree: Tree) -> List[Any]:
-    """Leaves of nested dicts, keys in sorted order (as jax flattens)."""
+    """Leaves of nested dicts and lists, dict keys in sorted order and
+    lists by index (as jax flattens)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
     return [tree]
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """``fn`` over the leaves of nested dicts of one structure."""
+    """``fn`` over the leaves of nested dicts and lists of one
+    structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [tree_map(fn, item, *(r[i] for r in rest))
+                for i, item in enumerate(tree)]
     return fn(tree, *rest)
 
 
