@@ -334,6 +334,54 @@
    reckoning logged beside it).  No recsys or GNN checkpoint is written
    on the card (a DLRM one is ~33 GB); the round trip is tested on the
    CPU.
+11. Attention with a query offset and a key bound (phase ``attn_offset``,
+   after the LM suite; ROADMAP item 7.6): ``models.layers.
+   chunked_attention``, causal (query i at T - S + i) and not, with a
+   seeded ``kv_valid`` holding a 0 and a T, at granite-3-2b's layer (B 8,
+   32/8 heads, D 64, S 1,024 against T 2,048), deepseek-v2-lite's MLA
+   layer (16 heads, Q/K 192, V 128, S 512) and S 2,048 against T 1,024
+   (causal rows before the first key), bf16 and float32: the tensor-core
+   and the CUDA-core kernels both launched.  Then on each case's inputs
+   both kernels (``ops.flash_attention`` and ``flash_attention_simt``)
+   against the plain version (``error_bound``), the tensor-core kernel
+   also against ``ref.flash_attention_tc_ref``, every row that sees no
+   key exactly 0; device, call and plain ms, SDPA with the mask as a
+   boolean ``attn_mask``, and the bound over the pairs the mask leaves
+   (the flash entries' ``offset_shapes``).  Row 7 re-timed at 8 x 2,048,
+   S = T: no new arguments, a key bound of T (same bits), and SDPA, in
+   turns.
+12. The SSH steps (phases ``ssh_build_2048``, ``ssh_query_128``,
+   ``ssh_query_2048``, after the subsequence phases, on the same seeded
+   ECG stream; ROADMAP item 7.8): ``launch.steps``' build and query steps
+   of ``ssh-ecg`` at full width, parameters from the spec's seed.
+   ``build_2048``: 65,536 windows of 2,048 (stride 256), 5 timed steps
+   (ms a step, series/s), the first 16,384 rows' signatures equal on
+   the CPU, the sketch at that shape bit for bit against
+   ``ref.sketch_conv_fma_ref``.  ``query_128``: the stream's 20,971,520
+   windows of 128 at stride 1 (10.74 GB of series) hashed by the build
+   step in calls of 2^20 rows (3.36 GB of signatures), 16 queries drawn
+   from the database (ms a query; the self-match rate logged, not gated:
+   at 17 sign bits and 3 shingles a series ~10^5 rows tie at all 40
+   hashes and the top-1,024 takes the lowest ids), its first 65,536 rows
+   rebuilt and 2 queries answered on the CPU (signatures and ids equal).
+   ``query_2048``: the database CUT from 20,971,520 to 4,194,304 windows
+   of 2,048 (34.4 GB; the full one is 171.8 GB), 16 queries, each its
+   own top-1 at distance 0, its first 65,536 rows rebuilt and 2 queries
+   answered on the CPU as at 128.  One query's ``collision_count`` and DTW
+   calls held to their plain versions and timed at each query shape
+   (the ``ssh_step_shapes`` of the kernel entries).
+13. Roofline: for each timed run (the 8 x 2,048 prefill, granite
+   training, the four recsys train steps, NequIP ``minibatch_lg``, the
+   SSH steps) the analytic MODEL_FLOPS at the run's own batch
+   (``launch.analytic``) over its time and the 989-TFLOP/s bf16 peak
+   (training's 6·N·tokens share beside it), written to
+   ``build/roofline_measured.json`` for ``launch.roofline --measured``.
+14. Census: one line a ``torch.profiler`` window
+   (``bench.device_time.CENSUS``): the device records kept of each of
+   the port's kernels against the launches their counters saw, the gap,
+   the kernel-launch calls the profiler saw on the host against the
+   kernels it recorded on the card, and the lead-in kernels that went
+   unrecorded; a summary.
 
 Prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Imports nothing of JAX.
@@ -492,6 +540,26 @@ FAMILY_RTOL = 1e-4
 FAMILY_LEARN_STEPS, FAMILY_LEARN_BATCH = 8, 4096
 GNN_CELLS = ("molecule", "full_graph_sm", "minibatch_lg", "ogb_products")
 GNN_TRAIN_STEPS = 5
+# step 11, attention with an offset and a key bound: granite-3-2b's layer
+# (B 8, 32/8 heads, D 64) at S 1,024 against T 2,048, deepseek-v2-lite's
+# MLA layer (16 heads, Q/K 192, V 128) at S 512, and S 2,048 against T
+# 1,024 (rows before the first key)
+ATTN_BATCH, ATTN_S, ATTN_T = 8, 1024, 2048
+ATTN_MLA_BATCH, ATTN_MLA_S = 8, 512
+# step 12, the SSH steps: build_2048's series and the windows of the ECG
+# stream they are (at this stride); timed steps; queries a query cell;
+# rows the card is held to the CPU on (a query database's first rows, by
+# length; build_2048's first rows); rows a build call when the databases
+# are made
+SSH_BUILD_BATCH, SSH_BUILD_STRIDE = 65_536, 256
+SSH_BUILD_STEPS = 5
+SSH_QUERIES = 16
+SSH_CPU_ROWS = {128: 65_536, 2048: 65_536}
+SSH_CPU_BUILD_ROWS = 16_384
+SSH_DB_CHUNK = {128: 1 << 20, 2048: 1 << 16}
+# the query databases: query_128's at full size, query_2048's CUT from
+# 20,971,520 rows (171.8 GB of float32 series) to 4,194,304 (34.4 GB)
+SSH_DB_128_ROWS, SSH_DB_2048_ROWS = 20_971_520, 4_194_304
 MB_GRAPH_NODES, MB_GRAPH_DEGREE = 232_965, 50
 MB_SEEDS, MB_FANOUTS = 1024, (15, 10)
 
@@ -515,14 +583,11 @@ def kernel_times(kernel_fn, library_fn=None):
     kept every record, how many windows were profiled to get one that
     kept any (``device_windows``; 1 unless a window came back empty), and
     where the device time came from (``device_source``: ``"profiler"``,
-    or ``"events"`` when every window came back empty).  ``events_ms``
-    is the kernel's device time read by events alone
-    (``device_time.spun_ms``), the clock that stands in when the profiler
-    keeps nothing, held beside the profiler's in every run."""
-    from repro_torch.bench.device_time import spun_ms, timed
+    or ``"events"``, ``device_time.spun_ms``, when every window came
+    back empty)."""
+    from repro_torch.bench.device_time import timed
     k = timed(kernel_fn)
     out = dict(ms=k["device_ms"], call_ms=k["call_ms"],
-               events_ms=spun_ms(kernel_fn),
                device_window_complete=k["device_complete"],
                device_windows=k["device_windows"],
                device_source=k["device_source"])
@@ -2210,7 +2275,7 @@ def subseq_paths(args, counted, phases) -> dict:
 
     # -- data: one stream, two planted patterns, queries ---------------------
     t = time.perf_counter()
-    stream = synthetic_ecg(args.subseq_points, seed=args.seed)
+    stream = ecg_stream(args.subseq_points, args.seed).copy()
     rng = np.random.default_rng(args.seed + 11)
 
     def pattern():
@@ -2647,13 +2712,10 @@ def device_profile(fn):
     and the ms of the two flash kernels among them.  The profiler
     slows the host, so a busy share divides this device time by an
     unprofiled wall time."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from repro_torch.bench.device_time import Window
+    with Window("device_profile") as win:
         fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages()
+    dev = [e for e in win.events
            if e.device_type == torch.autograd.DeviceType.CUDA]
     return dict(
         device_ms=sum(e.self_device_time_total for e in dev) / 1e3,
@@ -2997,6 +3059,10 @@ def lm_path(args, counted, phases) -> dict:
     _, batch_s, batch_peak = counted("lm_batch", ("flash_attention",),
                                      lambda: timed_prefill(toks_batch))
     expect_launches("lm_batch", cfg.n_layers)
+    from repro_torch.launch import analytic
+    measured("granite-3-2b", "prefill_32k", f"prefill {LM_BATCH} x "
+             f"{LM_BATCH_LEN}", analytic.lm_model_flops(
+                 cfg, "prefill", LM_BATCH, LM_BATCH_LEN), batch_s)
     log(f"lm prefill {LM_BATCH} x {LM_BATCH_LEN}: {batch_s:.3f} s, "
         f"{LM_BATCH * LM_BATCH_LEN / batch_s:.1f} tokens/s, peak memory "
         f"{batch_peak:.2f} GB")
@@ -3601,13 +3667,10 @@ def train_profile(step_fn):
     """One training step under ``torch.profiler``: device ms by kind
     (the flash forward kernels, matrix products, the rest), operations,
     wall ms of the same step unprofiled is the caller's."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from repro_torch.bench.device_time import Window
+    with Window("train_profile") as win:
         step_fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages()
+    dev = [e for e in win.events
            if e.device_type == torch.autograd.DeviceType.CUDA]
 
     def kind(key):
@@ -3690,6 +3753,12 @@ def train_paths(args, counted, phases, smi) -> dict:
     expect("train", 2 * cfg.n_layers * TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated() / 1e9
     report("train", run.history, tokens, peak, n_params)
+    from repro_torch.launch import analytic
+    steady = float(np.mean([r["seconds"] for r in run.history[1:]]))
+    measured("granite-3-2b", "train_4k", f"train {TRAIN_BATCH} x {seq}",
+             analytic.lm_model_flops(cfg, "train", TRAIN_BATCH, seq), steady)
+    MEASURED[-1]["six_n_share"] = (6 * n_params * tokens / steady
+                                   / BF16_TC_OPS_PER_S)
     log(f"train: {TRAIN_STEPS} steps in {wall:.1f} s with the set-up "
         f"({sum(r['seconds'] for r in run.history):.1f} s in the steps)")
     # one more step, profiled (outside the counted phases)
@@ -4346,6 +4415,12 @@ def family_paths(args, counted, phases, smi) -> dict:
         full = counted(f"recsys_{short}", (),
                        lambda: recsys_full(name, args, dev, smi))
         out["recsys"][name] = dict(full, check=check)
+        tb = full["train_batch"]
+        from repro_torch.launch import analytic
+        measured(name, "train_batch", f"train at {tb['batch']}",
+                 analytic.recsys_model_flops(get_arch(name).config, "train",
+                                             {"batch": tb["batch"]}),
+                 tb["s_per_step"])
         free()
 
     # BST learns one batch; the launcher at full width
@@ -4392,6 +4467,13 @@ def family_paths(args, counted, phases, smi) -> dict:
         out["gnn"][cell] = counted(f"gnn_{cell}", (),
                                    lambda: gnn_train(cell, args, dev, smi))
         free()
+    from repro_torch.launch import analytic
+    mb = out["gnn"]["minibatch_lg"]
+    measured("nequip", "minibatch_lg", f"{mb['nodes']} nodes, {mb['edges']}"
+             f" edges", analytic.gnn_model_flops(
+                 arch.cell_config("minibatch_lg"),
+                 {"n_nodes": mb["nodes"], "n_edges": mb["edges"]}),
+             mb["s_per_step"])
     # ogb_products: reckoned from minibatch_lg's peak a sampled edge
     mb = out["gnn"]["minibatch_lg"]
     per_edge = mb["peak_gb"] * 1e9 / mb["edges"]
@@ -4431,6 +4513,525 @@ def family_paths(args, counted, phases, smi) -> dict:
     free()
     log(f"step 10 numbers: {json.dumps(out)}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# 11. attention with a query offset and a per-batch key bound
+# ---------------------------------------------------------------------------
+
+def offset_pairs(s, t, causal, off, kv_len):
+    """Unmasked (query, key) pairs of one head summed over the batch: row
+    i of batch b sees min(kv_len[b], i + off + 1) keys under causal (at
+    least 0), kv_len[b] otherwise."""
+    rows = np.arange(s)
+    total = 0
+    for n in kv_len:
+        if causal:
+            total += int(np.clip(rows + off + 1, 0, n).sum())
+        else:
+            total += int(n) * s
+    return total
+
+
+def offset_bound(q, k, v, causal, off, kv_len, ops_per_s):
+    """(bound_ms, bound_by) of one launch at a query offset and key bound:
+    2·(D + Dv) flops a pair the mask leaves, and q, k, v, o once."""
+    b, h, s, d = q.shape
+    t, dv = k.shape[2], v.shape[3]
+    n_bytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                  + b * h * s * dv)
+    return bound_ms(n_bytes, 2 * h * (d + dv)
+                    * offset_pairs(s, t, causal, off, kv_len), ops_per_s)
+
+
+def masked_sdpa(q, k, v, causal, off, kv, scale=None):
+    """``scaled_dot_product_attention`` with the same mask as a boolean
+    ``attn_mask`` (KV heads expanded outside the call): the library
+    yardstick of an offset case.  A row that sees no key is NaN there."""
+    from repro_torch.kernels import ref
+    g = q.shape[1] // k.shape[1]
+    ke, ve = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    hidden = ref.attention_hidden(q.shape[2], k.shape[2], causal, off, kv,
+                                  device=q.device, batch=q.shape[0])
+    mask = None if hidden is None else ~hidden
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, ke, ve, attn_mask=mask, scale=scale)
+
+
+def offset_case(tag, q, k, v, causal, off, kv, scale=None):
+    """Both flash kernels on one offset case against the plain version
+    (``error_bound``), the tensor-core kernel per element against
+    ``ref.flash_attention_tc_ref`` too where the rule takes it; every row
+    that sees no key exactly 0; device, call, plain and masked-SDPA ms
+    and the bound of the kernel the rule picks.  Raises beyond a
+    bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    plain = ref.flash_attention_ref(q, k, v, causal, scale, off, kv)
+    hidden = ref.attention_hidden(q.shape[2], k.shape[2], causal, off, kv,
+                                  device=q.device, batch=q.shape[0])
+    empty = (torch.zeros((1, 1, q.shape[2]), dtype=torch.bool,
+                         device=q.device) if hidden is None
+             else hidden.all(-1)).expand(q.shape[0], q.shape[1], -1)
+    tc = fa.takes_tensor_cores(q, k, v, scale)
+    res = dict(shape=f"q {tuple(q.shape)} k {tuple(k.shape)} v "
+                     f"{tuple(v.shape)} {str(q.dtype)[6:]} "
+                     f"{'causal' if causal else 'full'} q_offset {off} "
+                     f"kv_valid {None if kv is None else kv.tolist()}",
+               rows_without_keys=int(empty[:, 0].sum()),
+               kernel="flash_attention" if tc else "flash_attention_simt")
+    emu = ref.flash_attention_tc_ref(q, k, v, causal, scale, off, kv) \
+        if tc else None
+    abs_out = (emu.abs_out if emu is not None
+               else ref.flash_attention_ref(q.float(), k.float(),
+                                            v.float().abs(), causal, scale,
+                                            off, kv))
+    worst = {}
+    runs = (("ops.flash_attention", lambda: ops.flash_attention(
+                q, k, v, causal, scale, off, kv)),
+            ("flash_attention_simt", lambda: fa.flash_attention_simt(
+                q, k, v, causal, scale, off, kv)))
+    for name, fn in runs:
+        got = fn()
+        torch.cuda.synchronize()
+        on_tc = name == "ops.flash_attention" and tc
+        checks = [("plain", plain, fa.error_bound(
+            got, plain, v, abs_out if on_tc else None))]
+        if on_tc:
+            checks.append(("emulation", emu.out, fa.error_bound(
+                got, emu.out, v, emu.abs_out, emu.spread)))
+        for against, want, bound in checks:
+            err = (got.float() - want.float()).abs()
+            ratio = float((err / bound).max())
+            worst[f"{name} vs {against}"] = dict(
+                max_abs_err=float(err.max()), worst_err_over_bound=ratio)
+            if not ratio <= 1.0:
+                raise AssertionError(
+                    f"attn_offset {tag}: {name} disagrees with the "
+                    f"{against} version beyond its bound: max err "
+                    f"{float(err.max())}, worst err/bound {ratio}")
+        if bool(got[empty].any()) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"attn_offset {tag}: {name} wrote a "
+                                 f"non-zero or non-finite value in a row "
+                                 f"that sees no key")
+        del got
+    kv_len = ([k.shape[2]] * q.shape[0] if kv is None
+              else kv.clamp(0, k.shape[2]).tolist())
+    bms, bkind = offset_bound(q, k, v, causal, off, kv_len,
+                              BF16_TC_OPS_PER_S if tc else F32_OPS_PER_S)
+    times = kernel_times(lambda: ops.flash_attention(q, k, v, causal, scale,
+                                                     off, kv),
+                         masked_sdpa(q, k, v, causal, off, kv, scale))
+    res.update(**times, checks=worst,
+               max_abs_err=worst["ops.flash_attention vs plain"][
+                   "max_abs_err"],
+               plain_ms=cuda_time_ms(lambda: ref.flash_attention_ref(
+                   q, k, v, causal, scale, off, kv), min_iters=2),
+               bound_ms=bms, bound_by=bkind,
+               share_of_bound=bms / times["ms"],
+               library="F.scaled_dot_product_attention with the mask as a "
+                       "boolean attn_mask, KV heads expanded outside")
+    log(f"attn_offset {tag}: [{res['shape']}] {res['kernel']} device ms "
+        f"{res['ms']:.4f} ({res['device_source']}) call ms "
+        f"{res['call_ms']:.4f} masked SDPA device ms {res['library_ms']} "
+        f"plain ms {res['plain_ms']:.3f} bound ms {bms:.4f} ({bkind}, "
+        f"{res['share_of_bound']:.3f} of it); rows without keys "
+        f"{res['rows_without_keys']}, written 0; checks {worst}")
+    return res
+
+
+def attn_offset_paths(args, counted, phases) -> dict:
+    """Step 11 (phase ``attn_offset``): ``chunked_attention`` with the
+    queries at the end of the keys and a per-batch key bound, through
+    both flash kernels, at granite-3-2b's and deepseek-v2-lite's MLA
+    layer shapes, and one causal case with S > T; then row 7 re-timed at
+    8 x 2,048, S = T, with and without the new arguments, in turns with
+    SDPA.  Returns the ``offset_shapes`` of the two flash entries."""
+    from repro_torch.configs import deepseek_v2_lite_16b, granite_3_2b
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+
+    dev = torch.device("cuda")
+    g = granite_3_2b.CONFIG
+    dcfg = deepseek_v2_lite_16b.CONFIG
+    rng = np.random.default_rng(args.seed + 21)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 21)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def kv_valid(b, t):
+        kv = rng.integers(1, t, size=b)
+        kv[0], kv[-1] = 0, t
+        return torch.as_tensor(kv, dtype=torch.int32, device=dev)
+
+    # (tag, B, H, Hk, S, T, D, Dv, dtypes)
+    cases = [("granite", ATTN_BATCH, g.n_heads, g.n_kv_heads, ATTN_S,
+              ATTN_T, g.hd, g.hd, (torch.bfloat16, torch.float32)),
+             ("mla", ATTN_MLA_BATCH, dcfg.n_heads, dcfg.n_heads,
+              ATTN_MLA_S, ATTN_T,
+              dcfg.qk_nope_dim + dcfg.qk_rope_dim, dcfg.v_head_dim,
+              (torch.bfloat16, torch.float32)),
+             ("s_gt_t", 2, g.n_heads, g.n_kv_heads, ATTN_T, ATTN_S, g.hd,
+              g.hd, (torch.bfloat16, torch.float32))]
+    inputs = []
+    for tag, b, h, hk, s, t, d, dv, dtypes in cases:
+        for dt in dtypes:
+            q = randn(b, s, h, d, dtype=dt)
+            k = randn(b, t, hk, d, dtype=dt)
+            v = randn(b, t, hk, dv, dtype=dt)
+            scale = d ** -0.5
+            kv = kv_valid(b, t)
+            inputs.append((f"{tag} {str(dt)[6:]}", q, k, v, scale, kv))
+
+    def path():
+        """The model's entry: ``layers.chunked_attention`` (B, S, H, D),
+        causal (query i at T - S + i) and not, each with the key bound."""
+        outs = []
+        for tag, q, k, v, scale, kv in inputs:
+            for causal in ((True,) if tag.startswith("s_gt_t")
+                           else (True, False)):
+                o = layers.chunked_attention(q, k, v, causal=causal,
+                                             scale=scale, kv_valid=kv)
+                if not bool(torch.isfinite(o).all()):
+                    raise AssertionError(f"attn_offset {tag}: not finite")
+                outs.append(o)
+        return len(outs)
+    n = counted("attn_offset", ("flash_attention", "flash_attention_simt"),
+                path)
+    log(f"attn_offset: {n} chunked_attention calls through the model's "
+        f"entry: launches {phases['attn_offset']}")
+
+    shapes = {"flash_attention": {}, "flash_attention_simt": {}}
+    for tag, q, k, v, scale, kv in inputs:
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        s, t = q.shape[1], k.shape[1]
+        for causal in ((True,) if tag.startswith("s_gt_t")
+                       else (True, False)):
+            off = t - s if causal else 0
+            key = f"{tag} {'causal' if causal else 'full'}"
+            res = offset_case(key, qh, kh, vh, causal, off, kv, scale)
+            res["launches"] = phases["attn_offset"][res["kernel"]]
+            shapes[res["kernel"]][key] = res
+    del inputs
+
+    # row 7 at granite 8 x 2,048, S = T: the old path against the new
+    # arguments (a full key bound and offset 0), in turns with SDPA
+    q = randn(LM_BATCH, g.n_heads, LM_BATCH_LEN, g.hd, dtype=torch.bfloat16)
+    k = randn(LM_BATCH, g.n_kv_heads, LM_BATCH_LEN, g.hd,
+              dtype=torch.bfloat16)
+    v = randn(LM_BATCH, g.n_kv_heads, LM_BATCH_LEN, g.hd,
+              dtype=torch.bfloat16)
+    full = torch.full((LM_BATCH,), LM_BATCH_LEN, dtype=torch.int32,
+                      device=dev)
+    if not torch.equal(ops.flash_attention(q, k, v),
+                       ops.flash_attention(q, k, v, True, None, 0, full)):
+        raise AssertionError("attn_offset: a key bound of T changes the "
+                             "S = T output")
+    turns = in_turns({
+        "no new arguments": lambda: ops.flash_attention(q, k, v),
+        "kv_valid = T": lambda: ops.flash_attention(q, k, v, True, None, 0,
+                                                    full),
+        "sdpa": sdpa_call(q, k, v)}, rounds=4)
+    times = kernel_times(lambda: ops.flash_attention(q, k, v),
+                         sdpa_call(q, k, v))
+    bms, bkind = flash_bound(q, k, v)
+    retime = dict(shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 "
+                        f"causal", turns_call_ms=turns, **times,
+                  bound_ms=bms, bound_by=bkind,
+                  share_of_bound=bms / times["ms"])
+    shapes["flash_attention"]["retime 8 x 2048"] = retime
+    log(f"attn_offset: row 7 at 8 x {LM_BATCH_LEN}, S = T, in turns (call "
+        f"ms): {turns}; device ms {times['ms']:.4f} against SDPA's "
+        f"{times['library_ms']}; bound {bms:.4f} ms ({bkind})")
+    return shapes
+
+
+# ---------------------------------------------------------------------------
+# 12. the SSH build and query steps at full ssh-ecg width
+# ---------------------------------------------------------------------------
+
+_ECG = {}
+
+
+def ecg_stream(n, seed):
+    """``synthetic_ecg(n, seed)``, made once a seed for the longest n asked
+    and sliced after (the subsequence and SSH-step phases share it)."""
+    from repro_torch.data.timeseries import synthetic_ecg
+    got = _ECG.get(seed)
+    if got is None or len(got) < n:
+        got = _ECG[seed] = synthetic_ecg(n, seed=seed)
+    return got[:n]
+
+
+def ssh_step_paths(args, counted, phases, smi) -> dict:
+    """Step 12 (phases ``ssh_build_2048``, ``ssh_query_128``,
+    ``ssh_query_2048``): ``launch.steps``' SSH build and query steps of
+    the ``ssh-ecg`` arch at full width; returns the ``ssh_step_shapes``
+    of ``sketch_conv``, ``collision_count`` and ``dtw_wavefront`` and
+    the cells' times."""
+    from repro_torch.configs import ssh_ecg
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import analytic, steps
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    arch = ssh_ecg.ARCH
+    kernels = ("sketch_conv", "collision_count", "dtw_wavefront")
+    params = steps.init_fn(arch, "build_2048", device=dev)()
+    build = steps.make_step(arch, "build_2048", "build")
+    shapes = {k: {} for k in kernels}
+    cells = {}
+    rng = np.random.default_rng(args.seed + 31)
+    n128, n2048 = SSH_DB_128_ROWS, SSH_DB_2048_ROWS
+    b_meta = arch.shapes["build_2048"].meta
+    batch, m_b = SSH_BUILD_BATCH, b_meta["length"]
+    stride = SSH_BUILD_STRIDE
+    stream = torch.as_tensor(ecg_stream(
+        max(n128 + 127, n2048 + 2047, batch * stride + m_b), args.seed),
+        device=dev)
+    log(f"ssh_steps: one synthetic-ECG stream of {stream.numel()} points "
+        f"from seed {args.seed}; params drawn from the spec's seed "
+        f"{arch.config.seed}: filters {tuple(params['filters'].shape)}, "
+        f"CWS fields {tuple(params['cws']['r'].shape)}")
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # -- build_2048 ----------------------------------------------------------
+    series = stream.unfold(0, m_b, stride)[:batch].contiguous()
+
+    def build_path():
+        build(params, {"series": series[:4096]})        # first-use set-up
+        walls = []
+        for _ in range(SSH_BUILD_STEPS):
+            sigs, s = sync_s(lambda: build(params, {"series": series}))
+            walls.append(s)
+        return sigs, walls
+    sigs, walls = counted("ssh_build_2048", ("sketch_conv",), build_path)
+    if sigs.shape != (batch, 40) or sigs.dtype != torch.int32:
+        raise AssertionError(f"ssh build_2048: signatures "
+                             f"{tuple(sigs.shape)} {sigs.dtype}")
+    step_s = float(np.median(walls))
+    mf = analytic.ssh_model_flops(arch.config, "build", dict(
+        batch=batch, length=m_b))
+    cells["build_2048"] = dict(batch=batch, length=m_b, walls_s=walls,
+                               ms_per_step=step_s * 1e3,
+                               series_per_s=batch / step_s,
+                               model_flops=mf, seconds=step_s)
+    log(f"ssh build_2048: {batch} x {m_b} (windows at stride {stride}) -> "
+        f"{tuple(sigs.shape)} signatures: {step_s * 1e3:.2f} ms a step "
+        f"(median of {len(walls)}: {[round(w * 1e3, 2) for w in walls]}), "
+        f"{batch / step_s:.0f} series/s [{smi}]")
+    # card against CPU: the signatures of the first rows
+    t = time.perf_counter()
+    n_cpu = SSH_CPU_BUILD_ROWS
+    p_cpu = {"filters": params["filters"].cpu(),
+             "cws": {k: v.cpu() for k, v in params["cws"].items()}}
+    want = build(p_cpu, {"series": series[:n_cpu].cpu()})
+    bad = int((sigs[:n_cpu].cpu() != want).any(1).sum())
+    if bad:
+        raise AssertionError(f"ssh build_2048: card and CPU signatures "
+                             f"differ on {bad} of {n_cpu} rows")
+    cells["build_2048"]["cpu_check"] = (
+        f"{n_cpu} rows: signatures equal; {time.perf_counter() - t:.1f} s")
+    log(f"ssh build_2048: card = CPU, {cells['build_2048']['cpu_check']}")
+    # the sketch at the build shape, bit for bit against its emulation
+    x = series
+    kern = ops.sketch_conv(x, params["filters"], 3)
+    emu = ref.sketch_conv_fma_ref(x, params["filters"], 3)
+    if not torch.equal(kern, emu):
+        raise AssertionError("sketch_conv at the build shape is not "
+                             "bit-identical to sketch_conv_fma_ref")
+    del emu
+    w_ = params["filters"].shape[0]
+    filt = params["filters"]
+    bms, bkind = bound_ms(4 * (x.numel() + filt.numel() + kern.numel()),
+                          2 * kern.shape[1] * kern.shape[0] * w_)
+    wconv = filt.t().contiguous()[:, None, :]
+    shapes["sketch_conv"]["build_2048"] = dict(
+        shape=f"x {tuple(x.shape)} filters {tuple(filt.shape)} step 3",
+        **kernel_times(lambda: ops.sketch_conv(x, filt, 3),
+                       lambda: torch.nn.functional.conv1d(
+                           x[:, None, :], wconv, stride=3)),
+        plain_ms=cuda_time_ms(lambda: ref.sketch_conv_ref(x, filt, 3),
+                              min_iters=2),
+        bound_ms=bms, bound_by=bkind, max_abs_err=0.0, bit_identical=True,
+        launches=phases["ssh_build_2048"]["sketch_conv"])
+    del kern, series, x, sigs
+    log(f"kernel sketch_conv at the build_2048 shape: "
+        f"{shapes['sketch_conv']['build_2048']}")
+
+    # -- query steps -------------------------------------------------------
+    def query_cell(shape, n_db, gate_self):
+        meta = arch.shapes[shape].meta
+        m = meta["length"]
+        query = steps.make_step(arch, shape, "query")
+        t = time.perf_counter()
+        db_series = stream.unfold(0, m, 1)[:n_db].contiguous()
+        chunk = SSH_DB_CHUNK[m]
+        db_sigs = torch.cat([
+            build(params, {"series": db_series[lo:lo + chunk]})
+            for lo in range(0, n_db, chunk)])
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t
+        log(f"ssh {shape}: database of {n_db} windows of {m} (stride 1), "
+            f"{db_series.numel() * 4 / 1e9:.2f} GB of series and "
+            f"{db_sigs.numel() * 4 / 1e9:.2f} GB of signatures, built by "
+            f"the build step in {-(-n_db // chunk)} calls of {chunk} rows: "
+            f"{built_s:.1f} s"
+            + ("" if n_db == meta["n_database"] else
+               f"; CUT from {meta['n_database']} rows"))
+        qids = np.sort(rng.choice(n_db, SSH_QUERIES, replace=False))
+        batch_q = {"db_sigs": db_sigs, "db_series": db_series}
+
+        def run():
+            query(params, dict(batch_q, query=db_series[int(qids[0])]))
+            out = []
+            for i in qids:
+                (ids, d), s = sync_s(lambda: query(
+                    params, dict(batch_q, query=db_series[int(i)])))
+                out.append((ids.cpu(), d.cpu(), s))
+            return out
+        res = counted(f"ssh_{shape}", kernels, run)
+        walls = [r[2] for r in res]
+        top1 = [int(r[0][0]) == int(i) for r, i in zip(res, qids)]
+        zero = [float(r[1][0]) == 0.0 for r in res]
+        top10 = [int(i) in r[0].tolist() for r, i in zip(res, qids)]
+        counts = ops.collision_count(db_sigs[int(qids[0])], db_sigs)
+        ties = int((counts == db_sigs.shape[1]).sum())
+        q_ms = float(np.median(walls)) * 1e3
+        mf = analytic.ssh_model_flops(arch.config, "query", dict(
+            meta, n_database=n_db))
+        cells[shape] = dict(
+            n_database=n_db, queries=qids.tolist(), ms_per_query=q_ms,
+            walls_s=walls, self_top1=sum(top1) / len(top1),
+            self_in_top10=sum(top10) / len(top10), top1_distance_0=zero,
+            ties_at_k_first_query=ties, model_flops=mf,
+            seconds=q_ms / 1e3, db_build_s=built_s)
+        log(f"ssh {shape}: {len(qids)} queries drawn from the database: "
+            f"{q_ms:.3f} ms a query (median; "
+            f"{[round(w * 1e3, 2) for w in walls]}); self-match at rank 1 "
+            f"{sum(top1)}/{len(top1)}, in the top 10 "
+            f"{sum(top10)}/{len(top10)}; the first query ties with {ties} "
+            f"rows at all {db_sigs.shape[1]} hashes, and the top-"
+            f"{meta['top_c']} takes ties by the lowest id [{smi}]")
+        if gate_self and not (all(top1) and all(zero)):
+            raise AssertionError(f"ssh {shape}: a query drawn from the "
+                                 f"database is not its own top-1 at "
+                                 f"distance 0: {top1} {zero}")
+        # card against CPU on the database's first SSH_CPU_ROWS[m] rows
+        t = time.perf_counter()
+        n_cpu = min(SSH_CPU_ROWS[m], n_db)
+        sl_series, sl_sigs = db_series[:n_cpu], db_sigs[:n_cpu]
+        cpu_sigs = build(p_cpu, {"series": sl_series.cpu()})
+        if not torch.equal(cpu_sigs, sl_sigs.cpu()):
+            raise AssertionError(f"ssh {shape}: card and CPU signatures "
+                                 f"differ on the first {n_cpu} rows")
+        for i in rng.choice(n_cpu, 2, replace=False):
+            qc = sl_series[int(i)]
+            gi, gd = query(params, {"query": qc, "db_sigs": sl_sigs,
+                                    "db_series": sl_series})
+            ci, cd = query(p_cpu, {"query": qc.cpu(), "db_sigs": cpu_sigs,
+                                   "db_series": sl_series.cpu()})
+            if not torch.equal(gi.cpu(), ci) or not torch.allclose(
+                    gd.cpu(), cd, rtol=1e-5, atol=1e-6):
+                raise AssertionError(
+                    f"ssh {shape}: card and CPU answers differ on a "
+                    f"{n_cpu}-row slice: {gi.tolist()} {ci.tolist()}")
+        cells[shape]["cpu_check"] = (
+            f"{n_cpu} rows: signatures equal; 2 queries' ids equal, "
+            f"distances within 1e-5; {time.perf_counter() - t:.1f} s")
+        log(f"ssh {shape}: card = CPU, {cells[shape]['cpu_check']}")
+        # the kernels on one query's own inputs
+        with Recorder(ops, ("collision_count", "dtw_rerank")) as rec:
+            query(params, dict(batch_q, query=db_series[int(qids[0])]))
+        (q1, dbk1), _ = rec.calls["collision_count"][0]
+        cc = dict(collision_at(q1, dbk1),
+                  launches=phases[f"ssh_{shape}"]["collision_count"])
+        dt = dict(dtw_shape("dtw_wavefront", rec.calls["dtw_rerank"][0], 2),
+                  max_abs_err=0.0,
+                  launches=phases[f"ssh_{shape}"]["dtw_wavefront"])
+        shapes["collision_count"][shape] = cc
+        shapes["dtw_wavefront"][shape] = dt
+        shapes["sketch_conv"].setdefault("query_launches", {})[shape] = \
+            phases[f"ssh_{shape}"]["sketch_conv"]
+        for name, got in (("collision_count", cc), ("dtw_wavefront", dt)):
+            log(f"kernel {name} at the ssh {shape} shape: [{got['shape']}] "
+                f"device ms {got['ms']:.4f} ({got['device_source']}) call "
+                f"ms {got['call_ms']:.4f} plain ms {got['plain_ms']:.4f} "
+                f"library ms {got.get('library_ms')} bound ms "
+                f"{got['bound_ms']:.5f} ({got['bound_by']}) launches "
+                f"{got['launches']}")
+        del rec, db_series, db_sigs, batch_q, counts
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    query_cell("query_128", n128, gate_self=False)
+    query_cell("query_2048", n2048, gate_self=True)
+    del stream, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(shapes=shapes, cells=cells)
+
+
+# ---------------------------------------------------------------------------
+# 13. roofline and 14. the profiler's census
+# ---------------------------------------------------------------------------
+
+MEASURED = []
+
+
+def measured(arch, shape, run, model_flops, seconds):
+    """One timed run for the roofline: MODEL_FLOPS at the run's own batch
+    and its time (``launch.roofline`` reads the list)."""
+    MEASURED.append(dict(arch=arch, shape=shape, run=run,
+                         model_flops=model_flops, seconds=seconds,
+                         n_chips=1))
+
+
+def roofline_lines(smi):
+    """Step 13: each timed run's MODEL_FLOPS over its time and the bf16
+    peak; written to ``build/roofline_measured.json``, which
+    ``python -m repro_torch.launch.roofline --measured`` reads."""
+    from repro_torch.launch.roofline import measured_frac
+    for r in MEASURED:
+        r["roofline_frac"] = measured_frac(r["model_flops"], r["seconds"])
+        log(f"roofline {r['arch']} {r['shape']} ({r['run']}): MODEL_FLOPS "
+            f"{r['model_flops']:.4e} in {r['seconds']:.6f} s = "
+            f"{r['model_flops'] / r['seconds'] / 1e12:.3f} TFLOP/s, "
+            f"{r['roofline_frac']:.5f} of the 989 TFLOP/s bf16 peak "
+            + (f"(6 N tokens gives {r['six_n_share']:.4f}) "
+               if "six_n_share" in r else "") + f"[{smi}]")
+    out = Path(__file__).resolve().parent / "build" / "roofline_measured.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(MEASURED, indent=1))
+
+
+def census_lines():
+    """Step 14: one line a profiled window (``bench.device_time.CENSUS``):
+    the device records kept of each of the port's kernels against the
+    launches their counters saw, and the gap."""
+    from repro_torch.bench.device_time import CENSUS
+    lost = [c for c in CENSUS if c["gap"]]
+    for c in CENSUS:
+        log(f"census window {c['window']} [{c['label']}]: kept "
+            f"{c['kept']} launched {c['launched']} gap {c['gap']} device "
+            f"records {c['device_records']} (other {c['other']}); lead-in "
+            f"kernels unrecorded {c['lead_lost']}; launch calls whose kernel"
+            f" went unrecorded {c.get('lost_calls')} at positions "
+            f"{c.get('lost_at')}")
+    lead = [c["lead_lost"] for c in CENSUS]
+    log(f"census: {len(CENSUS)} profiled windows, {len(lost)} lost records "
+        f"of the port's kernels ({sum(sum(c['gap'].values()) for c in lost)} "
+        f"records), {sum(1 for c in CENSUS if c['device_records'] == 0)} "
+        f"kept no device record at all; first window with a gap: "
+        f"{lost[0]['window'] if lost else None}; lead-in kernels "
+        f"unrecorded a window: first {lead[:1]}, max {max(lead, default=0)}"
+        f", last {lead[-1:]}")
 
 
 def main() -> int:
@@ -4512,6 +5113,18 @@ def main() -> int:
     for e in entries:
         if e["name"] in shapes:
             e["stream_shape"] = shapes[e["name"]]
+    t = time.perf_counter()
+    ssh_steps = ssh_step_paths(args, counted, phases, smi)
+    for e in entries:
+        if e["name"] in ssh_steps["shapes"]:
+            e["ssh_step_shapes"] = ssh_steps["shapes"][e["name"]]
+    for shape, cell in ssh_steps["cells"].items():
+        measured("ssh-ecg", shape, f"n_database {cell['n_database']}"
+                 if "n_database" in cell else f"batch {cell['batch']}",
+                 cell["model_flops"], cell["seconds"])
+    log(f"ssh step phases: {time.perf_counter() - t:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated; "
+        f"cells {json.dumps(ssh_steps['cells'])}")
     entries.extend(lm_path(args, counted, phases))
     gc.collect()
     torch.cuda.empty_cache()
@@ -4525,6 +5138,16 @@ def main() -> int:
             e.setdefault("launches_by_phase", {}).update(
                 {p: c[e["name"]] for p, c in phases.items()
                  if p.startswith("lm_")})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    offsets = attn_offset_paths(args, counted, phases)
+    for e in entries:
+        if e["name"] in offsets:
+            e["offset_shapes"] = offsets[e["name"]]
+            e.setdefault("launches_by_phase", {})["attn_offset"] = \
+                phases["attn_offset"][e["name"]]
+    log(f"attention offset phases: {time.perf_counter() - t:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -4545,6 +5168,8 @@ def main() -> int:
     family_paths(args, counted, phases, smi)
     log(f"recsys and GNN phases: {time.perf_counter() - t:.1f} s")
 
+    roofline_lines(smi)
+    census_lines()
     for e in entries:
         log(f"kernel {e['name']}: device ms {e['ms']:.4f} call ms "
             f"{e['call_ms']:.4f} plain_ms {e['plain_ms']:.4f} library "
@@ -4555,11 +5180,11 @@ def main() -> int:
         log(f"kernel {e['name']}: profiled windows {e.get('device_windows')}"
             f" (library {e.get('library_windows')}), every record kept "
             f"{e.get('device_window_complete')}, device time from "
-            f"{e.get('device_source')} (library {e.get('library_source')}),"
-            f" by events alone {e.get('events_ms')} ms")
+            f"{e.get('device_source')} (library {e.get('library_source')})")
         for extra in ("query_shape", "sequential_shape", "long_shape",
                       "engine_shapes", "stream_shape", "fleet_shapes",
-                      "suite_shapes", "train_shapes"):
+                      "suite_shapes", "train_shapes", "ssh_step_shapes",
+                      "offset_shapes"):
             if extra in e:
                 log(f"kernel {e['name']} at the {extra.split('_')[0]} shape: "
                     f"{e[extra]}")

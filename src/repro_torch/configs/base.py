@@ -4,11 +4,11 @@ and the train launcher (counterpart of ``repro.configs.base``).
 Each lm, gnn and recsys config module exports ``ARCH = ArchDef(...)``.
 ``input_specs`` returns a :class:`TensorSpec` for every model input of a
 shape cell (shape and dtype, no allocation), and ``kind`` selects the
-step the cell runs (train / prefill / decode / serve / retrieval).  The
-reference's specs are ``jax.ShapeDtypeStruct``; the port keeps its own
-record with a torch dtype.  The ssh spec builders come with the
-benchmarks (ROADMAP.md §1 item 4; the SSH arches are
-``configs.registry.SSHArch``).
+step the cell runs (train / prefill / decode / serve / retrieval; build
+/ query for the SSH arches, ``configs.registry.SSHArch``, whose cells
+:func:`ssh_specs` describes).  The reference's specs are
+``jax.ShapeDtypeStruct``; the port keeps its own record with a torch
+dtype.
 
 GNN note: node and edge counts are padded to multiples of 4096, as the
 reference pads them to shard evenly on its meshes; padding edges are
@@ -125,7 +125,47 @@ def recsys_specs(cfg, cell: ShapeCell) -> Dict[str, Any]:
     return specs
 
 
-_SPEC_BUILDERS = {"lm": lm_specs, "gnn": gnn_specs, "recsys": recsys_specs}
+class SSHParams(NamedTuple):
+    """An ``"ssh"`` IndexSpec's stage params with the encoder's defaults
+    filled in (the reference's ``repro.core.index.SSHParams``)."""
+    window: int
+    step: int
+    ngram: int
+    num_filters: int
+    num_hashes: int
+    num_tables: int
+    seed: int
+
+
+def ssh_params(spec) -> SSHParams:
+    """:class:`SSHParams` of an ``"ssh"`` ``IndexSpec``."""
+    from repro_torch.encoders.pipeline import SSHEncoder
+    p = {**SSHEncoder.DEFAULTS, **spec.params}
+    return SSHParams(*(int(p[f]) for f in SSHParams._fields[:-1]),
+                     seed=int(spec.seed))
+
+
+def ssh_specs(cfg, cell: ShapeCell) -> Dict[str, Any]:
+    """An SSH cell's inputs (``repro/configs/base.py:152-162``): ``build``
+    a (batch, length) block of series; ``query`` one series against the
+    database's (N, K) signatures and (N, length) series."""
+    m = cell.meta
+    if cell.kind == "build":
+        return {"series": TensorSpec((m["batch"], m["length"]),
+                                     torch.float32)}
+    if cell.kind == "query":
+        k = ssh_params(cfg).num_hashes
+        return {
+            "query": TensorSpec((m["length"],), torch.float32),
+            "db_sigs": TensorSpec((m["n_database"], k), torch.int32),
+            "db_series": TensorSpec((m["n_database"], m["length"]),
+                                    torch.float32),
+        }
+    raise ValueError(cell.kind)
+
+
+_SPEC_BUILDERS = {"lm": lm_specs, "gnn": gnn_specs, "recsys": recsys_specs,
+                  "ssh": ssh_specs}
 
 
 # canonical LM shape set (assignment block)

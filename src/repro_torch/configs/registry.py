@@ -3,14 +3,16 @@ SSH arches as objects with ``index_spec()`` and ``search_config()``,
 what ``launch.build_index`` and ``launch.serve`` read, and the lm, gnn
 and recsys arches as ``configs.base.ArchDef`` (shape cells, input
 specs), what ``launch.serve``, ``launch.steps`` and ``launch.train``
-read.  The SSH arches' shape cells come with the benchmarks (ROADMAP.md
-§1 item 4)."""
+read.  An SSH arch also has the reference's shape cells (``build``,
+``query``), which ``launch.steps`` and the dry run read as they read an
+``ArchDef``'s."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
+from repro_torch.configs.base import ShapeCell, ssh_specs
 from repro_torch.db.config import SearchConfig
 from repro_torch.encoders import IndexSpec
 
@@ -32,13 +34,23 @@ _MODULES = {
 
 @dataclasses.dataclass(frozen=True)
 class SSHArch:
-    """An SSH deployment: the build-time spec (full and smoke) and the
-    search-time defaults."""
+    """An SSH deployment: the build-time spec (full and smoke), the
+    search-time defaults and the shape cells of its build and query
+    steps."""
     name: str
     config: IndexSpec
     smoke_config: IndexSpec
     search_defaults: SearchConfig
+    shapes: Dict[str, ShapeCell] = dataclasses.field(default_factory=dict)
     family: str = "ssh"
+
+    def cell_config(self, shape: str) -> IndexSpec:
+        """The spec a cell runs (every cell runs ``config``)."""
+        return self.config
+
+    def input_specs(self, shape: str) -> Tuple[str, Dict[str, Any]]:
+        cell = self.shapes[shape]
+        return cell.kind, ssh_specs(self.cell_config(shape), cell)
 
     def index_spec(self, smoke: bool = False, **params) -> IndexSpec:
         """The ``IndexSpec`` (the smoke one when asked), with stage-param

@@ -8,8 +8,14 @@
 //   f32 or bf16  ->  o (B, H, S, Dv) in q's type
 //   o[b, h, i] = softmax_j(scale * q[b, h, i] . k[b, h / g, j]) v[b, h / g, j]
 //   with g = H / Hk (query head h reads KV head h / g, as jnp.repeat of the
-//   KV heads gives) and, when causal, only keys j <= i, query positions
-//   absolute from 0 as in the TPU kernel.
+//   KV heads gives), over the keys j < kv_len[b] and, when causal, only
+//   j <= i + off.  kv_len[b] = min(T, kv_valid[b]) (T without kv_valid, a
+//   nullable (B,) int32 device array read once by each block, never on the
+//   host), and off the query offset: query i sits at position i + off.
+//   off = 0 is the TPU kernel's alignment; the model's chunked_attention
+//   passes T - S, the bottom-right alignment of its decode and prefill
+//   continuation.  A row that sees no key (kv_len[b] = 0, or i + off < 0
+//   under causal) has l = 0 and is written as 0.
 //
 // Every tensor comes with its element strides for (b, h, s); the last
 // axis must be contiguous.  So the model's (B, S, H, D) activations go in
@@ -112,10 +118,12 @@
 //      tile lands under the other blocks' compute instead.  At (DQ, DV) =
 //      (192, 128), the MLA shape, a block takes 131 KB and a SM holds one.
 //    * The causal diagonal is cut in the warp's own row span: tiles past it
-//      are not visited; in the tile that crosses it the 16-key sub-blocks
-//      past it are never read, and on the diagonal sub-block (keys
-//      wq0 + 8 jj + tc against rows wq0 + 4 i + tr, aligned because both
-//      start at multiples of 16) the (row group i, key group jj) pairs
+//      (and past kv_len) are not visited; when off is a multiple of 16, in
+//      the tile that crosses it the 16-key sub-blocks past it are never
+//      read, and on the diagonal sub-block (keys wq0 + off + 8 jj + tc
+//      against rows wq0 + 4 i + tr, aligned because both start at
+//      multiples of 16; any other off computes the tile whole and masks
+//      it elementwise) the (row group i, key group jj) pairs
 //      with 8 jj > 4 i + 3, all masked, are skipped in both products
 //      (compile-time variants of the logits' loop, a uniform branch a
 //      block of 4 keys in P V).  The softmax and P V are one copy of code
@@ -320,8 +328,8 @@ __device__ __forceinline__ void logits(const float* __restrict__ Qw,
 template <class C>
 __device__ __forceinline__ void softmax_pv(
     float (&s)[C::MR][8], const float* __restrict__ Vt,
-    float* __restrict__ Pw, int tr, int tc, int wq0, int k0, int Tk,
-    int causal, int tri, float (&m)[C::MR], float (&l)[C::MR],
+    float* __restrict__ Pw, int tr, int tc, int wq0, int k0, int kv_len,
+    int causal, int off, int tri, float (&m)[C::MR], float (&l)[C::MR],
     float (&acc)[C::MR][4 * C::NC]) {
   constexpr int MR = C::MR, LDV = C::LDV, LDP = C::LDP, NC = C::NC;
   const int jn = tri < 0 ? 8 : (tri + 1) * C::GPS;      // groups touched
@@ -332,7 +340,7 @@ __device__ __forceinline__ void softmax_pv(
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int key = k0 + tc + 8 * j;
-      const bool ok = key < Tk && (!causal || key <= row);
+      const bool ok = key < kv_len && (!causal || key <= row + off);
       s[i][j] = ok ? s[i][j] : -INFINITY;
       mt = fmaxf(mt, s[i][j]);
     }
@@ -397,7 +405,8 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, T* __restrict__ o,
                             int H, int group, int S, int Tk, int D, int Dv,
                             Strides sq, Strides sk, Strides sv, Strides so,
-                            float scale, int causal) {
+                            float scale, int causal, int off,
+                            const int* __restrict__ kv_valid) {
   using C = Cfg<DQ, DV>;
   constexpr int MR = C::MR, NC = C::NC, LD = C::LD;
   extern __shared__ __align__(16) float smem[];
@@ -417,12 +426,20 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tr = lane >> 3, tc = lane & 7;
   const int wq0 = q0 + warp * C::WR;              // the warp's first row
 
-  // keys past the last query row are masked for every row of it
-  const int kv_end = causal ? min(Tk, q0 + BM) : Tk;
-  const int w_end = wq0 >= S ? 0 : causal ? min(Tk, wq0 + C::WR) : Tk;
+  // keys past kv_len, and under causal past the last query row's
+  // diagonal, are masked for every row of the block (of the warp)
+  const int kv_len =
+      kv_valid == nullptr ? Tk : min(Tk, max(0, __ldg(kv_valid + b)));
+  const int dq = wq0 + off;                       // the warp's diagonal key
+  const int kv_end = max(0, causal ? min(kv_len, q0 + BM + off) : kv_len);
+  const int w_end =
+      wq0 >= S ? 0 : max(0, causal ? min(kv_len, dq + C::WR) : kv_len);
   const int ntiles = (kv_end + BN - 1) / BN;
+  // the diagonal sub-blocks line up with the key groups only when off is a
+  // multiple of WR; otherwise every tile is computed whole and masked
+  const bool aligned = off % C::WR == 0;
 
-  load_rows<T, C, DQ, LD, BM, ASYNC>(Qs, qp, q0, S, sq.s, D);
+  if (ntiles > 0) load_rows<T, C, DQ, LD, BM, ASYNC>(Qs, qp, q0, S, sq.s, D);
   float m[MR], l[MR], acc[MR][4 * NC];
 #pragma unroll
   for (int i = 0; i < MR; ++i) {
@@ -453,13 +470,14 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = t * BN;
     const bool busy = k0 < w_end;
     // the sub-block of this tile on the warp's diagonal, or -1
-    const int tri = causal && k0 + BN - 1 > wq0 ? (wq0 - k0) / C::WR : -1;
+    const int tri =
+        causal && aligned && k0 + BN - 1 > dq ? (dq - k0) / C::WR : -1;
     float s[MR][8];
     if (busy) logits<C>(Qs + warp * C::WR * LD, Ks, tr, tc, tri, s);
     if (C::P_IN_K) __syncthreads();   // every warp is done with K: P may land
     if (busy)
-      softmax_pv<C>(s, Vs, Ps + warp * C::WR * C::LDP, tr, tc, wq0, k0, Tk,
-                     causal, tri, m, l, acc);
+      softmax_pv<C>(s, Vs, Ps + warp * C::WR * C::LDP, tr, tc, wq0, k0,
+                     kv_len, causal, off, tri, m, l, acc);
     __syncthreads();   // K, V and P are consumed
   }
 
@@ -486,7 +504,8 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DQ, int DV, bool ASYNC>
 int launch_cfg(const void* q, const void* k, const void* v, void* o, int B,
                int H, int Hk, int S, int Tk, int D, int Dv, const Strides* st,
-               float scale, int causal, cudaStream_t stream) {
+               float scale, int causal, int off, const int* kv_valid,
+               cudaStream_t stream) {
   using C = Cfg<DQ, DV>;
   auto kernel = flash_attention_simt_kernel<T, DQ, DV, ASYNC>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -500,22 +519,24 @@ int launch_cfg(const void* q, const void* k, const void* v, void* o, int B,
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, H / Hk, S, Tk, D, Dv,
-      st[0], st[1], st[2], st[3], scale, causal);
+      st[0], st[1], st[2], st[3], scale, causal, off, kv_valid);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int DQ>
 int launch_dq(const void* q, const void* k, const void* v, void* o, int B,
               int H, int Hk, int S, int Tk, int D, int Dv, const Strides* st,
-              float scale, int causal, bool async, cudaStream_t stream) {
+              float scale, int causal, int off, const int* kv_valid,
+              bool async, cudaStream_t stream) {
   constexpr int DV = DQ < MAX_DV ? DQ : MAX_DV;
   if constexpr (sizeof(T) == 4) {
     if (async)
       return launch_cfg<T, DQ, DV, true>(q, k, v, o, B, H, Hk, S, Tk, D, Dv,
-                                         st, scale, causal, stream);
+                                         st, scale, causal, off, kv_valid,
+                                         stream);
   }
   return launch_cfg<T, DQ, DV, false>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st,
-                                      scale, causal, stream);
+                                      scale, causal, off, kv_valid, stream);
 }
 
 // float32 rows that cp.async can copy 16 bytes at a time: base pointers,
@@ -540,28 +561,29 @@ inline bool copies_async(const void* const* ptrs, const Strides* st, int B,
 template <typename T>
 int launch_t(const void* q, const void* k, const void* v, void* o, int B,
              int H, int Hk, int S, int Tk, int D, int Dv, const Strides* st,
-             float scale, int causal, cudaStream_t stream) {
+             float scale, int causal, int off, const int* kv_valid,
+             cudaStream_t stream) {
   const void* ptrs[3] = {q, k, v};
   const bool async =
       sizeof(T) == 4 && copies_async(ptrs, st, B, H, Hk, S, Tk, D, Dv);
   const int w = D > Dv ? D : Dv;
   if (w <= 32)
     return launch_dq<T, 32>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st, scale,
-                            causal, async, stream);
+                            causal, off, kv_valid, async, stream);
   if (w <= 64)
     return launch_dq<T, 64>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st, scale,
-                            causal, async, stream);
+                            causal, off, kv_valid, async, stream);
   if (w <= 96)
     return launch_dq<T, 96>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st, scale,
-                            causal, async, stream);
+                            causal, off, kv_valid, async, stream);
   if (w <= 128)
     return launch_dq<T, 128>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st, scale,
-                             causal, async, stream);
+                             causal, off, kv_valid, async, stream);
   if (w <= 160)
     return launch_dq<T, 160>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st, scale,
-                             causal, async, stream);
+                             causal, off, kv_valid, async, stream);
   return launch_dq<T, 192>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st, scale,
-                           causal, async, stream);
+                           causal, off, kv_valid, async, stream);
 }
 
 }  // namespace simt
@@ -818,7 +840,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tv,
                           __nv_bfloat16* __restrict__ o, Strides so, int H,
                           int group, int S, int Tk, int Dv, float scale_log2,
-                          int causal) {
+                          int causal, int off,
+                          const int* __restrict__ kv_valid) {
   using C = Cfg<DQ, DV>;
   constexpr int BN = C::BN, NQ = C::NQ, NV = C::NV;
   extern __shared__ uint8_t smem_raw[];
@@ -835,9 +858,14 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H, hk = h / group;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // heaviest tiles first
-  // keys past the tile's last query row are masked for every row of it
-  const int kv_end = causal ? min(Tk, q0 + BM) : Tk;
-  const int n_tiles = (kv_end + BN - 1) / BN;
+  // keys past kv_len, and under causal past the tile's last query row's
+  // diagonal, are masked for every row of it.  At least one tile is
+  // visited, so that a block whose rows see no key (l = 0) runs the same
+  // code and writes 0; its keys may be loaded and are all masked.
+  const int kv_len =
+      kv_valid == nullptr ? Tk : min(Tk, max(0, __ldg(kv_valid + b)));
+  const int kv_end = max(0, causal ? min(kv_len, q0 + BM + off) : kv_len);
+  const int n_tiles = max(1, (kv_end + BN - 1) / BN);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -918,7 +946,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   auto softmax = [&](int j, float* corr) {
     const int k0 = j * BN;
     const bool masked =
-        k0 + BN > Tk || (causal && k0 + BN - 1 > q0 + 64 * wg);
+        k0 + BN > kv_len || (causal && k0 + BN - 1 > q0 + 64 * wg + off);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) {
@@ -926,7 +954,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       float x = sc[i];
       if (masked) {
         const int col = k0 + 8 * (i / 4) + c0 + (i & 1);
-        if (col >= Tk || (causal && col > r0 + 8 * half)) x = -INFINITY;
+        if (col >= kv_len || (causal && col > r0 + 8 * half + off))
+          x = -INFINITY;
       }
       sc[i] = x;
       mx[half] = fmaxf(mx[half], x);
@@ -1079,7 +1108,8 @@ int encode(CUtensorMap* map, const void* ptr, int B, int heads, int L, int D,
 template <int DQ, int DV>
 int launch_dp(const void* q, const void* k, const void* v, void* o, int B,
               int H, int Hk, int S, int Tk, int D, int Dv, const Strides* st,
-              float scale, int causal, cudaStream_t stream) {
+              float scale, int causal, int off, const int* kv_valid,
+              cudaStream_t stream) {
   using C = Cfg<DQ, DV>;
   CUtensorMap maps[3];
   int rc = encode(&maps[0], q, B, H, S, D, st[0], BM);
@@ -1093,7 +1123,7 @@ int launch_dp(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(B * H, (S + BM - 1) / BM);
   kernel<<<grid, THREADS, C::SMEM, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), st[3], H,
-      H / Hk, S, Tk, Dv, scale * LOG2E, causal);
+      H / Hk, S, Tk, Dv, scale * LOG2E, causal, off, kv_valid);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1105,7 +1135,9 @@ extern "C" int flash_attention_max_v_head_dim() { return MAX_DV; }
 
 // The CUDA-core kernel.  dtype: 0 float32, 1 bfloat16 (q, k, v and o
 // alike).  D is the head dim of q and k, Dv that of v and o.  Strides in
-// elements, (b, h, s) of q, k, v, o in that order.  The wrapper checks
+// elements, (b, h, s) of q, k, v, o in that order.  q_offset: query i sits
+// at key position i + q_offset under causal; kv_valid: nullptr or a (B,)
+// int32 device array, keys j >= kv_valid[b] masked.  The wrapper checks
 // shapes, D <= MAX_D, Dv <= MAX_DV, H % Hk == 0 and grid limits; returns
 // cudaGetLastError() of the launch.
 extern "C" int flash_attention_simt_launch(
@@ -1114,7 +1146,7 @@ extern "C" int flash_attention_simt_launch(
     long long qsh, long long qss, long long ksb, long long ksh,
     long long kss, long long vsb, long long vsh, long long vss,
     long long osb, long long osh, long long oss, float scale, int causal,
-    void* stream) {
+    int q_offset, const int* kv_valid, void* stream) {
   if (D < 1 || D > MAX_D || Dv < 1 || Dv > MAX_DV || Hk < 1 ||
       H % Hk != 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1123,9 +1155,10 @@ extern "C" int flash_attention_simt_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return simt::launch_t<float>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st,
-                                 scale, causal, s);
+                                 scale, causal, q_offset, kv_valid, s);
   return simt::launch_t<__nv_bfloat16>(q, k, v, o, B, H, Hk, S, Tk, D, Dv,
-                                       st, scale, causal, s);
+                                       st, scale, causal, q_offset, kv_valid,
+                                       s);
 }
 
 // The instance of the tensor-core kernel that takes head dims (D, Dv):
@@ -1149,7 +1182,8 @@ extern "C" int flash_attention_tc_launch(
     int Hk, int S, int Tk, int D, int Dv, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb,
-    long long osh, long long oss, float scale, int causal, void* stream) {
+    long long osh, long long oss, float scale, int causal, int q_offset,
+    const int* kv_valid, void* stream) {
   const Strides st[4] = {{qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss},
                          {osb, osh, oss}};
   const void* ptrs[4] = {q, k, v, o};
@@ -1170,13 +1204,13 @@ extern "C" int flash_attention_tc_launch(
   switch (tc_instance(D, Dv)) {
     case 64:
       return tc::launch_dp<64, 64>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st,
-                                   scale, causal, s);
+                                   scale, causal, q_offset, kv_valid, s);
     case 128:
       return tc::launch_dp<128, 128>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st,
-                                     scale, causal, s);
+                                     scale, causal, q_offset, kv_valid, s);
     default:
       return tc::launch_dp<192, 128>(q, k, v, o, B, H, Hk, S, Tk, D, Dv, st,
-                                     scale, causal, s);
+                                     scale, causal, q_offset, kv_valid, s);
   }
 }
 

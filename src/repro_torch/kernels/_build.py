@@ -73,11 +73,11 @@ SIGNATURES = {
         "flash_attention_tc_launch": [C_PTR, C_PTR, C_PTR, C_PTR, C_INT,
                                       C_INT, C_INT, C_INT, C_INT, C_INT,
                                       C_INT, *[C_I64] * 12, C_FLOAT, C_INT,
-                                      C_PTR],
+                                      C_INT, C_PTR, C_PTR],
         "flash_attention_simt_launch": [C_PTR, C_PTR, C_PTR, C_PTR, C_INT,
                                         C_INT, C_INT, C_INT, C_INT, C_INT,
                                         C_INT, C_INT, *[C_I64] * 12, C_FLOAT,
-                                        C_INT, C_PTR],
+                                        C_INT, C_INT, C_PTR, C_PTR],
         "flash_attention_max_head_dim": [],
         "flash_attention_max_v_head_dim": [],
         "flash_attention_tc_smem_bytes": [C_INT, C_INT],

@@ -143,9 +143,29 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"S={s}")
 
 
+def _key_bound(kv_valid: Optional[torch.Tensor], q: torch.Tensor):
+    """``kv_valid`` as the kernels read it: a contiguous (B,) int32 array
+    on q's device (a device copy, never a read on the host), or None."""
+    if kv_valid is None:
+        return None
+    if kv_valid.shape != (q.shape[0],):
+        raise ValueError(f"kv_valid must be (B,) = ({q.shape[0]},), got "
+                         f"{tuple(kv_valid.shape)}")
+    if kv_valid.device != q.device:
+        raise ValueError(f"kv_valid must be on {q.device} with q, got "
+                         f"{kv_valid.device}")
+    if kv_valid.dtype.is_floating_point or kv_valid.dtype == torch.bool:
+        raise TypeError(f"kv_valid must be integer, got {kv_valid.dtype}")
+    return kv_valid.to(torch.int32).contiguous()
+
+
 def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, scale: Optional[float]) -> torch.Tensor:
+            causal: bool, scale: Optional[float], q_offset: int = 0,
+            kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     _check(q, k, v)
+    if not -2 ** 30 < int(q_offset) < 2 ** 30:
+        raise ValueError(f"q_offset {q_offset} out of range")
+    bound = _key_bound(kv_valid, q)
     b, h, s, d = q.shape
     hk, t, dv = k.shape[1], k.shape[2], v.shape[3]
     out = torch.empty((b, s, h, dv), dtype=q.dtype,
@@ -160,7 +180,9 @@ def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (b, h, hk, s, t, d, dv, *strides,
-            float(d ** -0.5 if scale is None else scale), int(causal), stream)
+            float(d ** -0.5 if scale is None else scale), int(causal),
+            int(q_offset), None if bound is None else bound.data_ptr(),
+            stream)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     if kernel == NAME:
         rc = lib.flash_attention_tc_launch(*ptrs, *args)
@@ -172,28 +194,35 @@ def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, scale: Optional[float] = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    q_offset: int = 0,
+                    kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, H, S, D), k (B, Hk, T, D), v (B, Hk, T, Dv) with H % Hk == 0,
     float32 or bfloat16, on one CUDA device -> (B, H, S, Dv) in q's type,
     through the kernel that :func:`takes_tensor_cores` picks.
 
-    Query head h reads KV head h // (H / Hk).  Under ``causal``, query i
-    sees keys 0..i (positions absolute from 0).  ``scale`` defaults to
-    D^-0.5.  Any strides with a contiguous last axis are taken as they
-    are, so (B, S, H, D) tensors go in as ``transpose(1, 2)`` views; the
+    Query head h reads KV head h // (H / Hk).  Query i of batch b sees the
+    keys j < min(T, kv_valid[b]) (every key when ``kv_valid``, an integer
+    (B,) tensor on q's device, is None) and, under ``causal``, only j <= i
+    + ``q_offset`` (0: positions absolute from 0, as in the TPU kernel;
+    T - S: the queries aligned to the end of the keys).  A row that sees
+    no key comes out 0.  ``scale`` defaults to D^-0.5.  Any strides with
+    a contiguous last axis are taken as they are, so (B, S, H, D) tensors
+    go in as ``transpose(1, 2)`` views; the
     output is laid out in memory as (B, S, H, Dv) and returned as its
     (B, H, S, Dv) view, so ``out.transpose(1, 2)`` is contiguous.
     """
     kernel = NAME if takes_tensor_cores(q, k, v, scale) else SIMT
-    return _launch(kernel, q, k, v, causal, scale)
+    return _launch(kernel, q, k, v, causal, scale, q_offset, kv_valid)
 
 
 def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True, scale: Optional[float] = None
+                         causal: bool = True, scale: Optional[float] = None,
+                         q_offset: int = 0,
+                         kv_valid: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """:func:`flash_attention` through the CUDA-core kernel whatever the
     inputs: the yardstick of the tensor-core kernel on the same bf16
     inputs (tests and ``chip_smoke.py``; the model's path never calls
     it)."""
-    return _launch(SIMT, q, k, v, causal, scale)
+    return _launch(SIMT, q, k, v, causal, scale, q_offset, kv_valid)

@@ -32,15 +32,32 @@ DeviceLike = Union[str, torch.device, None]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
-    the CPU.  Raises when CUDA is asked for (the default) and absent."""
+    the CPU.  Raises when CUDA is asked for (the default) and absent.
+    ``"meta"`` holds shapes and dtypes and no data (the abstract state of
+    ``launch.steps``); no kernel or plain version runs there."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"repro_torch runs on cuda or cpu, got {dev}")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on CUDA unless device='cpu' is passed, and "
             "torch.cuda.is_available() is False here")
     return dev
+
+
+def generator_for(generator: Optional[torch.Generator],
+                  dev: torch.device) -> torch.Generator:
+    """``generator`` if it lives on ``dev``'s type, else raise; None gives
+    one on ``dev`` seeded with 0.  The meta device draws nothing, so any
+    generator serves it (a CPU one by default)."""
+    if dev.type == "meta":
+        return generator if generator is not None else torch.Generator()
+    if generator is None:
+        return torch.Generator(device=dev).manual_seed(0)
+    if generator.device.type != dev.type:
+        raise ValueError(f"the generator lives on {generator.device}, the "
+                         f"parameters are drawn on {dev}")
+    return generator
 
 
 def check_backend(backend: str,
@@ -169,28 +186,35 @@ class FlashAttention(torch.autograd.Function):
     output for the backward, no (S, T) logits."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, causal, scale, q_offset=0, kv_valid=None):
         if _route(q):
-            o = _fa.flash_attention(q, k, v, causal, scale)
+            o = _fa.flash_attention(q, k, v, causal, scale, q_offset,
+                                    kv_valid)
         else:
-            o = ref.flash_attention_ref(q, k, v, causal, scale)
+            o = ref.flash_attention_ref(q, k, v, causal, scale, q_offset,
+                                        kv_valid)
         ctx.save_for_backward(q, k, v, o)
         ctx.causal, ctx.scale = causal, scale
+        ctx.q_offset, ctx.kv_valid = q_offset, kv_valid
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
         dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, o, do, ctx.causal,
-                                                 ctx.scale)
-        return dq, dk, dv, None, None
+                                                 ctx.scale, ctx.q_offset,
+                                                 ctx.kv_valid)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, scale: Optional[float] = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    q_offset: int = 0,
+                    kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused attention q (B, H, S, D), k (B, Hk, T, D), v (B, Hk, T, Dv)
-    -> (B, H, S, Dv); query head h reads KV head h // (H / Hk); under
-    ``causal`` query i sees keys 0..i.  Differentiable
-    (:class:`FlashAttention`; no graph where no input requires grad)."""
-    return FlashAttention.apply(q, k, v, causal, scale)
+    -> (B, H, S, Dv); query head h reads KV head h // (H / Hk); query i of
+    batch b sees keys j < min(T, kv_valid[b]) (every key without
+    ``kv_valid``) and under ``causal`` only j <= i + ``q_offset``; a row
+    that sees no key is 0.  Differentiable (:class:`FlashAttention`; no
+    graph where no input requires grad)."""
+    return FlashAttention.apply(q, k, v, causal, scale, q_offset, kv_valid)

@@ -245,8 +245,74 @@ def cs_tables_ref(bucket: torch.Tensor, sign: torch.Tensor, width: int
     return tables[:, :width].reshape(b, r, width)
 
 
+def key_lengths(kv_valid: Optional[torch.Tensor], b: int, t: int,
+                device) -> Optional[torch.Tensor]:
+    """kv_len[b] = min(T, max(0, kv_valid[b])) as int64 on ``device``, or
+    None without ``kv_valid`` (every row's keys run to T)."""
+    if kv_valid is None:
+        return None
+    if kv_valid.shape != (b,):
+        raise ValueError(f"kv_valid must be (B,) = ({b},), got "
+                         f"{tuple(kv_valid.shape)}")
+    return kv_valid.to(device=device, dtype=torch.int64).clamp(0, t)
+
+
+def attention_hidden(s: int, t: int, causal: bool, q_offset: int = 0,
+                     kv_valid: Optional[torch.Tensor] = None, rows=None,
+                     device=None, batch: Optional[int] = None
+                     ) -> Optional[torch.Tensor]:
+    """The keys a query row does not see, as a bool mask (B or 1, 1, R, T)
+    over query rows ``rows`` (default 0..S-1) and keys 0..T-1, or None
+    where every row sees every key.  ``batch``, where given, is the B
+    that ``kv_valid`` must have.
+
+    Row i of batch b sees key j iff j < kv_len[b] (:func:`key_lengths`)
+    and, under ``causal``, j <= i + q_offset: the reference's
+    ``chunked_attention`` mask with q_offset = T - S
+    (``repro/models/layers.py:126-132``); q_offset = 0 is the TPU
+    kernel's."""
+    b = batch if batch is not None else (
+        1 if kv_valid is None else kv_valid.shape[0])
+    kv_len = key_lengths(kv_valid, b, t, device)
+    if not causal and kv_len is None:
+        return None
+    rows = torch.arange(s, device=device) if rows is None else rows
+    cols = torch.arange(t, device=device)
+    hidden = torch.zeros((1, 1, rows.numel(), t), dtype=torch.bool,
+                         device=device)
+    if causal:
+        hidden = hidden | (cols[None, :] > rows[:, None] + q_offset)
+    if kv_len is not None:
+        hidden = hidden | (cols[None, None, None, :]
+                           >= kv_len[:, None, None, None])
+    return hidden
+
+
+def may_hide_rows(causal: bool, q_offset: int,
+                  kv_valid: Optional[torch.Tensor]) -> bool:
+    """Whether some query row can see no key: a key bound (which may be
+    0), or a causal offset below 0 (rows before the first key)."""
+    return kv_valid is not None or (causal and q_offset < 0)
+
+
+def _masked_softmax(logits: torch.Tensor, hidden: Optional[torch.Tensor],
+                    empty_rows: bool) -> torch.Tensor:
+    """softmax over the last axis, in place, with the ``hidden`` keys at
+    weight 0; with ``empty_rows`` a row that sees no key gets weight 0
+    everywhere (the kernels write 0 for it), where softmax alone gives
+    NaN."""
+    if hidden is not None:
+        logits.masked_fill_(hidden, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    if not empty_rows:
+        return probs
+    return probs.masked_fill_(hidden.all(-1, keepdim=True), 0.0)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = False, scale: Optional[float] = None
+                        causal: bool = False, scale: Optional[float] = None,
+                        q_offset: int = 0,
+                        kv_valid: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """Plain softmax attention: q (B, H, S, D), k (B, Hk, T, D), v (B, Hk,
     T, Dv) with H % Hk == 0 -> (B, H, S, Dv) in q's type.
@@ -255,11 +321,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KV heads repeated (head h reads KV head h // (H / Hk)), computed in
     float32 throughout (float64 for float64 inputs, which gradient checks
     take) and rounded to q's type once, as the kernel does: the (B, H, S,
-    T) logits are materialised.  Under ``causal`` query i sees keys 0..i,
-    as the TPU kernel has it; that is the reference's mask when S == T
-    (it aligns the queries to the end of the keys when S < T).
+    T) logits are materialised.  Row i sees the keys of
+    :func:`attention_hidden`: under ``causal`` keys 0..i + ``q_offset``
+    (0: as the TPU kernel has it; T - S: the reference's
+    ``chunked_attention``), and only keys below ``kv_valid[b]`` where it
+    is given.  A row that sees no key is 0 (the reference's chunked
+    computation gives sum(V) / T padded to its chunk there, a fault that
+    depends on its tiling).
     """
-    h, s, d = q.shape[1:]
+    b, h, s, d = q.shape
     hk, t = k.shape[1], k.shape[2]
     acc = torch.promote_types(q.dtype, torch.float32)
     qf, kf, vf = q.to(acc), k.to(acc), v.to(acc)
@@ -268,11 +338,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vf = vf.repeat_interleave(h // hk, dim=1)
     logits = torch.einsum("bhsd,bhtd->bhst", qf, kf)
     logits.mul_(d ** -0.5 if scale is None else scale)
-    if causal:
-        above = torch.ones((s, t), dtype=torch.bool,
-                           device=q.device).triu_(1)
-        logits.masked_fill_(above, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
+    probs = _masked_softmax(logits, attention_hidden(
+        s, t, causal, q_offset, kv_valid, device=q.device, batch=b),
+        may_hide_rows(causal, q_offset, kv_valid))
     del logits
     return torch.einsum("bhst,bhtd->bhsd", probs, vf).to(q.dtype)
 
@@ -295,18 +363,21 @@ def bwd_block_rows(b: int, h: int, s: int, t: int) -> int:
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             do: torch.Tensor, causal: bool = False,
-                            scale: Optional[float] = None):
+                            scale: Optional[float] = None, q_offset: int = 0,
+                            kv_valid: Optional[torch.Tensor] = None):
     """Gradients (dq, dk, dv) of :func:`flash_attention_ref` at output
     ``o`` and output gradient ``do``, chunked over blocks of query rows.
 
     q (B, H, S, D), k (B, Hk, T, D), v (B, Hk, T, Dv), o and do (B, H, S,
     Dv) -> dq, dk, dv in the inputs' types.  Each block recomputes its
-    logits S = q kᵀ · scale under the causal mask (a causal block reads
-    only the keys up to its last row), the weights P = softmax(S) in
+    logits S = q kᵀ · scale under the mask of :func:`attention_hidden`
+    (a causal block reads only the keys up to its last row's diagonal,
+    its last row + ``q_offset``), the weights P = softmax(S) in
     float32 (float64 for float64 inputs), then dV += Pᵀ dO, dP = dO Vᵀ,
     dS = P ∘ (dP − rowsum(dO ∘ O)), dQ = dS K · scale, dK += dSᵀ Q ·
     scale.  The query heads of a KV head (h // (H / Hk)) are summed into
-    its dK and dV.  ``o`` is the forward's output as it was returned
+    its dK and dV.  A row that sees no key has P = 0 and so no gradient,
+    as its output is 0.  ``o`` is the forward's output as it was returned
     (from the tensor-core kernel, computed with P rounded to bf16), so in
     bf16 rowsum(dO ∘ O) carries that rounding beside the float32 P.
 
@@ -327,20 +398,25 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dof = do.to(acc).reshape(b, hk, g, s, dv_dim)
     delta = (dof * o.to(acc).reshape(b, hk, g, s, dv_dim)).sum(-1)
     kf, vf = k.to(acc), v.to(acc)
-    dq = torch.empty_like(qf)
+    empty_rows = may_hide_rows(causal, q_offset, kv_valid)
+    dq = torch.zeros_like(qf)
     dk = torch.zeros((b, hk, t, d), dtype=acc, device=q.device)
     dv = torch.zeros((b, hk, t, dv_dim), dtype=acc, device=q.device)
     for r0 in range(0, s, rows):
         r1 = min(s, r0 + rows)
-        tk = min(t, r1) if causal else t        # keys any row here sees
+        # keys any row here sees
+        tk = max(0, min(t, r1 + q_offset)) if causal else t
+        if tk == 0:
+            continue
         q_b, do_b = qf[:, :, :, r0:r1], dof[:, :, :, r0:r1]
         k_b, v_b = kf[:, :, :tk], vf[:, :, :tk]
         logits = torch.einsum("bkgsd,bktd->bkgst", q_b, k_b).mul_(scale)
-        if causal:
-            above = (torch.arange(r0, r1, device=q.device)[:, None]
-                     < torch.arange(tk, device=q.device)[None, :])
-            logits.masked_fill_(above, float("-inf"))
-        p = torch.softmax(logits, dim=-1)
+        hidden = attention_hidden(
+            r1 - r0, tk, causal, q_offset, kv_valid,
+            rows=torch.arange(r0, r1, device=q.device), device=q.device,
+            batch=b)
+        p = _masked_softmax(logits, None if hidden is None
+                            else hidden[:, :, None], empty_rows)
         del logits
         dv[:, :, :tk] += torch.einsum("bkgst,bkgsd->bktd", p, do_b)
         dp = torch.einsum("bkgsd,bktd->bkgst", do_b, v_b)
@@ -370,7 +446,9 @@ def simt_tiling(d: int):
 
 def flash_attention_simt_ref(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, causal: bool = False,
-                             scale: Optional[float] = None) -> torch.Tensor:
+                             scale: Optional[float] = None, q_offset: int = 0,
+                             kv_valid: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """The CUDA-core kernel's schedule, step for step, in plain torch
     (same arguments as :func:`flash_attention_ref`), in float32.
 
@@ -380,12 +458,25 @@ def flash_attention_simt_ref(q: torch.Tensor, k: torch.Tensor,
     tile that crosses its causal diagonal the WR-key sub-blocks past it
     skipped and, on the diagonal sub-block, only the (row group i, key
     group jj) pairs with 8 jj <= 4 i + 3 computed (``active``); the P.V
-    product reads P only from row group ``2 jj`` on.  The weights of the
+    product reads P only from row group ``2 jj`` on.  The warp's diagonal
+    is key wq0 + ``q_offset`` and its keys end at kv_len[b]; the sub-block
+    skips apply only where ``q_offset`` is a multiple of WR (any other
+    offset computes every visited tile whole).  The weights of the
     pairs the logits skipped are NaN here (the kernel's are 0, masked by
     causality), so a P.V product that read one, or a skip that dropped a
     key some row sees, shows in the output.  Each lane (key mod 8) keeps
-    its own partial row sum; they add at the end.
+    its own partial row sum; they add at the end.  A row that sees no key
+    sums to 0 and comes out 0.
     """
+    if kv_valid is not None:        # a block's key bound: one batch a call
+        kv_len = key_lengths(kv_valid, q.shape[0], k.shape[2], "cpu")
+        return torch.cat([_simt_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                    causal, scale, q_offset, int(kv_len[i]))
+                          for i in range(q.shape[0])])
+    return _simt_ref(q, k, v, causal, scale, q_offset, k.shape[2])
+
+
+def _simt_ref(q, k, v, causal, scale, off, kv_len):
     b, h, s, d = q.shape
     hk, t, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // hk
@@ -405,11 +496,14 @@ def flash_attention_simt_ref(q: torch.Tensor, k: torch.Tensor,
         sb, jj = j // gps, j - tri * gps
         return (sb < tri) | ((sb == tri) & (8 * jj <= 4 * i + 3))
 
+    aligned = off % wr == 0
     for q0 in range(0, s, bm):
-        kv_end = min(t, q0 + bm) if causal else t
+        kv_end = max(0, min(kv_len, q0 + bm + off)) if causal else kv_len
         ntiles = -(-kv_end // bn)
         for wq0 in range(q0, q0 + bm, wr):
-            w_end = 0 if wq0 >= s else min(t, wq0 + wr) if causal else t
+            dq = wq0 + off
+            w_end = (0 if wq0 >= s else max(0, min(kv_len, dq + wr))
+                     if causal else kv_len)
             rows = torch.arange(wq0, wq0 + wr, device=dev)
             qw = torch.zeros((b, h, wr, d), device=dev)
             qw[:, :, :max(0, min(wr, s - wq0))] = qf[:, :, wq0:wq0 + wr]
@@ -420,8 +514,8 @@ def flash_attention_simt_ref(q: torch.Tensor, k: torch.Tensor,
             for k0 in range(0, ntiles * bn, bn):
                 if k0 >= w_end:
                     continue
-                tri = ((wq0 - k0) // wr if causal and k0 + bn - 1 > wq0
-                       else -1)
+                tri = ((dq - k0) // wr
+                       if causal and aligned and k0 + bn - 1 > dq else -1)
                 jn = 8 if tri < 0 else (tri + 1) * gps
                 keys = torch.arange(k0, k0 + 8 * jn, device=dev)
                 j_of = (torch.arange(8 * jn, device=dev) // 8)[None, :]
@@ -431,9 +525,9 @@ def flash_attention_simt_ref(q: torch.Tensor, k: torch.Tensor,
                 kt[:, :, :n_in] = kf[:, :, k0:k0 + n_in]
                 vt[:, :, :n_in] = vf[:, :, k0:k0 + n_in]
                 act = active(tri, i_of, j_of)
-                ok = act & (keys < t)[None, :]
+                ok = act & (keys < kv_len)[None, :]
                 if causal:
-                    ok &= keys[None, :] <= rows[:, None]
+                    ok &= keys[None, :] <= rows[:, None] + off
                 x = torch.einsum("bhrd,bhkd->bhrk", qw, kt)
                 x = torch.where(ok, x, -math.inf)
                 mx = torch.maximum(m, x.amax(-1).clamp_min(-1e30))
@@ -462,7 +556,8 @@ class TcRef(NamedTuple):
 
 def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, causal: bool = False,
-                           scale: Optional[float] = None) -> TcRef:
+                           scale: Optional[float] = None, q_offset: int = 0,
+                           kv_valid: Optional[torch.Tensor] = None) -> TcRef:
     """The tensor-core kernel's arithmetic, step for step, in plain torch
     (same arguments as :func:`flash_attention_ref`).
 
@@ -472,7 +567,10 @@ def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor,
     log2 units, p = exp2(x - m) rounded to v's type before P.V (bf16, as
     the reference rounds its weights, ``repro/kernels/ref.py:136``),
     float32 accumulation, l summed from the unrounded p and 1/l applied
-    once at the end.  Float32 inputs give the unrounded recurrence.
+    once at the end; the keys each row sees are :func:`attention_hidden`'s
+    (tiles past a block's last key are not visited in the kernel; here
+    they are, fully masked, which adds exact zeros), and a row that sees
+    no key comes out 0.  Float32 inputs give the unrounded recurrence.
 
     Besides the output it returns, per output element and in float32,
     what :func:`flash_attention.error_bound` holds the kernel to against
@@ -497,11 +595,15 @@ def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor,
     acc, mag, spread = (torch.zeros((b, h, s, dv), device=dev)
                         for _ in range(3))
     rows = torch.arange(s, device=dev)[:, None]
+    kv_len = key_lengths(kv_valid, b, t, dev)
     for k0 in range(0, t, bn):
         x = torch.einsum("bhsd,bhtd->bhst", qf, kf[:, :, k0:k0 + bn]) * c
+        cols = torch.arange(k0, min(k0 + bn, t), device=dev)[None, :]
         if causal:
-            cols = torch.arange(k0, min(k0 + bn, t), device=dev)[None, :]
-            x.masked_fill_(cols > rows, -math.inf)
+            x.masked_fill_(cols > rows + q_offset, -math.inf)
+        if kv_len is not None:
+            x.masked_fill_(cols[None, None] >= kv_len[:, None, None, None],
+                           -math.inf)
         mx = torch.maximum(m, x.amax(-1, keepdim=True))
         mu = torch.where(mx == -math.inf, 0.0, mx)
         corr = torch.exp2(m - mu)

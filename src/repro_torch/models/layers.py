@@ -64,25 +64,27 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool = True, q_chunk: int = 512,
                       kv_chunk: int = 1024,
-                      scale: Optional[float] = None) -> torch.Tensor:
+                      scale: Optional[float] = None,
+                      kv_valid: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Attention with GQA through the flash kernel.
 
     q (B, S, H, D); k (B, T, Hk, D); v (B, T, Hk, Dv); H % Hk == 0 ->
     (B, S, H, Dv) in v's type (MLA attends at D = 192, Dv = 128);
-    ``scale`` defaults to D^-0.5.  ``q_chunk`` and ``kv_chunk`` are the
-    reference's tiling knobs; the kernels tile by their own block sizes
-    whatever they say, which changes the sums' order and nothing else.
-    The reference's ``kv_valid`` (no caller in either package) is not
-    ported; causal attention needs S == T (the reference's S < T
-    alignment has no caller either).
+    ``scale`` defaults to D^-0.5.  Under ``causal`` query i sits at
+    position T - S + i (the queries end where the keys end), and with
+    ``kv_valid`` (B,) the keys at positions >= kv_valid[b] are masked.  A
+    query that sees no key (kv_valid[b] = 0, or S > T) comes out 0; the
+    reference gives sum(V) / T padded to ``kv_chunk`` there.
+    ``q_chunk`` and ``kv_chunk`` are the reference's tiling knobs; the
+    kernels tile by their own block sizes whatever they say, which
+    changes the sums' order and nothing else.
     """
     s, t = q.shape[1], k.shape[1]
-    if causal and s != t:
-        raise NotImplementedError(
-            f"causal chunked_attention with S={s} != T={t} is not ported "
-            "(no caller; ROADMAP.md §1, model suite)")
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=causal, scale=scale)
+                            v.transpose(1, 2), causal=causal, scale=scale,
+                            q_offset=t - s if causal else 0,
+                            kv_valid=kv_valid)
     return o.transpose(1, 2).to(v.dtype)
 
 

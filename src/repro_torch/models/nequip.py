@@ -110,11 +110,7 @@ def init_params(cfg: NequIPConfig,
     ``device`` (CUDA unless the caller asks for the CPU) from
     ``generator``, which must live there (default: seeded with 0)."""
     dev = ops.resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    if generator.device.type != dev.type:
-        raise ValueError(f"the generator lives on {generator.device}, the "
-                         f"parameters are drawn on {dev}")
+    generator = ops.generator_for(generator, dev)
     dt = cfg.torch_dtype
     c, n_layers = cfg.channels, cfg.n_layers
     n_paths = len(cfg.paths)

@@ -37,12 +37,7 @@ Params = Dict[str, Any]
 
 def _generator(generator: Optional[torch.Generator], dev: torch.device
                ) -> torch.Generator:
-    if generator is None:
-        return torch.Generator(device=dev).manual_seed(0)
-    if generator.device.type != dev.type:
-        raise ValueError(f"the generator lives on {generator.device}, the "
-                         f"parameters are drawn on {dev}")
-    return generator
+    return ops.generator_for(generator, dev)
 
 
 def _dense(gen, dev, shape, dtype=torch.float32, scale=None):

@@ -169,11 +169,7 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
     """
     dev = ops.resolve_device(device)
     shapes = param_shapes(cfg)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    if generator.device.type != dev.type:
-        raise ValueError(f"the generator lives on {generator.device}, the "
-                         f"parameters are drawn on {dev}")
+    generator = ops.generator_for(generator, dev)
     so = 0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
     flat = {}
     for path, shape in shapes.items():

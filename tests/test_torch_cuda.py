@@ -526,14 +526,16 @@ def _entry(route):
 
 
 def _check_flash(q, k, v, causal, route="flash_attention", kernel=None,
-                 scale=None):
+                 scale=None, q_offset=0, kv_valid=None):
     """Kernel against its plain version: one unit in the last place of
     the output type plus float32 reordering (``error_bound``); exactly
     one launch, counted under ``kernel`` (by default the one the route
     should pick).  The tensor-core kernel is held per element, to the
     plain version with its bf16 weights allowed for, and to the
     emulation of its own rounding (``ref.flash_attention_tc_ref``)
-    within the tight bound."""
+    within the tight bound.  ``q_offset`` and ``kv_valid`` go to the
+    kernel and to both oracles alike; a row that sees no key must come
+    out exactly 0."""
     from repro_torch.kernels.flash_attention import (error_bound,
                                                      takes_tensor_cores)
     if kernel is None:
@@ -541,19 +543,28 @@ def _check_flash(q, k, v, causal, route="flash_attention", kernel=None,
                   and takes_tensor_cores(q, k, v, scale)
                   else "flash_attention_simt")
     ops.reset_launch_counts()
-    got = _entry(route)(q, k, v, causal=causal, scale=scale)
+    got = _entry(route)(q, k, v, causal=causal, scale=scale,
+                        q_offset=q_offset, kv_valid=kv_valid)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert counts[kernel] == 1
     assert counts["flash_attention"] + counts["flash_attention_simt"] == 1
-    want = ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    want = ref.flash_attention_ref(q, k, v, causal, scale, q_offset,
+                                   kv_valid)
     assert got.shape == want.shape and got.dtype == q.dtype
+    hidden = ref.attention_hidden(q.shape[2], k.shape[2], causal, q_offset,
+                                  kv_valid, device=q.device,
+                                  batch=q.shape[0])
+    if hidden is not None:
+        empty = hidden.all(-1).expand(q.shape[0], q.shape[1], -1)
+        assert not bool(got[empty].any())
     err = (got.float() - want.float()).abs()
     if kernel == "flash_attention_simt":
         bound = error_bound(got, want, v)
         assert bool((err <= bound).all()), float(err.max())
         return got
-    emu = ref.flash_attention_tc_ref(q, k, v, causal=causal, scale=scale)
+    emu = ref.flash_attention_tc_ref(q, k, v, causal, scale, q_offset,
+                                     kv_valid)
     bound = error_bound(got, want, v, emu.abs_out)
     assert bool((err <= bound).all()), float((err / bound).max())
     err = (got.float() - emu.out.float()).abs()
@@ -580,6 +591,100 @@ def test_flash_kernel_ragged_and_masks(cuda, s, t, causal, dtype, route):
     0..i), and no mask."""
     _check_flash(*_flash_inputs(cuda, 1, 3, 3, s, t, 64, dtype, s + t),
                  causal=causal, route=route)
+
+
+# (S, T, causal, q_offset, kv_valid): T - S (the model's alignment),
+# offsets a multiple of 16 (the CUDA-core kernel's sub-block skips) and
+# not, S > T with rows before the first key, key bounds with a 0 and a T
+OFFSET_CASES = [
+    (100, 230, True, 130, [0, 57, 230]),
+    (100, 228, True, 128, [228, 0, 100]),
+    (130, 130, True, 0, [0, 130, 64]),
+    (150, 90, True, -60, None),
+    (150, 86, True, -64, [86, 1, 40]),
+    (70, 190, True, 16, [0, 190, 17]),
+    (70, 190, False, 0, [0, 190, 129]),
+    (1, 300, True, 299, [0, 300, 150]),
+    (200, 600, True, 400, [600, 333, 0]),
+]
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("s,t,causal,off,kv", OFFSET_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dv", [(64, 64), (192, 128)])
+def test_flash_kernel_offset_and_key_bound(cuda, s, t, causal, off, kv,
+                                           dtype, d, dv, route):
+    """Both kernels with a query offset and a per-batch key bound against
+    the plain version (and the tensor-core kernel against its emulation),
+    rows that see no key exactly 0; GQA at (64, 64), MLA's (192, 128)."""
+    hk = 2 if d == 64 else 4
+    q, k, v = _flash_inputs(cuda, 3, 4, hk, s, t, d, dtype, s + t + off,
+                            dv=dv)
+    kvt = None if kv is None else torch.tensor(kv, dtype=torch.int32,
+                                               device=cuda)
+    _check_flash(q, k, v, causal=causal, route=route, scale=d ** -0.5,
+                 q_offset=off, kv_valid=kvt)
+
+
+def test_flash_kernel_offset_zero_is_the_old_path(cuda):
+    """q_offset 0 and a key bound of T give the same bits as neither."""
+    q, k, v = _flash_inputs(cuda, 2, 8, 2, 300, 300, 64, torch.bfloat16, 3)
+    full = torch.full((2,), 300, dtype=torch.int32, device=cuda)
+    for route in ROUTES:
+        assert torch.equal(_entry(route)(q, k, v),
+                           _entry(route)(q, k, v, q_offset=0,
+                                         kv_valid=full))
+
+
+def test_chunked_attention_offset_cuda_matches_cpu(cuda):
+    """The model's call at S < T with a key bound, on the card and on the
+    CPU (float32, the CUDA-core kernel against the plain version)."""
+    from repro_torch.models import layers
+    rng = np.random.default_rng(9)
+    q, k, v = (rng.normal(size=sh).astype(np.float32)
+               for sh in ((2, 40, 4, 32), (2, 90, 2, 32), (2, 90, 2, 32)))
+    kv = np.array([0, 77], np.int32)
+    got = layers.chunked_attention(
+        *(torch.tensor(x, device=cuda) for x in (q, k, v)), causal=True,
+        kv_valid=torch.tensor(kv, device=cuda)).cpu()
+    want = layers.chunked_attention(
+        *(torch.tensor(x) for x in (q, k, v)), causal=True,
+        kv_valid=torch.tensor(kv))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert not bool(got[0].any())
+
+
+def test_ssh_steps_cuda_match_cpu(cuda):
+    """``launch.steps``' ssh build and query steps at the full ssh-ecg
+    config, small: signatures and ids equal on the card and the CPU, the
+    kernels launched."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import steps
+    arch = get_arch("ssh-ecg")
+    p_cpu = steps.init_fn(arch, "build_2048", device="cpu")()
+    p_gpu = steps.init_fn(arch, "build_2048", device=cuda)()
+    assert torch.equal(p_cpu["filters"], p_gpu["filters"].cpu())
+    db = make_benchmark_db("ecg", 3000, 256, seed=4)
+    build = steps.make_step(arch, "build_2048", "build")
+    ops.reset_launch_counts()
+    sig_gpu = build(p_gpu, {"series": torch.tensor(db, device=cuda)})
+    assert ops.launch_counts()["sketch_conv"] == 1
+    sig_cpu = build(p_cpu, {"series": torch.tensor(db)})
+    assert torch.equal(sig_gpu.cpu(), sig_cpu)
+    query = steps._make_ssh_query(arch.config, top_c=256, band=12, topk=10)
+    for i in (5, 1234):
+        ops.reset_launch_counts()
+        gi, gd = query(p_gpu, {"query": torch.tensor(db[i], device=cuda),
+                               "db_sigs": sig_gpu,
+                               "db_series": torch.tensor(db, device=cuda)})
+        counts = ops.launch_counts()
+        assert counts["collision_count"] == 1 and counts["dtw_wavefront"] == 1
+        ci, cd = query(p_cpu, {"query": torch.tensor(db[i]),
+                               "db_sigs": sig_cpu,
+                               "db_series": torch.tensor(db)})
+        assert torch.equal(gi.cpu(), ci) and int(ci[0]) == i
+        torch.testing.assert_close(gd.cpu(), cd, rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -930,12 +1035,15 @@ def test_device_ms_reads_events_when_the_profiler_keeps_nothing(
         cuda, monkeypatch):
     """Every profiled window empty: ``device_ms`` reads the call by
     events after ``WINDOWS`` windows and says so, instead of raising."""
+    import types
+
     import torch.profiler as tp
     from repro_torch.bench import device_time
 
     class Empty:
         def __init__(self, **_):
-            pass
+            self.profiler = types.SimpleNamespace(
+                kineto_results=types.SimpleNamespace(events=lambda: []))
 
         def __enter__(self):
             return self
@@ -961,6 +1069,28 @@ def test_spun_ms_refuses_a_call_that_synchronises(cuda):
     a = torch.randn(256, 256, device=cuda)
     with pytest.raises(RuntimeError, match="synchronises"):
         spun_ms(lambda: float((a @ a).sum()), calls=2, doublings=2)
+
+
+def test_device_ms_reads_the_kernel_after_the_lead_in(cuda):
+    """A window opens with the lead-in's spin kernels and reads only the
+    call's: a sketch call's device time is its one kernel's, recorded
+    once a call, and the census holds the records against the launch
+    counter."""
+    from repro_torch.bench import device_time
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.normal(size=(512, 512)), dtype=torch.float32,
+                     device=cuda)
+    filt = torch.tensor(rng.normal(size=(80, 1)), dtype=torch.float32,
+                        device=cuda)
+    got = device_time.device_ms(lambda: ops.sketch_conv(x, filt, 3),
+                                calls=20, label="sketch")
+    assert got["launches"] == 1 and got["complete"]
+    assert list(got["kernels"]) and all(
+        "sketch_conv_kernel" in k for k in got["kernels"])
+    assert 0.0 < got["ms"] < 1.0
+    entry = device_time.CENSUS[-1]
+    assert entry["label"] == "sketch" and not entry["gap"]
+    assert entry["launched"]["sketch_conv"] == 20
 
 
 def test_fleet_query_on_the_card_launches_the_kernels_and_matches_cpu(

@@ -71,7 +71,15 @@ for name in ("repro_torch.streaming.count_sketch",
              "repro_torch.configs.base", "repro_torch.train",
              "repro_torch.train.optimizer",
              "repro_torch.train.grad_compress",
-             "repro_torch.launch.steps", "repro_torch.launch.train"):
+             "repro_torch.launch.steps", "repro_torch.launch.train",
+             "repro_torch.launch.mesh", "repro_torch.launch.analytic",
+             "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+             "repro_torch.launch.hlo_analysis",
+             "repro_torch.launch.hlo_graph",
+             "repro_torch.distributed.sharding",
+             "repro_torch.distributed.constraints",
+             "repro_torch.bench.runner", "repro_torch.bench.regression",
+             "repro_torch.bench.validate"):
     assert name in names, name
 print(len(names), "modules")
 """

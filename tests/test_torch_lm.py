@@ -171,10 +171,21 @@ def test_chunked_attention_two_head_dims_matches_jax(causal, d, dv, scale):
 
 
 def test_chunked_attention_refuses_unported_forms():
-    x = torch.zeros((1, 4, 2, 16))
-    with pytest.raises(NotImplementedError, match="S=4 != T=6"):
-        layers.chunked_attention(x, torch.zeros((1, 6, 2, 16)),
-                                 torch.zeros((1, 6, 2, 16)))
+    """The forms once refused, causal S != T and ``kv_valid``, are
+    computed now: S = 4 queries against T = 6 keys sit at positions 2..5,
+    as in the reference (tests/test_torch_attention_offset.py holds the
+    rest)."""
+    rng = np.random.default_rng(8)
+    q = rng.normal(size=(2, 4, 2, 16)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 6, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    valid = np.array([6, 3], np.int32)
+    want = jlayers.chunked_attention(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=True,
+                                     kv_valid=jnp.asarray(valid))
+    got = layers.chunked_attention(_t(q), _t(k), _t(v), causal=True,
+                                   kv_valid=torch.tensor(valid))
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)
 
 
 def test_decode_attention_matches_jax():

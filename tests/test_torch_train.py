@@ -540,19 +540,24 @@ def test_arch_defs_match_the_reference(arch):
 
 
 def test_steps_refuse_what_is_queued():
-    """The ssh steps and the abstract state serve the XLA dry run (item
-    7.8); the recsys and gnn families are no longer refused."""
+    """Nothing is queued any more: the recsys and gnn families, the ssh
+    build and query steps and the abstract state are all built (the last
+    two are held to the reference in tests/test_torch_analytic_steps.py);
+    only a (family, kind) the reference has no step for is refused."""
     for name in ("bst", "nequip"):
         arch = get_arch(name)
         shape = next(iter(arch.shapes))
         assert arch.input_specs(shape)[0] == "train"
         assert callable(steps.make_step(arch, shape, "train", smoke=True))
-    with pytest.raises(NotImplementedError, match="7.8"):
-        steps.init_fn(get_arch("ssh-ecg"), "build")
-    with pytest.raises(NotImplementedError, match="7.8"):
-        steps.make_step(get_arch("ssh-ecg"), "build", "build")
-    with pytest.raises(NotImplementedError, match="7.8"):
-        steps.abstract_state(get_arch("granite-3-2b"), "train_4k")
+    ssh = get_arch("ssh-ecg")
+    params = steps.init_fn(ssh, "build_2048", smoke=True, device=CPU)()
+    assert set(params) == {"filters", "cws"}
+    assert callable(steps.make_step(ssh, "build_2048", "build"))
+    assert callable(steps.make_step(ssh, "query_128", "query"))
+    kind, state = steps.abstract_state(get_arch("granite-3-2b"), "train_4k")
+    assert kind == "train" and len(state) == 3
+    with pytest.raises(ValueError, match="no step"):
+        steps.make_step(ssh, "build_2048", "decode")
     assert steps.make_optimizer("lm") == AdamW(lr=3e-4, weight_decay=0.1)
 
 
