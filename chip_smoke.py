@@ -96,6 +96,31 @@
    re-rank; launches per schedule per path.
 5. Cross-check: 8 queries through the plain CPU path on a CPU copy of the
    index; ids equal, distances within rtol 1e-5.
+5a. The paper's functional API (phase ``paper_api``), on the 2^20
+   index: ``build_signatures(series, SSHFunctions.create(SSHParams(...)))``
+   and ``TimeSeriesDB.build(series, SSHParams(...), config)`` (the
+   deprecation shim: one ``DeprecationWarning``) must give the ``spec=``
+   build's signatures and keys bit for bit; ``probe_topc_batch`` on batch
+   0's 64 queries and ``probe_topc`` on one must equal ``batch_probe``'s
+   and ``hash_probe``'s top-C; ``dtw_pairwise`` of the 64 queries against
+   the first query's 512 candidates, ``dtw_banded_batch`` of that query at
+   its 10th-best distance as the threshold (kept values equal to the
+   pairwise row, BIG elsewhere) and ``dtw_pairs_chunked`` of the same
+   32,768 pairs at that threshold (likewise); ``cascade_stats`` of 16 queries over all
+   the rows against the 10th-best banded DTW (equal to
+   ``brute_force_topk``'s for 2 of them), the five fractions logged and 2
+   queries' fractions on the first 65,536 rows within 2/65,536 of the
+   CPU's; ``srp_search`` (64 planes) for the 16 queries, ids equal to the
+   CPU's on the 65,536-row slice (the whole search, DTW included, for 2
+   of them); rectangular ``dtw`` at three (m_x, m_y)
+   pairs, band 25 and none, within 1e-6 of the float64 DP.  Wall ms of
+   each gated call and call ms by CUDA events are logged, the probes'
+   split into the collision counts and the top-C ranking.  Then the five
+   kernels it launched held to their plain versions on its own inputs
+   (every 64th sketch chunk of the builds, the other calls but the
+   whole-database DTW scans and all but 2 of ``srp_search``'s
+   radius-511 DTW calls) and timed at its shapes (``paper_api_shapes``).
+   ``build_signatures`` runs in 4,096-row chunks, the facade's.
 5b. Distributed and fleet tiers (phases ``dist``, ``fleet``,
    ``fleet_faulty``, ``fleet_drain``, ``fleet_launcher``; before the
    engine, whose insert makes the index N + 1 rows, which no longer
@@ -562,6 +587,25 @@ SSH_DB_CHUNK = {128: 1 << 20, 2048: 1 << 16}
 SSH_DB_128_ROWS, SSH_DB_2048_ROWS = 20_971_520, 4_194_304
 MB_GRAPH_NODES, MB_GRAPH_DEGREE = 232_965, 50
 MB_SEEDS, MB_FANOUTS = 1024, (15, 10)
+
+
+PAPER_CASCADE_QUERIES = 16      # cascade_stats and srp_search queries
+PAPER_CPU_ROWS = 65_536         # rows the card's answers are held to the CPU on
+PAPER_BRUTE = 2                 # best_so_far values held to brute_force_topk
+# queries of the 16 also run whole on the CPU (cascade_stats ~2.3 s and
+# srp_search ~0.45 s each at 65,536 rows on the card's host): a database
+# row and a warped copy
+PAPER_CPU_QUERIES = (0, 8)
+# rows a build_signatures chunk: 256 (the reference's default) took 8.1
+# s at 2^20 rows on an H100, host dispatch of 4,096 chunks
+PAPER_BUILD_BATCH = 4096
+PAPER_PAIRWISE = (64, 512)      # dtw_pairwise: queries x candidates
+PAPER_SRP_BITS = 64             # the "srp" encoder's default K
+# rectangular dtw: (m_x, m_y) slices of database rows, band 25 and None,
+# each held to the float64 DP (pure Python, ~0.1 s a 20,000 cells)
+PAPER_RECT = ((160, 128), (128, 160), (256, 200))
+PAPER_SKETCH_HOLD = 64          # hold every 64th sketch chunk of the builds
+PAPER_SRP_DTW_HOLD = 2          # srp_search DTW calls (radius 511) held
 
 
 def log(*a):
@@ -1630,6 +1674,326 @@ def ops_batch_stats(d, qs):
     return res.ids, res.stats
 
 
+def event_ms(fn):
+    """One call's time by CUDA events (the call already ran once)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def paper_api_paths(args, counted, ctx) -> dict:
+    """Step 5a, phase ``paper_api``: the paper's functional API and the
+    deprecation shims on the 2^20 index (see the docstring).  Returns
+    the recorded kernel calls by ``kernels.ops`` entry point; every gate
+    raises."""
+    import warnings
+    from repro_torch.configs.base import ssh_params
+    from repro_torch.core import dtw as core_dtw
+    from repro_torch.core import lower_bounds as lb
+    from repro_torch.core import rerank, search, srp
+    from repro_torch.core.index import (SSHFunctions, band_keys,
+                                        build_signatures, probe_topc,
+                                        probe_topc_batch,
+                                        signature_collisions,
+                                        signature_collisions_batch,
+                                        top_c_by_count)
+    from repro_torch.db import TimeSeriesDB
+    from repro_torch.kernels import ops
+    from repro_torch.serving.batched import batch_probe
+
+    series, batches, cfg, db = (ctx["series"], ctx["batches"], ctx["cfg"],
+                                ctx["db"])
+    spec, index = db.spec, db.index
+    dev, n, m = index.device, len(db), int(index.series.shape[1])
+    params = ssh_params(spec)
+    qs = batches[0][1]                                  # (64, m) host
+    half = qs.shape[0] // 2
+    pick16 = list(range(PAPER_CASCADE_QUERIES // 2)) + list(
+        range(half, half + PAPER_CASCADE_QUERIES // 2))
+    band, top_c, topk = cfg.band, cfg.top_c, cfg.topk
+    times, out = {}, {}
+
+    def timed_call(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t) * 1e3
+        return r
+
+    def run():
+        fns = timed_call("SSHFunctions.create",
+                         lambda: SSHFunctions.create(params))
+        sigs = timed_call("build_signatures", lambda: build_signatures(
+            index.series, fns, batch=PAPER_BUILD_BATCH))
+        keys = band_keys(sigs, params)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            legacy = timed_call("TimeSeriesDB.build(SSHParams)",
+                                lambda: TimeSeriesDB.build(series, params,
+                                                           cfg))
+        # held here, and dropped before the cascade's temporaries
+        out["legacy_equal"] = (
+            torch.equal(legacy.index.signatures, index.signatures),
+            torch.equal(legacy.index.keys, index.keys))
+        out["legacy_params"] = legacy.params
+        del legacy
+        gc.collect()
+        torch.cuda.empty_cache()
+        qd = torch.as_tensor(qs, device=dev)
+        qsig = timed_call("build_signatures(64 queries)",
+                          lambda: build_signatures(qd, fns))
+        ids_b, cnt_b = timed_call("probe_topc_batch", lambda:
+                                  probe_topc_batch(qsig, sigs, top_c))
+        ids_1, cnt_1 = timed_call("probe_topc", lambda:
+                                  probe_topc(qsig[0], sigs, top_c))
+        a, c = PAPER_PAIRWISE
+        cands = index.series[ids_b[0, :c]]
+        pw = timed_call("dtw_pairwise", lambda: core_dtw.dtw_pairwise(
+            qd[:a], cands, band))
+        thr = torch.sort(pw[0]).values[topk - 1]
+        banded = timed_call("dtw_banded_batch", lambda:
+                            core_dtw.dtw_banded_batch(qd[0], cands, band,
+                                                      thr))
+        chunked = timed_call("dtw_pairs_chunked", lambda:
+                             rerank.dtw_pairs_chunked(
+                                 qd[:a].repeat_interleave(c, 0),
+                                 cands.repeat(a, 1), band, threshold=thr))
+        q16 = qd[pick16]
+        best = timed_call("best_so_far (dtw_banded_batch over N)", lambda: [
+            torch.sort(core_dtw.dtw_banded_batch(q, index.series, band)
+                       ).values[topk - 1] for q in q16])
+        stats = timed_call("cascade_stats", lambda: [
+            lb.cascade_stats(q, index.series, band, b)
+            for q, b in zip(q16, best)])
+        gen = torch.Generator().manual_seed(args.seed + 5)
+        planes = srp.make_srp(PAPER_SRP_BITS, m, gen).to(dev)
+        db_bits = srp.srp_bits(index.series, planes)
+        srp_res = timed_call("srp_search", lambda: [
+            search.srp_search(q, index.series, planes, db_bits, topk)
+            for q in q16])
+        rect = []
+        for k, (mx, my) in enumerate(PAPER_RECT):
+            x, y = index.series[k, :mx], index.series[k + 1, :my]
+            for b in (band, None):
+                rect.append(((mx, my, b), timed_call(
+                    f"dtw {mx}x{my} band {b}",
+                    lambda: core_dtw.dtw(x, y, b))))
+        out.update(sigs=sigs, keys=keys, caught=caught,
+                   qsig=qsig, ids_b=ids_b, cnt_b=cnt_b, ids_1=ids_1,
+                   cnt_1=cnt_1, cands=cands, pw=pw, thr=thr, banded=banded,
+                   chunked=chunked,
+                   q16=q16, best=best, stats=stats, planes=planes,
+                   db_bits=db_bits, srp_res=srp_res, rect=rect, fns=fns)
+
+    t0 = time.perf_counter()
+    with Recorder(ops, ("sketch_conv", "collision_count",
+                        "collision_count_batch", "dtw_rerank",
+                        "dtw_rerank_pairs")) as rec:
+        counted("paper_api", ("sketch_conv", "collision_count",
+                              "collision_count_batch", "dtw_wavefront",
+                              "dtw_wavefront_pairs"), run)
+    run_s = time.perf_counter() - t0
+    o = out
+
+    # -- the builds: bit for bit the spec= build; the shim warned ----------
+    for name, got, want in (("build_signatures", o["sigs"], index.signatures),
+                            ("band_keys", o["keys"], index.keys)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"paper_api: {name} differ from the spec= "
+                                 f"build on {int((got != want).sum())} "
+                                 "entries")
+    if o["legacy_equal"] != (True, True):
+        raise AssertionError(f"paper_api: TimeSeriesDB.build(series, "
+                             f"SSHParams(...)) differs from the spec= build "
+                             f"(signatures, keys equal: {o['legacy_equal']})")
+    deps = [w for w in o["caught"] if issubclass(w.category,
+                                                 DeprecationWarning)
+            and "passing SSHParams to TimeSeriesDB.build()"
+            in str(w.message)]
+    if len(deps) != 1:
+        raise AssertionError(f"paper_api: the SSHParams shim gave "
+                             f"{len(deps)} DeprecationWarnings, not 1: "
+                             f"{[str(w.message) for w in o['caught']]}")
+    if o["legacy_params"] != params or db.params != params:
+        raise AssertionError(f"paper_api: db.params {db.params} is not "
+                             f"{params}")
+
+    # -- the probes: top-C equal to the searchers' own --------------------
+    ids_s, cnt_s = batch_probe(torch.as_tensor(qs, device=dev), index, top_c,
+                               rank_by_signature=True, multiprobe_offsets=1)
+    if not (torch.equal(o["ids_b"], ids_s) and torch.equal(o["cnt_b"],
+                                                           cnt_s)):
+        raise AssertionError("paper_api: probe_topc_batch differs from "
+                             "batch_probe's top-C")
+    hp = search.hash_probe(torch.as_tensor(qs[0], device=dev), index, top_c)
+    if not torch.equal(o["ids_1"][o["cnt_1"] > 0], hp):
+        raise AssertionError("paper_api: probe_topc differs from "
+                             "hash_probe's top-C")
+    if not (torch.equal(o["ids_1"], o["ids_b"][0])
+            and torch.equal(o["cnt_1"], o["cnt_b"][0])):
+        raise AssertionError("paper_api: probe_topc differs from row 0 of "
+                             "probe_topc_batch")
+
+    # -- the DTW family: the batch forms are the pair forms ---------------
+    a, c = PAPER_PAIRWISE
+    pw, cands, thr = o["pw"], o["cands"], o["thr"]
+    if tuple(pw.shape) != (a, c) or not bool(torch.isfinite(pw).all()):
+        raise AssertionError(f"paper_api: dtw_pairwise gave {pw.shape}")
+    kept = pw[0] <= thr
+    want_b = torch.where(kept, pw[0], torch.full_like(pw[0],
+                                                      core_dtw.BIG))
+    if not torch.equal(o["banded"], want_b):
+        raise AssertionError("paper_api: dtw_banded_batch with a threshold "
+                             "is not dtw_pairwise's row 0 where kept and "
+                             "BIG elsewhere")
+    flat = pw.reshape(-1).cpu().numpy()
+    want_c = np.where(flat <= float(thr), flat, np.float32(core_dtw.BIG))
+    if not np.array_equal(o["chunked"], want_c):
+        raise AssertionError("paper_api: dtw_pairs_chunked with a threshold "
+                             "is not dtw_pairwise where kept and BIG "
+                             "elsewhere")
+
+    # -- cascade_stats: best_so_far held to brute force; card = CPU -------
+    t = time.perf_counter()
+    for i in range(PAPER_BRUTE):
+        _, gold = search.brute_force_topk(o["q16"][i], index.series, topk,
+                                          band)
+        if float(gold[topk - 1]) != float(o["best"][i]):
+            raise AssertionError(f"paper_api: query {i}'s 10th-best banded "
+                                 f"DTW {float(o['best'][i])} is not brute "
+                                 f"force's {float(gold[topk - 1])}")
+    brute_s = time.perf_counter() - t
+    keys5 = ("kim", "keogh", "keogh2", "improved", "combined")
+    fracs = np.array([[float(s[k]) for k in keys5] for s in o["stats"]])
+    t = time.perf_counter()
+    cpu_rows = index.series[:PAPER_CPU_ROWS].cpu()
+    worst = 0.0
+    for i in PAPER_CPU_QUERIES:
+        q, b = o["q16"][i], o["best"][i]
+        card = lb.cascade_stats(q, index.series[:PAPER_CPU_ROWS], band, b)
+        cpu = lb.cascade_stats(q.cpu(), cpu_rows, band, b.cpu())
+        for k in keys5:
+            gap = abs(float(card[k]) - float(cpu[k]))
+            worst = max(worst, gap)
+            if gap > 2 / PAPER_CPU_ROWS:
+                raise AssertionError(
+                    f"paper_api: cascade_stats[{k}] of query {i} on the "
+                    f"first {PAPER_CPU_ROWS} rows: card {float(card[k])} "
+                    f"CPU {float(cpu[k])}")
+    cascade_cpu_s = time.perf_counter() - t
+
+    # -- srp_search: ids equal to the CPU's on the 65,536-row slice (the
+    #    ids are srp_topk's; the whole search, DTW included, for 2) -------
+    t = time.perf_counter()
+    planes_c, bits_c = o["planes"].cpu(), o["db_bits"][:PAPER_CPU_ROWS].cpu()
+    for i, q in enumerate(o["q16"]):
+        card = search.srp_search(q, index.series[:PAPER_CPU_ROWS],
+                                 o["planes"], o["db_bits"][:PAPER_CPU_ROWS],
+                                 topk)
+        if i in PAPER_CPU_QUERIES:
+            cpu = search.srp_search(q.cpu(), cpu_rows, planes_c, bits_c,
+                                    topk)
+            np.testing.assert_allclose(card.dists, cpu.dists, rtol=1e-6)
+            cpu_ids = cpu.ids
+        else:
+            cpu_ids = srp.srp_topk(srp.srp_bits(q.cpu(), planes_c), bits_c,
+                                   topk)[0].numpy()
+        if not np.array_equal(card.ids, cpu_ids):
+            raise AssertionError(f"paper_api: srp_search query {i}: card "
+                                 f"ids {card.ids} != CPU ids {cpu_ids}")
+    srp_cpu_s = time.perf_counter() - t
+    for r in o["srp_res"]:
+        if not (len(r.ids) == topk and np.all(np.isfinite(r.dists))):
+            raise AssertionError(f"paper_api: srp_search gave {r}")
+    srp_self = sum(int(r.ids[0]) == int(batches[0][0][p])
+                   for r, p in zip(o["srp_res"], pick16))
+    del cpu_rows, bits_c
+
+    # -- rectangular dtw against the float64 DP ---------------------------
+    rect_log = []
+    for (mx, my, b), got in o["rect"]:
+        k = PAPER_RECT.index((mx, my))
+        x = index.series[k, :mx].cpu().numpy()
+        y = index.series[k + 1, :my].cpu().numpy()
+        want = core_dtw.dtw_dp_reference(x, y, b)
+        rel = abs(float(got) - want) / want
+        if not rel <= 1e-6:
+            raise AssertionError(f"paper_api: dtw ({mx}, {my}) band {b}: "
+                                 f"{float(got)} against the float64 DP "
+                                 f"{want} ({rel:.3g} relative)")
+        rect_log.append(f"({mx},{my}) band {b}: {rel:.3g}")
+
+    # -- call ms by CUDA events, one call each after its gated call ------
+    counts_b = signature_collisions_batch(o["qsig"], o["sigs"])
+    call_ms = {
+        "build_signatures(64 queries)": event_ms(
+            lambda: build_signatures(torch.as_tensor(qs, device=dev),
+                                     o["fns"])),
+        "build_signatures(256 rows)": event_ms(
+            lambda: build_signatures(index.series[:256], o["fns"])),
+        "probe_topc_batch": event_ms(
+            lambda: probe_topc_batch(o["qsig"], o["sigs"], top_c)),
+        "probe_topc": event_ms(
+            lambda: probe_topc(o["qsig"][0], o["sigs"], top_c)),
+        # the probes' two parts: the counts, then the top-C ranking
+        "signature_collisions_batch": event_ms(
+            lambda: signature_collisions_batch(o["qsig"], o["sigs"])),
+        "top_c_by_count (64 rows)": event_ms(
+            lambda: top_c_by_count(counts_b, top_c)),
+        "signature_collisions": event_ms(
+            lambda: signature_collisions(o["qsig"][0], o["sigs"])),
+        "top_c_by_count (1 row)": event_ms(
+            lambda: top_c_by_count(counts_b[:1], top_c)),
+        "dtw_pairwise": event_ms(lambda: core_dtw.dtw_pairwise(
+            torch.as_tensor(qs[:a], device=dev), cands, band)),
+        "dtw_banded_batch": event_ms(lambda: core_dtw.dtw_banded_batch(
+            o["q16"][0], cands, band, thr)),
+        "dtw_pairs_chunked": event_ms(lambda: rerank.dtw_pairs_chunked(
+            torch.as_tensor(qs[:a], device=dev).repeat_interleave(c, 0),
+            cands.repeat(a, 1), band, threshold=thr)),
+        "cascade_stats (one query, N rows)": event_ms(
+            lambda: lb.cascade_stats(o["q16"][0], index.series, band,
+                                     o["best"][0])),
+        "srp_search (one query, N rows)": event_ms(
+            lambda: search.srp_search(o["q16"][0], index.series,
+                                      o["planes"], o["db_bits"], topk)),
+    }
+    log(f"paper_api: {run_s:.1f} s for the counted run; build_signatures of "
+        f"{n} series equal to the spec= build, and TimeSeriesDB.build(series,"
+        f" SSHParams(...)) too (one DeprecationWarning: "
+        f"{str(deps[0].message)!r}); db.params {db.params}")
+    log(f"paper_api: probe_topc_batch ({tuple(o['qsig'].shape)} against "
+        f"{tuple(o['sigs'].shape)}) and probe_topc equal to batch_probe's "
+        f"and hash_probe's top-{top_c}; dtw_pairwise {tuple(pw.shape)} and "
+        f"dtw_banded_batch at threshold {float(thr):.6g} "
+        f"({int(kept.sum())} of {c} kept) agree, and dtw_pairs_chunked on "
+        f"the same {a * c} pairs at that threshold")
+    log(f"paper_api: cascade_stats over {n} rows, band {band}, best_so_far "
+        f"the {topk}th-best banded DTW (brute_force_topk equal on "
+        f"{PAPER_BRUTE} queries, {brute_s:.1f} s); mean fractions "
+        f"{dict(zip(keys5, np.round(fracs.mean(0), 6).tolist()))}, per "
+        f"query combined {np.round(fracs[:, 4], 6).tolist()}; card = CPU for "
+        f"{len(PAPER_CPU_QUERIES)} queries on the first {PAPER_CPU_ROWS} "
+        f"rows within {worst * PAPER_CPU_ROWS:.0f}/{PAPER_CPU_ROWS} "
+        f"({cascade_cpu_s:.1f} s)")
+    log(f"paper_api: srp_search ({PAPER_SRP_BITS} bits) over {n} rows: "
+        f"top-1 self-match {srp_self} of {PAPER_CASCADE_QUERIES // 2} "
+        f"database rows; ids equal to the CPU's on the first "
+        f"{PAPER_CPU_ROWS} rows for {len(o['q16'])} queries (the whole "
+        f"search for {len(PAPER_CPU_QUERIES)}, {srp_cpu_s:.1f} s); "
+        f"rectangular dtw against the float64 DP: "
+        f"{rect_log}")
+    log(f"paper_api: wall ms of each gated call (host clock, synchronised) "
+        f"{ {k: round(v, 3) for k, v in times.items()} }; call ms by CUDA "
+        f"events {({k: round(v, 4) for k, v in call_ms.items()})}")
+    return rec.calls
+
+
 def ssh_paths(args, counted, phases) -> list:
     """Paths a-d and the six SSH kernels (steps 2-5 of the docstring);
     returns their kernel entries.  Every tensor of the SSH state is freed
@@ -2150,10 +2514,63 @@ def ssh_paths(args, counted, phases) -> list:
     log(f"cross-check: 8 queries on the plain CPU path ({cpu_s:.1f} s on "
         f"{cpu}) match the CUDA path: ids equal, distances within rtol 1e-5")
 
-    # -- 5b. the distributed and fleet tiers (before the engine: its insert
-    #    makes the index N + 1 rows, which no longer divides a mesh) -------
     del idx_cpu, enc_cpu
     gc.collect()
+
+    # -- 5a. the paper's functional API and the deprecation shims ----------
+    t = time.perf_counter()
+    paper_calls = paper_api_paths(args, counted, dict(
+        series=series, batches=batches, cfg=cfg, db=db))
+    # its five kernels on the phase's own inputs: the calls held to their
+    # plain versions (a sample of the builds' sketch chunks; the DTW calls
+    # but the whole-database best_so_far scans, which are held to
+    # brute_force_topk in the phase, and most of srp_search's), one of
+    # each timed
+    by_name = {e["name"]: e for e in entries}
+    sk_calls = paper_calls["sketch_conv"]
+    held = sk_calls[::PAPER_SKETCH_HOLD] + sk_calls[-2:]
+    for (x, filt_p, step_p), _ in held[1:]:
+        sketch_check(x, filt_p, step_p, "paper_api")
+    paper = {"sketch_conv": dict(sketch_at(*held[0][0], "paper_api"),
+                                 calls_held=len(held))}
+    cc_calls = paper_calls["collision_count_batch"]
+    for (qk_p, dbk_p), _ in cc_calls[1:]:
+        counts_check(qk_p, dbk_p)
+    paper["collision_count_batch"] = dict(counts_at(*cc_calls[0][0]),
+                                          calls_held=len(cc_calls))
+    for (q1, dbk1), _ in paper_calls["collision_count"]:
+        collision_check(q1, dbk1)
+    pair_calls = paper_calls["dtw_rerank_pairs"]
+    paper["dtw_wavefront_pairs"] = dict(
+        dtw_shape("dtw_wavefront_pairs", pair_calls[0], 1), max_abs_err=0.0,
+        calls_checked=dtw_calls_log("dtw_wavefront_pairs", pair_calls))
+    # the threshold call, then srp_search's (radius 511, whose plain
+    # version takes ~0.6 s a call): the whole-database scans are skipped
+    one_calls = [cl for cl in paper_calls["dtw_rerank"]
+                 if cl[0][1].shape[0] < db_series.shape[0]]
+    one_calls = one_calls[:1 + PAPER_SRP_DTW_HOLD]
+    paper["dtw_wavefront"] = dict(
+        dtw_shape("dtw_wavefront", one_calls[0], 1), max_abs_err=0.0,
+        calls_checked=dtw_calls_log("dtw_wavefront", one_calls))
+    for name, got in paper.items():
+        by_name[name]["paper_api_shapes"] = got
+        by_name[name].setdefault("launches_by_phase", {})["paper_api"] = \
+            phases["paper_api"][name]
+        log(f"kernel {name} at the paper_api shape, held to the plain "
+            f"version: [{got['shape']}] device ms {got['ms']:.4f} call ms "
+            f"{got['call_ms']:.4f} plain_ms {got['plain_ms']:.4f} bound_ms "
+            f"{got['bound_ms']:.5f} ({got['bound_by']})")
+    by_name["collision_count"]["launches_by_phase"]["paper_api"] = \
+        phases["paper_api"]["collision_count"]
+    log(f"paper_api: {len(paper_calls['collision_count'])} collision_count "
+        f"and {len(one_calls)} dtw_wavefront calls held; the phase with its "
+        f"checks and timings {time.perf_counter() - t:.1f} s")
+    del paper_calls, sk_calls, held, cc_calls, pair_calls, one_calls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 5b. the distributed and fleet tiers (before the engine: its insert
+    #    makes the index N + 1 rows, which no longer divides a mesh) -------
     fleet_calls = fleet_paths(args, counted, dict(series=series,
                                                   batches=batches, cfg=cfg,
                                                   db=db))
@@ -5184,7 +5601,7 @@ def main() -> int:
         for extra in ("query_shape", "sequential_shape", "long_shape",
                       "engine_shapes", "stream_shape", "fleet_shapes",
                       "suite_shapes", "train_shapes", "ssh_step_shapes",
-                      "offset_shapes"):
+                      "offset_shapes", "paper_api_shapes"):
             if extra in e:
                 log(f"kernel {e['name']} at the {extra.split('_')[0]} shape: "
                     f"{e[extra]}")

@@ -125,24 +125,17 @@ def recsys_specs(cfg, cell: ShapeCell) -> Dict[str, Any]:
     return specs
 
 
-class SSHParams(NamedTuple):
-    """An ``"ssh"`` IndexSpec's stage params with the encoder's defaults
-    filled in (the reference's ``repro.core.index.SSHParams``)."""
-    window: int
-    step: int
-    ngram: int
-    num_filters: int
-    num_hashes: int
-    num_tables: int
-    seed: int
-
-
-def ssh_params(spec) -> SSHParams:
-    """:class:`SSHParams` of an ``"ssh"`` ``IndexSpec``."""
+def ssh_params(spec):
+    """The ``core.index.SSHParams`` of an ``"ssh"`` ``IndexSpec``: its
+    stage params with the encoder's defaults filled in, and its seed."""
+    from repro_torch.core.index import SSHParams
     from repro_torch.encoders.pipeline import SSHEncoder
     p = {**SSHEncoder.DEFAULTS, **spec.params}
-    return SSHParams(*(int(p[f]) for f in SSHParams._fields[:-1]),
-                     seed=int(spec.seed))
+    return SSHParams(window=int(p["window"]), step=int(p["step"]),
+                     ngram=int(p["ngram"]),
+                     num_filters=int(p["num_filters"]),
+                     num_hashes=int(p["num_hashes"]),
+                     num_tables=int(p["num_tables"]), seed=int(spec.seed))
 
 
 def ssh_specs(cfg, cell: ShapeCell) -> Dict[str, Any]:

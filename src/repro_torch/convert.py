@@ -15,6 +15,8 @@ through the same functions:
   int64 of the same values, and the aggregate ``cs/agg``; ``planes``
   (m, K) for ``"srp"``;
 * :func:`encoder_from_arrays` adopts such a state;
+* :func:`ssh_functions_from_arrays` makes the paper's ``SSHFunctions``
+  from the seven hyper-parameters, the filter bank and the CWS fields;
 * :func:`index_from_arrays` adds the index arrays (``signatures``,
   ``keys``, ``series`` and, when cached, the envelopes);
 * :func:`lm_params_from_arrays` takes an LM's parameter pytree
@@ -26,12 +28,13 @@ Nothing here imports the reference: its arrays arrive as numpy.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.index import SSHIndex
+from repro_torch.core.index import SSHFunctions, SSHIndex, SSHParams
 from repro_torch.encoders import IndexSpec, encoder_class
 from repro_torch.kernels import ops
 from repro_torch.models import transformer
@@ -63,6 +66,23 @@ def encoder_from_arrays(spec: IndexSpec,
     """The encoder of ``spec`` holding the state ``arrays`` on
     ``device``; refuses leaves or shapes the spec does not imply."""
     return encoder_class(spec.encoder)(spec).load_arrays(arrays, device)
+
+
+def ssh_functions_from_arrays(params, filters: np.ndarray,
+                              cws_fields: Mapping[str, np.ndarray],
+                              device=None) -> SSHFunctions:
+    """``SSHFunctions`` on ``device`` (CUDA unless the caller asks for the
+    CPU) from host arrays: ``params`` an ``SSHParams`` or any object with
+    its seven fields (the reference's), ``filters`` (W, F), ``cws_fields``
+    the ``CWSParams`` field names to (K, F·2^n) arrays.  Shapes are
+    checked against ``params``."""
+    if not isinstance(params, SSHParams):
+        params = SSHParams(**{f.name: int(getattr(params, f.name))
+                              for f in dataclasses.fields(SSHParams)})
+    arrays = {"filters": filters,
+              **{f"cws/{k}": v for k, v in cws_fields.items()}}
+    return encoder_from_arrays(params.to_spec(), arrays,
+                               device).legacy_functions()
 
 
 def _tensor(a, dtype, dev) -> torch.Tensor:

@@ -7,19 +7,165 @@ its queries with the ``sketch_conv`` kernel (and ``cs_tables`` for
 batch encodes go through a per-index LRU of signatures keyed by query
 content (``encoders.sigcache``): a hit returns the same bits, so answers
 cannot change.
+
+The paper's functional API sits beside the index: ``SSHParams`` (the
+seven hyper-parameters), ``SSHFunctions`` (the materialised filter bank
+and CWS fields), ``build_signatures``, ``band_keys``, and the device
+probe ``signature_collisions`` / ``probe_topc`` and their batched forms,
+which count through the ``collision_count`` kernels on CUDA.  A legacy
+``SSHParams`` where an ``IndexSpec`` is expected lowers through
+``_spec_from_legacy`` under a ``DeprecationWarning`` (one release), with
+results identical to the spec form.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import lower_bounds as lb
-from repro_torch.encoders import Encoder, IndexSpec, make_encoder
+from repro_torch.core import minhash, shingle
+from repro_torch.encoders import (Encoder, IndexSpec, encoder_class,
+                                  make_encoder)
 from repro_torch.encoders.sigcache import SignatureCache, row_bytes
 from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class SSHParams:
+    """SSH hyper-parameters (paper §4.5 / §5.5)."""
+    window: int = 80          # W: filter length
+    step: int = 3             # δ: slide stride
+    ngram: int = 15           # n: shingle length
+    num_filters: int = 1      # F: filter-bank size (1 is the paper's)
+    num_hashes: int = 20      # K: CWS hashes
+    num_tables: int = 20      # L: hash tables (bands); rows = K / L
+    seed: int = 7
+
+    @property
+    def shingle_dim(self) -> int:
+        return shingle.shingle_space(self.ngram, self.num_filters)
+
+    def validate(self) -> None:
+        if self.num_hashes % self.num_tables:
+            raise ValueError("num_hashes must be divisible by num_tables")
+        if self.ngram > 20:
+            raise ValueError("shingle space 2^n exceeds 1M bins; use n<=20")
+
+    def to_spec(self) -> IndexSpec:
+        """The ``"ssh"`` ``IndexSpec`` of these parameters; its encoder
+        holds :meth:`SSHFunctions.create`'s state."""
+        return IndexSpec(
+            encoder="ssh",
+            params=dict(window=self.window, step=self.step,
+                        ngram=self.ngram, num_filters=self.num_filters,
+                        num_hashes=self.num_hashes,
+                        num_tables=self.num_tables),
+            seed=self.seed)
+
+
+def _spec_from_legacy(params, caller: str, stacklevel: int = 3
+                      ) -> IndexSpec:
+    """Deprecation shim: an ``IndexSpec`` passes through, a legacy
+    ``SSHParams`` lowers to one under a ``DeprecationWarning`` pointing
+    at the caller's call site (``repro/core/index.py:66-85``); anything
+    else is a ``TypeError``."""
+    if isinstance(params, IndexSpec):
+        return params
+    if isinstance(params, SSHParams):
+        warnings.warn(
+            f"passing SSHParams to {caller}() is deprecated; pass "
+            "spec=repro_torch.encoders.IndexSpec(encoder='ssh', "
+            "params={...}) instead (results are identical)",
+            DeprecationWarning, stacklevel=stacklevel)
+        return params.to_spec()
+    raise TypeError(f"{caller}() needs an IndexSpec (spec=...) or a "
+                    f"legacy SSHParams, got {type(params).__name__}")
+
+
+@dataclasses.dataclass
+class SSHFunctions:
+    """The materialised random functions: the (W, F) filter bank and the
+    CWS fields over (K, F·2^n), tensors on one device."""
+    params: SSHParams
+    filters: torch.Tensor
+    cws: minhash.CWSParams
+
+    @classmethod
+    def create(cls, params: SSHParams, device=None) -> "SSHFunctions":
+        """The functions of ``make_encoder(params.to_spec(), device)``
+        (CUDA unless the caller asks for the CPU), as its
+        ``legacy_functions()`` view."""
+        params.validate()
+        return make_encoder(params.to_spec(), device).legacy_functions()
+
+
+def build_signatures(series, fns: SSHFunctions,
+                     batch: int = 256) -> torch.Tensor:
+    """(N, m) -> (N, K) int32 CWS signatures on the functions' device, in
+    chunks of ``batch`` rows (each chunk one ``sketch_conv`` launch on
+    CUDA), through the ``"ssh"`` encoder holding ``fns`` (no copy).  The
+    rows are independent, so the chunk size does not change a bit; on
+    the card a 256-row chunk is host-bound, and the facade's 4,096 rows
+    build 2^20 series several times faster."""
+    state = {"filters": fns.filters,
+             **{f"cws/{f}": getattr(fns.cws, f)
+                for f in minhash.CWSParams._fields}}
+    enc = encoder_class("ssh")(fns.params.to_spec()).load_state(state)
+    series = torch.as_tensor(series).to(fns.filters.device, torch.float32)
+    return enc.encode_chunked(series, batch=batch)
+
+
+def band_keys(signatures: torch.Tensor, params: SSHParams) -> torch.Tensor:
+    """(N, K) -> (N, L) int32 bucket keys (the uint32 bit pattern)."""
+    return minhash.combine_bands(signatures, params.num_tables)
+
+
+def top_c_by_count(counts: torch.Tensor, top_c: int):
+    """Each row's ``top_c`` columns by count, highest first, ties to the
+    lowest column — ``lax.top_k``'s order.  ``torch.topk`` promises no
+    tie order on CUDA, so it ranks the unique composite key
+    count·2^32 + (N-1-column).  counts (B, N) int32 -> (ids int64,
+    counts int32), each (B, top_c)."""
+    n = counts.shape[1]
+    rev = n - 1 - torch.arange(n, device=counts.device)
+    key = (counts.to(torch.int64) << 32) | rev
+    top = torch.topk(key, top_c, dim=1, sorted=True).values
+    return n - 1 - (top & 0xFFFFFFFF), (top >> 32).to(torch.int32)
+
+
+def signature_collisions(query_keys: torch.Tensor, db_keys: torch.Tensor
+                         ) -> torch.Tensor:
+    """Tables (or hashes) in which the query and each row agree: (L,) x
+    (N, L) int32 -> (N,) int32, the ``collision_count`` kernel on CUDA."""
+    return ops.collision_count(query_keys.contiguous(), db_keys)
+
+
+def probe_topc(query_keys: torch.Tensor, db_keys: torch.Tensor, top_c: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-C rows by collision count, ties to the lowest id: (ids int64,
+    counts int32), each (top_c,)."""
+    ids, vals = top_c_by_count(signature_collisions(query_keys,
+                                                    db_keys)[None], top_c)
+    return ids[0], vals[0]
+
+
+def signature_collisions_batch(query_keys: torch.Tensor,
+                               db_keys: torch.Tensor) -> torch.Tensor:
+    """Batched collision counts: (B, L) x (N, L) int32 -> (B, N) int32,
+    the ``collision_count_batch`` kernel on CUDA."""
+    return ops.collision_count_batch(query_keys.contiguous(), db_keys)
+
+
+def probe_topc_batch(query_keys: torch.Tensor, db_keys: torch.Tensor,
+                     top_c: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-query top-C by collision count: (B, L) x (N, L) -> (ids,
+    counts), each (B, top_c), ties to the lowest id."""
+    return top_c_by_count(signature_collisions_batch(query_keys, db_keys),
+                          top_c)
 
 _ENV_CHUNK = 65536       # rows per envelope pass (bounds the pooling temps)
 
@@ -45,8 +191,9 @@ class HostBuckets:
     explicit; the lists are the reference's element for element.
     """
 
-    def __init__(self, num_tables: int):
-        self.num_tables = int(num_tables)
+    def __init__(self, num_tables):
+        # the table count, or a legacy SSHParams carrying it
+        self.num_tables = int(getattr(num_tables, "num_tables", num_tables))
         self._keys: List[np.ndarray] = [np.empty(0, np.int32)
                                         for _ in range(self.num_tables)]
         self._ids: List[np.ndarray] = [np.empty(0, np.int64)
@@ -134,20 +281,41 @@ class SSHIndex:
     sig_cache: Optional[SignatureCache] = None
 
     @classmethod
-    def build(cls, series, spec: IndexSpec, *, device=None,
-              with_host_buckets: bool = False) -> "SSHIndex":
-        """Paper Alg. 1: encode every series and fold band keys (and fill
-        the host tables when asked).  Runs on CUDA unless
-        ``device="cpu"``."""
+    def build(cls, series, params=None, *, spec: Optional[IndexSpec] = None,
+              with_host_buckets: bool = False, batch: int = 4096,
+              envelope_band: Optional[int] = None,
+              device=None) -> "SSHIndex":
+        """Paper Alg. 1: encode every series in chunks of ``batch`` rows
+        and fold band keys; fill the host tables and the envelopes at
+        ``envelope_band`` when asked.  The spec comes as ``spec=`` or in
+        the ``params`` slot, where a legacy ``SSHParams`` lowers under a
+        ``DeprecationWarning`` (``repro/core/index.py:260-301``).  Runs on
+        CUDA unless ``device="cpu"``."""
+        if spec is not None:
+            if params is not None:
+                raise TypeError("SSHIndex.build() takes spec= or a legacy "
+                                "SSHParams, not both")
+        else:
+            spec = _spec_from_legacy(params, "SSHIndex.build")
         dev = ops.resolve_device(device)
         series = torch.as_tensor(series, dtype=torch.float32).to(dev)
         enc = make_encoder(spec, dev, length=int(series.shape[1]))
-        sigs = enc.encode_chunked(series)
+        sigs = enc.encode_chunked(series, batch=batch)
         idx = cls(encoder=enc, signatures=sigs, keys=enc.band_keys(sigs),
                   series=series, build_backend=dev.type)
         if with_host_buckets:
             idx.build_host_buckets()
+        if envelope_band is not None:
+            idx.candidate_envelopes(envelope_band)
         return idx
+
+    @property
+    def fns(self) -> Optional[SSHFunctions]:
+        """The legacy ``SSHFunctions`` view of an ``"ssh"`` index's
+        encoder state (no copy); None for any other encoder."""
+        if self.encoder.spec.encoder != "ssh":
+            return None
+        return self.encoder.legacy_functions()
 
     def build_host_buckets(self) -> HostBuckets:
         """Fill the host tables from the stored band keys."""
@@ -185,7 +353,7 @@ class SSHIndex:
     # -- single-query encodes (the sequential searcher) -------------------
     def query_signature(self, q: torch.Tensor) -> torch.Tensor:
         """(m,) -> (K,) int32 signature."""
-        return self.encoder.encode_batch(q[None, :])[0]
+        return self.encoder.encode(q)
 
     def _sig_cache(self) -> SignatureCache:
         if self.sig_cache is None:

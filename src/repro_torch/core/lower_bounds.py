@@ -119,3 +119,28 @@ def cascade(query: torch.Tensor, candidates: torch.Tensor, radius: int,
     lb2 = lb_keogh(u, l, candidates)
     lb3 = lb_keogh2(query, candidates, radius)
     return torch.maximum(torch.maximum(lb1, lb2), lb3) < best_so_far
+
+
+def cascade_stats(query: torch.Tensor, candidates: torch.Tensor,
+                  radius: int, best_so_far) -> dict:
+    """Per-bound pruning fractions of one (m,) query over (N, m)
+    candidates against ``best_so_far`` (the paper's Table 1;
+    ``repro/core/lower_bounds.py:172-189``): the share of candidates
+    whose LB_Kim, LB_Keogh, LB_Keogh2, LB_Improved, and the largest of
+    the four, reach ``best_so_far``.  Keys ``kim``, ``keogh``,
+    ``keogh2``, ``improved``, ``combined``; each a 0-d f32 tensor on the
+    candidates' device."""
+    u, l = envelope(query, radius)
+    lb1 = lb_kim(query, candidates)
+    lb2 = lb_keogh(u, l, candidates)
+    lb3 = lb_keogh2(query, candidates, radius)
+    lb4 = lb_improved(query, candidates, radius, u, l)
+    n = candidates.shape[0]
+
+    def frac(mask):
+        return mask.sum().to(torch.float32) / n
+    combined = torch.maximum(torch.maximum(lb1, lb2), torch.maximum(lb3, lb4))
+    return dict(kim=frac(lb1 >= best_so_far), keogh=frac(lb2 >= best_so_far),
+                keogh2=frac(lb3 >= best_so_far),
+                improved=frac(lb4 >= best_so_far),
+                combined=frac(combined >= best_so_far))

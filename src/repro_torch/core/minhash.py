@@ -32,6 +32,10 @@ class CWSParams(NamedTuple):
     beta: torch.Tensor    # (K, D) U(0,1)
 
     @property
+    def num_hashes(self) -> int:
+        return self.r.shape[0]
+
+    @property
     def dim(self) -> int:
         return self.r.shape[1]
 
@@ -88,6 +92,33 @@ def cws_hash(weights: torch.Tensor, params: CWSParams) -> torch.Tensor:
     return torch.argmin(ln_a, dim=-1).to(torch.int32)
 
 
+def cws_hash_dense_batch(weights: torch.Tensor, params: CWSParams
+                         ) -> torch.Tensor:
+    """Dense 0-bit CWS of a batch of integer count vectors, (B, D) ->
+    (B, K) int32, a hash at a time so the largest temporary is one (B, D)
+    score tile (``repro/core/minhash.py:72-96``); equal to
+    :func:`cws_hash` of the batch."""
+    w = weights.to(torch.int64)
+    logw = _log_counts(w, max(int(w.max()) if w.numel() else 0, 1))
+    active = w > 0
+    sigs = [torch.argmin(torch.where(
+        active, _ln_a(logw, params.r[k], params.log_c[k], params.beta[k]),
+        torch.inf), dim=1) for k in range(params.num_hashes)]
+    return torch.stack(sigs, 1).to(torch.int32)
+
+
+def cws_hash_batch(weights: torch.Tensor, params: CWSParams,
+                   chunk: int = 64) -> torch.Tensor:
+    """(B, D) integer counts -> (B, K) int32, :func:`cws_hash` over
+    blocks of ``chunk`` rows, which bound the (chunk, K, D) score
+    temporary (``repro/core/minhash.py:99-111``)."""
+    if weights.shape[0] == 0:
+        return torch.zeros((0, params.num_hashes), dtype=torch.int32,
+                           device=weights.device)
+    return torch.cat([cws_hash(weights[lo:lo + chunk], params)
+                      for lo in range(0, weights.shape[0], chunk)])
+
+
 def cws_hash_active(ids: torch.Tensor, params: CWSParams) -> torch.Tensor:
     """0-bit CWS of the histogram of shingle ids, from its active elements
     only: ``ids`` (B, S), ids >= D masked -> (B, K) int32.
@@ -142,6 +173,16 @@ def _cws_sorted(srt: torch.Tensor, counts: torch.Tensor,
     # a row with no active element hashes to 0, like the dense argmin
     sig = torch.where(active.any(1, keepdim=True), sig, 0)
     return sig.to(torch.int32)
+
+
+def collision_probability_estimate(sig_a: torch.Tensor,
+                                   sig_b: torch.Tensor) -> torch.Tensor:
+    """Fraction of agreeing hashes over the last axis, f32: the unbiased
+    estimator of the weighted Jaccard similarity (paper eq. 3)."""
+    agree = (sig_a == sig_b).to(torch.float32)
+    # jnp.mean's arithmetic: the sum times the float32 reciprocal of n
+    return agree.sum(-1) * torch.tensor(1.0 / agree.shape[-1],
+                                        dtype=torch.float32)
 
 
 _MASK32 = 0xFFFFFFFF

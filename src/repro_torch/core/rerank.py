@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.bench.timing import DISABLED, StageTimer
 from repro_torch.core import lower_bounds as lb
-from repro_torch.core.dtw import BIG
+from repro_torch.core.dtw import BIG, PAIRWISE_CHUNK
 from repro_torch.core.index import SSHIndex
 from repro_torch.kernels import ops
 
@@ -95,6 +95,62 @@ def dtw_candidates(query: torch.Tensor, candidates: torch.Tensor,
         return torch.zeros(0, dtype=torch.float32, device=candidates.device)
     return ops.dtw_rerank(query.contiguous(), candidates.contiguous(), band,
                           threshold)
+
+
+#: the reference's pair chunks (``repro/core/rerank.py:49-50``), which
+#: keep XLA to two compiled programs; nothing recompiles here, so the
+#: port's pair functions chunk at :data:`~repro_torch.core.dtw.PAIRWISE_CHUNK`
+PAIR_CHUNK = 256
+PAIR_CHUNK_SMALL = 32
+
+
+def _pair_spans(p: int):
+    """[(lo, hi), ...]: P pairs cut into launches of at most
+    ``PAIRWISE_CHUNK``, the bound on a launch's (P, m) row blocks that
+    ``dtw_pairwise`` uses."""
+    return [(lo, min(lo + PAIRWISE_CHUNK, p))
+            for lo in range(0, p, PAIRWISE_CHUNK)]
+
+
+def dtw_pairs_chunked(q_rows: torch.Tensor, c_rows: torch.Tensor,
+                      band: Optional[int], backend: str = "auto",
+                      threshold=None) -> np.ndarray:
+    """Row-aligned pair DTW (P, m) x (P, m) -> (P,) f32 as a host array
+    (``repro/core/rerank.py:146-186``), through ``ops.dtw_rerank_pairs``
+    (the ``dtw_wavefront_pairs`` kernel on CUDA tensors, its plain version
+    on the CPU) in launches of at most ``PAIRWISE_CHUNK`` pairs.  The
+    values are lane-independent, so they equal the reference's padded
+    256/32-pair chunks.  ``threshold`` (scalar or (P,)) applies the
+    early-abandon contract.  ``backend`` is the ``SearchConfig`` knob
+    ("jnp" names the plain versions, on the CPU only)."""
+    ops.check_backend(backend, q_rows.device)
+    p = int(q_rows.shape[0])
+    if not p:
+        return np.zeros(0, np.float32)
+    q, c = q_rows.to(torch.float32), c_rows.to(torch.float32)
+    thr = None
+    if threshold is not None:
+        thr = torch.as_tensor(threshold, dtype=torch.float32).to(
+            q.device).reshape(-1).expand(p)
+    out = [ops.dtw_rerank_pairs(q[lo:hi].contiguous(), c[lo:hi].contiguous(),
+                                band, None if thr is None
+                                else thr[lo:hi].contiguous())
+           for lo, hi in _pair_spans(p)]
+    return torch.cat(out).cpu().numpy()
+
+
+def lb_improved_pairs_chunked(q_rows: torch.Tensor, c_rows: torch.Tensor,
+                              band: int) -> np.ndarray:
+    """Row-aligned LB_Improved (P, m) x (P, m) -> (P,) f32 as a host
+    array (``repro/core/rerank.py:189-216``), in :func:`dtw_pairs_chunked`'s
+    launches; the bound is lane-independent, so they do not change a
+    value."""
+    p = int(q_rows.shape[0])
+    if not p:
+        return np.zeros(0, np.float32)
+    q, c = q_rows.to(torch.float32), c_rows.to(torch.float32)
+    return torch.cat([lb.lb_improved_pairs(q[lo:hi], c[lo:hi], band)
+                      for lo, hi in _pair_spans(p)]).cpu().numpy()
 
 
 def _staged_keep(query: torch.Tensor, cands: torch.Tensor, band: int,

@@ -1,5 +1,6 @@
 """End-to-end search pipelines: SSH (paper Alg. 2) sequentially, the
-UCR-suite baseline and brute force (counterpart of ``repro.core.search``).
+UCR-suite baseline, the SRP baseline and brute force (counterpart of
+``repro.core.search``).
 
 ``ssh_search`` serves one query: ``hash_probe`` (single-query collision
 counts, one ``collision_count`` launch per multiprobe row, the max over
@@ -20,12 +21,14 @@ import numpy as np
 import torch
 
 from repro_torch.bench.timing import DISABLED, STAGES, StageTimer
+from repro_torch.core import dtw as core_dtw
 from repro_torch.core import lower_bounds as lb
 from repro_torch.core import minhash
 from repro_torch.core import rerank as rr
-from repro_torch.core.index import SSHIndex
+from repro_torch.core import srp as srp_mod
+from repro_torch.core.index import SSHIndex, top_c_by_count
 from repro_torch.core.rerank import SearchStats
-from repro_torch.db.config import SearchConfig
+from repro_torch.db.config import SearchConfig, legacy_config
 from repro_torch.encoders.sigcache import row_bytes
 from repro_torch.kernels import ops, ref
 
@@ -40,19 +43,6 @@ class SearchResult:
     pruned_total_frac: float
     wall_seconds: float
     stats: Optional[SearchStats] = None
-
-
-def top_c_by_count(counts: torch.Tensor, top_c: int):
-    """Each row's ``top_c`` columns by count, highest first, ties to the
-    lowest column — ``lax.top_k``'s order.  ``torch.topk`` promises no
-    tie order on CUDA, so it ranks the unique composite key
-    count·2^32 + (N-1-column).  counts (B, N) int32 -> (ids int64,
-    counts int32), each (B, top_c)."""
-    n = counts.shape[1]
-    rev = n - 1 - torch.arange(n, device=counts.device)
-    key = (counts.to(torch.int64) << 32) | rev
-    top = torch.topk(key, top_c, dim=1, sorted=True).values
-    return n - 1 - (top & 0xFFFFFFFF), (top >> 32).to(torch.int32)
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -124,10 +114,13 @@ def hash_probe(query: torch.Tensor, index: SSHIndex, top_c: int,
 
 
 def ssh_search(query, index: SSHIndex,
-               config: Optional[SearchConfig] = None) -> SearchResult:
+               config: Optional[SearchConfig] = None,
+               **legacy_kwargs) -> SearchResult:
     """Paper Algorithm 2 for one (m,) query on the index's device: hash
-    probe, then DTW re-rank; ``stats`` carries this query's counters."""
-    config = (config if config is not None else SearchConfig()).validate()
+    probe, then DTW re-rank; ``stats`` carries this query's counters.
+    The loose-kwarg form ``ssh_search(q, index, topk=..., band=...)``
+    still works for one release, with identical results."""
+    config = legacy_config("ssh_search", config, legacy_kwargs)
     dev = index.device
     ops.check_backend(config.backend, dev)
     t0 = time.perf_counter()
@@ -209,6 +202,32 @@ def brute_force_topk(query, series, topk: int, band: Optional[int] = None,
     d = ref.dtw_wavefront_ref(query, series, band)
     order = _topk_ascending(d, topk)
     return order.cpu().numpy(), d[order].cpu().numpy()
+
+
+def srp_search(query, series, planes, db_bits, topk: int = 10, *,
+               device=None) -> SearchResult:
+    """The SRP baseline (paper §5.2; ``repro/core/search.py:226-241``):
+    the query's sign bits against ``planes`` (one ``torch.matmul``, as the
+    reference computes them outside any kernel), the ``topk`` database
+    rows of the most matching bits in ``db_bits`` (N, K) (ties to the
+    lowest row), then their unconstrained DTW through ``core.dtw.dtw_batch``
+    (the ``dtw_wavefront`` kernel on CUDA).  No alignment, so it fails
+    on warped series.  ``series`` runs where it lies when it is a tensor,
+    else on CUDA unless ``device="cpu"``; the other operands follow it."""
+    t0 = time.perf_counter()
+    series = _as_tensor(series, device)
+    dev = series.device
+    query = torch.as_tensor(query, dtype=torch.float32).to(dev)
+    planes = torch.as_tensor(planes, dtype=torch.float32).to(dev)
+    qb = srp_mod.srp_bits(query, planes)
+    ids, _ = srp_mod.srp_topk(qb, torch.as_tensor(db_bits).to(dev), topk)
+    d = core_dtw.dtw_batch(query, series[ids])
+    n = int(series.shape[0])
+    return SearchResult(
+        ids=ids.cpu().numpy(), dists=d.cpu().numpy(), n_candidates=topk,
+        n_database=n, pruned_by_hash_frac=1.0 - topk / n,
+        pruned_total_frac=1.0 - topk / n,
+        wall_seconds=time.perf_counter() - t0)
 
 
 def precision_at_k(pred_ids: np.ndarray, gold_ids: np.ndarray, k: int

@@ -71,3 +71,20 @@ def shingle_histogram_masked(bits: torch.Tensor, n: int,
     ids = shingle_ids(bits[None], n,
                       torch.tensor([valid_rows], device=bits.device))
     return histogram_from_ids(ids, shingle_space(n, bits.shape[1]))[0]
+
+
+def shingle_histogram_batch(bits: torch.Tensor, n: int) -> torch.Tensor:
+    """Weighted sets of a batch: bits (B, N_B, F) -> counts (B, F·2^n)
+    int32 (``repro/core/shingle.py:88-107``)."""
+    return histogram_from_ids(shingle_ids(bits, n),
+                              shingle_space(n, bits.shape[2]))
+
+
+def weighted_jaccard(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Generalised weighted Jaccard J(a, b) = Σ min / Σ max over the last
+    axis, f32, 0 where both are empty (paper eq. 2)."""
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    num = torch.minimum(a, b).sum(-1)
+    den = torch.maximum(a, b).sum(-1)
+    return torch.where(den > 0, num / den, torch.zeros_like(den))

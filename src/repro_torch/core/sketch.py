@@ -9,6 +9,8 @@ here are the plain versions.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 
@@ -40,3 +42,9 @@ def sketch_bits(x: torch.Tensor, filters: torch.Tensor, step: int
                 ) -> torch.Tensor:
     """Bit-profile B_X: (..., m) -> (..., N_B, F) uint8 in {0, 1}."""
     return (sketch_projections(x, filters, step) >= 0).to(torch.uint8)
+
+
+def sketch_shape(m: int, window: int, step: int, num_filters: int
+                 ) -> Tuple[int, int]:
+    """(N_B, F) of the bit-profile of a length-m series."""
+    return num_sketch_bits(m, window, step), num_filters

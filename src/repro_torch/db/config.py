@@ -15,6 +15,10 @@ from typing import Any, Dict, List, Optional
 
 from repro_torch.kernels import ops
 
+#: the searchers ``repro_torch.db.registry`` registers itself; more may
+#: be registered at run time
+BUILTIN_SEARCHERS = ("local", "batched", "distributed", "engine", "fleet")
+
 _HEDGE_POLICIES = ("off", "fixed", "adaptive")
 
 _BATCH_MODES = ("fixed", "adaptive")
@@ -255,3 +259,55 @@ class SearchConfig:
             policy = dataclasses.replace(policy, **flat)
         d["batch_policy"] = policy
         return cls(**_known_fields(cls, d, "SearchConfig.from_dict"))
+
+
+def config_from_legacy_kwargs(caller: str, kwargs: Dict[str, Any],
+                              base: Optional[SearchConfig] = None, *,
+                              stacklevel: int = 3) -> SearchConfig:
+    """A ``SearchConfig`` from a legacy loose-kwarg call site, the shim of
+    ``ssh_search``, ``ssh_search_batch`` and ``make_query_fn``
+    (``repro/db/config.py:425-457``): unknown names are a ``TypeError``
+    (a mistyped knob is never dropped), any kwargs warn once
+    (``DeprecationWarning`` at the caller's call site), the flat
+    ``max_batch``/``max_wait_ms`` fold into the batch policy, and the
+    rest overlay ``base`` (defaults when None), so results equal the
+    config form's.  ``stacklevel`` places the warning (3: the caller of
+    the function that called this one)."""
+    known = {f.name for f in dataclasses.fields(SearchConfig)} \
+        | {"max_batch", "max_wait_ms"}
+    unknown = sorted(set(kwargs) - known)
+    if unknown:
+        raise TypeError(f"{caller}() got unexpected keyword arguments "
+                        f"{unknown}; known search knobs: {sorted(known)}")
+    if kwargs:
+        warnings.warn(
+            f"passing loose search kwargs to {caller}() is deprecated; "
+            f"pass config=repro_torch.db.SearchConfig(...) instead",
+            DeprecationWarning, stacklevel=stacklevel)
+    base = base if base is not None else SearchConfig()
+    kwargs = dict(kwargs)
+    flat = {k: kwargs.pop(k) for k in ("max_batch", "max_wait_ms")
+            if k in kwargs}
+    if flat:
+        kwargs["batch_policy"] = dataclasses.replace(base.batch_policy,
+                                                     **flat)
+    return dataclasses.replace(base, **kwargs)
+
+
+def legacy_config(caller: str, config, legacy_kwargs) -> SearchConfig:
+    """The validated config of a call that may use the one-release kwarg
+    form (``repro/core/search.py:130-141``): a non-config third argument
+    is the old positional ``topk``; loose kwargs fold into a
+    ``SearchConfig`` under a ``DeprecationWarning``; both forms at once
+    are a ``TypeError``."""
+    if config is not None and not isinstance(config, SearchConfig):
+        legacy_kwargs["topk"] = config
+        config = None
+    if config is None:
+        # warn at the call site of the public entry point that called here
+        config = config_from_legacy_kwargs(caller, legacy_kwargs,
+                                           stacklevel=4)
+    elif legacy_kwargs:
+        raise TypeError(f"{caller}() takes either config= or legacy search "
+                        f"kwargs, not both: {sorted(legacy_kwargs)}")
+    return config.validate()

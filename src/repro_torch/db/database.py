@@ -42,7 +42,7 @@ from typing import List, Optional
 
 import torch
 
-from repro_torch.core.index import SSHIndex
+from repro_torch.core.index import SSHIndex, SSHParams, _spec_from_legacy
 from repro_torch.core.search import SearchResult
 from repro_torch.db import persistence, registry
 from repro_torch.db.config import SearchConfig
@@ -92,23 +92,34 @@ class TimeSeriesDB:
             self.index.build_host_buckets()
 
     @classmethod
-    def build(cls, series, spec: IndexSpec,
+    def build(cls, series, params=None,
               config: Optional[SearchConfig] = None, *,
-              device=None, mesh=None) -> "TimeSeriesDB":
+              spec: Optional[IndexSpec] = None, mesh=None,
+              batch: int = 4096, device=None) -> "TimeSeriesDB":
         """Paper Alg. 1 behind the facade; ``series`` (N, m) array or
-        tensor.  CUDA unless ``device="cpu"``; ``mesh`` goes to the
-        ``"distributed"`` searcher."""
+        tensor, encoded in chunks of ``batch`` rows.  The spec comes as
+        ``spec=`` or in the ``params`` slot; a legacy ``SSHParams`` there
+        lowers under a ``DeprecationWarning`` with identical results
+        (``repro/db/database.py:72-106``).  CUDA unless ``device="cpu"``;
+        ``mesh`` goes to the ``"distributed"`` searcher."""
         config = (config if config is not None else SearchConfig()) \
             .validate()
+        if spec is None and params is not None:
+            # lowered here so the warning names this entry point
+            spec = _spec_from_legacy(params, "TimeSeriesDB.build")
+            params = None
         dev = ops.resolve_device(device)
         ops.check_backend(config.backend, dev)
-        return cls(SSHIndex.build(series, spec, device=dev,
-                                  with_host_buckets=config.use_host_buckets),
+        # the envelopes at config.band are made by __init__
+        return cls(SSHIndex.build(series, params, spec=spec, device=dev,
+                                  with_host_buckets=config.use_host_buckets,
+                                  batch=batch),
                    config, mesh=mesh)
 
     @classmethod
-    def build_stream(cls, stream, spec: IndexSpec,
+    def build_stream(cls, stream, params=None,
                      config: Optional[SearchConfig] = None, *,
+                     spec: Optional[IndexSpec] = None, mesh=None,
                      device=None) -> "TimeSeriesDB":
         """Index every sliding window of one long stream
         (``repro_torch.subseq``; ``repro/db/database.py:108-139``):
@@ -116,25 +127,30 @@ class TimeSeriesDB:
         ``config.subseq_hop`` the start spacing.  One rolling encode, the
         windows never materialised; queries go through
         :meth:`search_subsequence`, growth through :meth:`extend_stream`.
-        CUDA unless ``device="cpu"``."""
+        The spec slot is :meth:`build`'s.  CUDA unless ``device="cpu"``."""
         config = (config if config is not None else SearchConfig()) \
             .validate()
         if config.subseq_window is None:
             raise ValueError(
                 "build_stream needs config.subseq_window (the sliding-"
                 "window length L to index)")
+        if spec is None and params is not None:
+            spec = _spec_from_legacy(params, "TimeSeriesDB.build_stream")
+        if spec is None:
+            raise TypeError("TimeSeriesDB.build_stream() needs spec= "
+                            "(an IndexSpec) or a legacy SSHParams")
         dev = ops.resolve_device(device)
         ops.check_backend(config.backend, dev)
         from repro_torch.subseq import SubsequenceIndex
         sub = SubsequenceIndex.build(stream, spec,
                                      length=config.subseq_window,
                                      hop=config.subseq_hop, device=dev)
-        return cls._over_stream(sub, config)
+        return cls._over_stream(sub, config, mesh=mesh)
 
     @classmethod
-    def _over_stream(cls, sub, config: Optional[SearchConfig]
-                     ) -> "TimeSeriesDB":
-        db = cls(sub.inner, config)
+    def _over_stream(cls, sub, config: Optional[SearchConfig], *,
+                     mesh=None) -> "TimeSeriesDB":
+        db = cls(sub.inner, config, mesh=mesh)
         db._subseq = sub
         return db
 
@@ -171,9 +187,11 @@ class TimeSeriesDB:
         return self.index.encoder.spec
 
     @property
-    def params(self) -> dict:
-        """The encoder's stage params, defaults filled in."""
-        return {**self.index.encoder.DEFAULTS, **self.spec.params}
+    def params(self) -> Optional[SSHParams]:
+        """The legacy ``SSHParams`` view of an ``"ssh"`` index; None for
+        any other encoder (``repro/db/database.py:373-375``)."""
+        fns = self.index.fns
+        return fns.params if fns is not None else None
 
     @property
     def length(self) -> int:

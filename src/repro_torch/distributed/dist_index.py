@@ -28,8 +28,9 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.index import SSHParams
 from repro_torch.core.search import top_c_by_count
-from repro_torch.db.config import SearchConfig
+from repro_torch.db.config import SearchConfig, config_from_legacy_kwargs
 from repro_torch.encoders.registry import encoder_class
 from repro_torch.kernels import ops
 
@@ -170,14 +171,31 @@ def _make_query_core(encode: Callable[[torch.Tensor], torch.Tensor],
 
 
 def make_query_fn(spec, mesh: Mesh, *, length: Optional[int] = None,
-                  config: SearchConfig):
+                  config: Optional[SearchConfig] = None,
+                  top_c: Optional[int] = None, band: Optional[int] = None,
+                  topk: Optional[int] = None,
+                  backend: Optional[str] = None):
     """``query(series_shards, sig_shards, filters, cws, q) -> (ids,
-    dists)`` for the ``"ssh"`` encoder of ``spec``, whose filter bank and
-    CWS fields stay call-time operands (the reference's historical
-    signature; ``cws`` maps the ``CWSParams`` field names to tensors).
-    ``length`` is accepted for the reference's signature; the state's
-    shapes do not depend on it.  The schedule is :func:`_make_query_core`.
+    dists)`` for the ``"ssh"`` encoder of ``spec`` (an ``IndexSpec``, or
+    the reference's ``SSHParams``, lowered by ``to_spec``), whose filter
+    bank and CWS fields stay call-time operands (the reference's
+    historical signature; ``cws`` maps the ``CWSParams`` field names to
+    tensors).  ``length`` is accepted for the reference's signature; the
+    state's shapes do not depend on it.  The loose ``top_c``, ``band``,
+    ``topk`` and ``backend`` kwargs still work for one release in place
+    of ``config`` (``repro/distributed/dist_index.py:117-147``).  The
+    schedule is :func:`_make_query_core`.
     """
+    if isinstance(spec, SSHParams):
+        spec = spec.to_spec()
+    loose = dict(top_c=top_c, band=band, topk=topk, backend=backend)
+    if config is None:
+        config = config_from_legacy_kwargs(
+            "make_query_fn", {k: v for k, v in loose.items()
+                              if v is not None})
+    elif any(v is not None for v in loose.values()):
+        raise TypeError("make_query_fn() takes either config= or legacy "
+                        "top_c/band/topk/backend kwargs, not both")
     if config.band is None:
         raise ValueError("make_query_fn requires a band radius "
                          "(config.band is None)")

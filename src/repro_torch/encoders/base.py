@@ -193,11 +193,21 @@ class Encoder:
                     if k in self.INT_LEAVES else v.cpu().numpy())
                 for k, v in self._require_state().items()}
 
+    def state(self) -> Dict[str, torch.Tensor]:
+        """The materialised random state as named device tensors (a new
+        dict over the same tensors)."""
+        return dict(self._require_state())
+
     @property
     def device(self) -> torch.device:
         return next(iter(self._require_state().values())).device
 
     # -- encoding ---------------------------------------------------------
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """One series (m,) -> signature (K,) int32: row 0 of
+        :meth:`encode_batch`."""
+        return self.encode_batch(x[None, :])[0]
+
     def encode_batch(self, xs: torch.Tensor) -> torch.Tensor:
         """Series block (B, m) -> (B, K) int32."""
         raise NotImplementedError
@@ -208,6 +218,12 @@ class Encoder:
         rows, bounding each chunk's working set."""
         return torch.cat([self.encode_batch(series[lo:lo + batch])
                           for lo in range(0, int(series.shape[0]), batch)])
+
+    def encode_multiprobe(self, q: torch.Tensor, offsets: int
+                          ) -> torch.Tensor:
+        """(m,) -> (O, K): row o encodes q[o:]; encoders without
+        shift-alignment classes raise ``ValueError``."""
+        return self.encode_batch_multiprobe(q[None, :], offsets)[0]
 
     def encode_batch_multiprobe(self, qs: torch.Tensor, offsets: int
                                 ) -> torch.Tensor:

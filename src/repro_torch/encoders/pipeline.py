@@ -126,6 +126,19 @@ class SSHEncoder(Encoder):
         return minhash.CWSParams(
             **{f: st[f"cws/{f}"] for f in minhash.CWSParams._fields})
 
+    def legacy_functions(self):
+        """The state as the paper's ``SSHFunctions`` (the ``SSHIndex.fns``
+        view, no copy; ``repro/encoders/pipeline.py:434-444``).  Only the
+        ``"ssh"`` encoder has one."""
+        from repro_torch.configs.base import ssh_params
+        from repro_torch.core.index import SSHFunctions
+        if self.spec.encoder != "ssh":
+            raise ValueError(f"encoder {self.spec.encoder!r} has no "
+                             "SSHFunctions view; only 'ssh' has")
+        return SSHFunctions(params=ssh_params(self.spec),
+                            filters=self._require_state()["filters"],
+                            cws=self.cws)
+
     # -- encoding ---------------------------------------------------------
     def _shingle_ids(self, xs: torch.Tensor,
                      valid_bits: Optional[torch.Tensor]) -> torch.Tensor:

@@ -29,7 +29,7 @@ from repro_torch.core import rerank as rr
 from repro_torch.core.index import SSHIndex
 from repro_torch.core.rerank import SearchStats
 from repro_torch.core.search import SearchResult, top_c_by_count
-from repro_torch.db.config import SearchConfig
+from repro_torch.db.config import SearchConfig, legacy_config
 from repro_torch.encoders.sigcache import row_bytes
 from repro_torch.kernels import ops
 
@@ -137,11 +137,13 @@ def batch_probe(queries: torch.Tensor, index: SSHIndex, top_c: int,
 
 
 def ssh_search_batch(queries, index: SSHIndex,
-                     config: Optional[SearchConfig] = None
-                     ) -> BatchSearchResult:
+                     config: Optional[SearchConfig] = None,
+                     **legacy_kwargs) -> BatchSearchResult:
     """Batched paper Alg. 2 over a (B, m) query block on the index's
-    device (the ``TimeSeriesDB`` facade routes here)."""
-    config = (config if config is not None else SearchConfig()).validate()
+    device (the ``TimeSeriesDB`` facade routes here).  The loose-kwarg
+    form (``topk=..., top_c=...``) still works for one release, with
+    identical results (``repro/serving/batched.py:156-186``)."""
+    config = legacy_config("ssh_search_batch", config, legacy_kwargs)
     dev = index.device
     ops.check_backend(config.backend, dev)
     t0 = time.perf_counter()

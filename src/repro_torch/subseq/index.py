@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.bench.timing import STAGES, StageTimer
 from repro_torch.core import rerank as rr
-from repro_torch.core.index import SSHIndex
+from repro_torch.core.index import SSHIndex, SSHParams
 from repro_torch.core.search import SearchResult, hash_probe
 from repro_torch.db.config import SearchConfig
 from repro_torch.encoders import IndexSpec, make_encoder
@@ -116,7 +116,10 @@ class SubsequenceIndex:
               device=None) -> "SubsequenceIndex":
         """Index every length-``length`` window (starts 0, h, 2h, …) of
         ``stream`` through one rolling encode, on CUDA unless
-        ``device="cpu"``."""
+        ``device="cpu"``.  ``spec`` is an ``IndexSpec``; an ``SSHParams``
+        lowers by ``to_spec()`` (``repro/subseq/index.py:100-105``)."""
+        if isinstance(spec, SSHParams):
+            spec = spec.to_spec()
         dev = ops.resolve_device(device)
         stream = _stream_tensor(stream, dev)
         if num_windows(int(stream.shape[0]), length, hop) == 0:

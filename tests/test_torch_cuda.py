@@ -1228,3 +1228,97 @@ def test_train_step_on_the_card_matches_cpu(cuda):
     atol = 2 * sum(steps.make_optimizer("lm").schedule(i) for i in (1, 2))
     for k in cpu_p:
         assert float((gpu_p[k] - cpu_p[k]).abs().max()) <= atol * 1.01, k
+
+
+def test_paper_api_goes_through_the_kernels(cuda):
+    """``build_signatures``, the ``SSHParams`` facade shim and the probe
+    functions on the card: signatures and keys equal to the spec= build
+    (the same kernels), counts and top-C equal to the plain versions on
+    the CPU, each kernel launched."""
+    import warnings
+
+    from repro_torch.core import index as cidx
+    params = cidx.SSHParams(window=24, step=3, ngram=8, num_hashes=20,
+                            num_tables=10)
+    series = make_benchmark_db("ecg", 600, 128, seed=5)
+    ops.reset_launch_counts()
+    fns = cidx.SSHFunctions.create(params)
+    sigs = cidx.build_signatures(series, fns)
+    assert ops.launch_counts()["sketch_conv"] == 3      # 256-row chunks
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        db = TimeSeriesDB.build(series, params, SearchConfig(band=6))
+    assert torch.equal(sigs, db.index.signatures)
+    keys = cidx.band_keys(sigs, params)
+    assert torch.equal(keys, db.index.keys)
+    assert db.params == params
+    q = sigs[[1, 50, 333]]
+    before = ops.launch_counts()
+    ids, vals = cidx.probe_topc_batch(q, sigs, 40)
+    one_ids, one_vals = cidx.probe_topc(q[0], sigs, 40)
+    after = ops.launch_counts()
+    assert after["collision_count_batch"] - before[
+        "collision_count_batch"] == 1
+    assert after["collision_count"] - before["collision_count"] == 1
+    want = ref.collision_count_batch_ref(q.cpu(), sigs.cpu())
+    wids, wvals = cidx.top_c_by_count(want, 40)
+    assert torch.equal(ids.cpu(), wids) and torch.equal(vals.cpu(), wvals)
+    assert torch.equal(one_ids, ids[0]) and torch.equal(one_vals, vals[0])
+
+
+@pytest.mark.parametrize("band", [None, 6])
+def test_dtw_family_on_the_card(cuda, band):
+    """``dtw_batch`` / ``dtw_banded_batch`` through ``dtw_wavefront`` and
+    ``dtw_pairwise`` through ``dtw_wavefront_pairs``, bit-identical to
+    the plain versions on the CPU; rectangular ``dtw`` (plain torch on
+    the card) within 1e-6 of the float64 DP."""
+    from repro_torch.core import dtw as core_dtw
+    rng = np.random.default_rng(7)
+    xs = torch.tensor(rng.normal(size=(6, 96)).cumsum(1),
+                      dtype=torch.float32)
+    ys = torch.tensor(rng.normal(size=(40, 96)).cumsum(1),
+                      dtype=torch.float32)
+    before = ops.launch_counts()
+    pw = core_dtw.dtw_pairwise(xs.to(cuda), ys.to(cuda), band)
+    b1 = core_dtw.dtw_batch(xs[0].to(cuda), ys.to(cuda), band)
+    after = ops.launch_counts()
+    assert after["dtw_wavefront_pairs"] > before["dtw_wavefront_pairs"]
+    assert after["dtw_wavefront"] > before["dtw_wavefront"]
+    assert torch.equal(pw.cpu(), core_dtw.dtw_pairwise(xs, ys, band))
+    assert torch.equal(b1.cpu(), pw[0].cpu())
+    if band is not None:
+        thr = torch.sort(pw[0]).values[9]
+        got = core_dtw.dtw_banded_batch(xs[0].to(cuda), ys.to(cuda), band,
+                                        thr)
+        want = core_dtw.dtw_banded_batch(xs[0], ys, band, thr.cpu())
+        assert torch.equal(got.cpu(), want)
+        assert int((got < core_dtw.BIG).sum()) == 10
+    for m_x, m_y in ((96, 80), (70, 96)):
+        x, y = xs[1, :m_x], ys[2, :m_y]
+        got = float(core_dtw.dtw(x.to(cuda), y.to(cuda), band))
+        want = core_dtw.dtw_dp_reference(x.numpy(), y.numpy(), band)
+        assert abs(got - want) <= 1e-6 * want
+
+
+def test_cascade_stats_and_srp_search_on_the_card(cuda):
+    """``cascade_stats`` within 2/N of the CPU's fractions, and the SRP
+    baseline's ids equal to the CPU's (its DTW through
+    ``dtw_wavefront``)."""
+    from repro_torch.core import lower_bounds as lb
+    from repro_torch.core import search, srp
+    series = torch.from_numpy(make_benchmark_db("ecg", 2000, 128, seed=6))
+    q = series[17] + 0.05
+    best = torch.sort(ref.dtw_wavefront_ref(q, series, 8)).values[9]
+    got = lb.cascade_stats(q.to(cuda), series.to(cuda), 8, best.to(cuda))
+    want = lb.cascade_stats(q, series, 8, best)
+    for k in want:
+        assert abs(float(got[k]) - float(want[k])) <= 2 / 2000, k
+    planes = srp.make_srp(32, 128, torch.Generator().manual_seed(1))
+    bits = srp.srp_bits(series, planes)
+    before = ops.launch_counts()["dtw_wavefront"]
+    g = search.srp_search(q.to(cuda), series.to(cuda), planes.to(cuda),
+                          bits.to(cuda), topk=10)
+    assert ops.launch_counts()["dtw_wavefront"] == before + 1
+    w = search.srp_search(q, series, planes, bits, topk=10, device="cpu")
+    np.testing.assert_array_equal(g.ids, w.ids)
+    np.testing.assert_array_equal(g.dists, w.dists)
