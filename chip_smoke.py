@@ -121,6 +121,22 @@
    whole-database DTW scans and all but 2 of ``srp_search``'s
    radius-511 DTW calls) and timed at its shapes (``paper_api_shapes``).
    ``build_signatures`` runs in 4,096-row chunks, the facade's.
+5a'. The encoder composition (phase ``pipeline``), on the 2^20 index: a
+   ``PipelineEncoder`` of the stock stages registered out of tree, with
+   the main index's params and seed, builds a ``TimeSeriesDB`` whose state
+   leaves, signatures and band keys must equal the main ``"ssh"`` index's
+   bit for bit, and answers batch 0 (64 queries, ``"batched"``) with the
+   main path's ids, distances within rtol 1e-5; the multiprobe encode of
+   those queries through both encoders is timed in turns.  1,024 rows
+   through a shingler with only the protocol's members (the dense route,
+   64 rows a block) and the 64 queries' multiprobe signatures must equal
+   the active route's; 4,096 rows built as ``"ssh-cs"`` through the
+   composition must equal the CPU's draw and encode (state, signatures,
+   keys, sketch); 64 rows through ``pure_encode_fn`` must equal
+   ``encode_batch`` for ``"ssh"``, ``"ssh-multires"``, ``"ssh-cs"`` and
+   ``"srp"``.  Then its ``sketch_conv`` calls (every 64th, the last two)
+   and every ``cs_tables`` call held to their plain versions, one of
+   each timed (``pipeline_shapes``).
 5b. Distributed and fleet tiers (phases ``dist``, ``fleet``,
    ``fleet_faulty``, ``fleet_drain``, ``fleet_launcher``; before the
    engine, whose insert makes the index N + 1 rows, which no longer
@@ -606,6 +622,13 @@ PAPER_SRP_BITS = 64             # the "srp" encoder's default K
 PAPER_RECT = ((160, 128), (128, 160), (256, 200))
 PAPER_SKETCH_HOLD = 64          # hold every 64th sketch chunk of the builds
 PAPER_SRP_DTW_HOLD = 2          # srp_search DTW calls (radius 511) held
+# step 5a', the encoder composition: rows through a shingler with only the
+# protocol's members (the dense route: (64, K, 2^15) CWS scores a block),
+# "ssh-cs" rows built on the card and on the CPU, rows through each
+# encoder's pure_encode_fn
+PIPELINE_DENSE_ROWS = 1024
+PIPELINE_CS_ROWS = 4096
+PIPELINE_PURE_ROWS = 64
 
 
 def log(*a):
@@ -1994,6 +2017,190 @@ def paper_api_paths(args, counted, ctx) -> dict:
     return rec.calls
 
 
+def pipeline_paths(args, counted, ctx) -> dict:
+    """Step 5a', phase ``pipeline``: the encoder composition on the 2^20
+    index (see the docstring).  Returns the recorded ``sketch_conv`` and
+    ``cs_tables`` calls; every gate raises."""
+    from repro_torch.db import TimeSeriesDB
+    from repro_torch.encoders import (IndexSpec, PipelineEncoder, SSHEncoder,
+                                      make_encoder, register_encoder)
+    from repro_torch.kernels import ops
+    from repro_torch.serving.batched import ssh_search_batch
+
+    series, batches, cfg, db = (ctx["series"], ctx["batches"], ctx["cfg"],
+                                ctx["db"])
+    spec, index = db.spec, db.index
+    dev, n, m = index.device, len(db), int(index.series.shape[1])
+    qs = batches[0][1]
+
+    class ProtocolOnly:
+        """A shingler with only the ``Shingler`` protocol's members."""
+
+        def __init__(self, inner):
+            self.dim, self.min_bits = inner.dim, inner.min_bits
+            self.histogram = inner.histogram
+            self.histogram_masked = inner.histogram_masked
+
+    @register_encoder("chip-pipeline")
+    class Composed(PipelineEncoder):
+        """The stock stages, registered out of tree."""
+        DEFAULTS = SSHEncoder.DEFAULTS
+        validate_params = SSHEncoder.validate_params
+        _build_stages = SSHEncoder._build_stages
+
+    @register_encoder("chip-pipeline-dense")
+    class Dense(Composed):
+        @classmethod
+        def _build_stages(cls, spec_):
+            sk, sh, ha, n_tables = SSHEncoder._build_stages(spec_)
+            return sk, ProtocolOnly(sh), ha, n_tables
+
+    pspec = IndexSpec("chip-pipeline", spec.params, seed=spec.seed)
+    spec_cs = IndexSpec("ssh-cs", dict(spec.params, rows=4, width=4096,
+                                       base_bits=4), seed=spec.seed)
+    common = {k: v for k, v in spec.params.items() if k != "ngram"}
+    pure_specs = {"ssh": spec, "ssh-multires": IndexSpec(
+        "ssh-multires", dict(common, ngrams=(10, 15)), seed=spec.seed),
+        "ssh-cs": spec_cs, "srp": IndexSpec("srp", seed=spec.seed)}
+    out, times = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        return r
+
+    def run():
+        # 1. the out-of-tree composition: the main index, bit for bit
+        dbp = timed("build", lambda: TimeSeriesDB.build(series, pspec, cfg))
+        ours, main = dbp.index.encoder.state(), index.encoder.state()
+        out["leaves"] = (sorted(ours) == sorted(main) and all(
+            torch.equal(ours[k], v) for k, v in main.items()))
+        out["sigs"] = int((dbp.index.signatures != index.signatures).sum())
+        out["keys"] = int((dbp.index.keys != index.keys).sum())
+        out["routes"] = (dbp.index.encoder.route, index.encoder.route)
+        res = timed("search", lambda: ssh_search_batch(
+            qs, dbp.index, config=dbp.config))
+        out["answers"] = [res.per_query(i) for i in range(res.n_queries)]
+        qd = torch.as_tensor(qs, device=dev)
+        offsets = cfg.multiprobe_offsets
+        enc_p, enc_m = dbp.index.encoder, index.encoder
+        out["encode_ms"] = {"pipeline": [], "main": []}
+        for _ in range(2):                      # in turns
+            for tag, e in (("pipeline", enc_p), ("main", enc_m),
+                           ("main", enc_m), ("pipeline", enc_p)):
+                out["encode_ms"][tag].append(event_ms(
+                    lambda: e.encode_batch_multiprobe(qd, offsets)))
+        del dbp, res, enc_p
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 2. the dense route of a protocol-only shingler
+        dense = make_encoder(IndexSpec("chip-pipeline-dense", spec.params,
+                                       seed=spec.seed), dev)
+        rows = index.series[:PIPELINE_DENSE_ROWS]
+        out["dense_route"] = dense.route
+        out["dense"] = int((timed("dense", lambda: dense.encode_batch(rows))
+                            != index.signatures[:PIPELINE_DENSE_ROWS]).sum())
+        out["dense_mp"] = int((timed(
+            "dense multiprobe", lambda: dense.encode_batch_multiprobe(
+                qd, offsets))
+            != enc_m.encode_batch_multiprobe(qd, offsets)).sum())
+        # 3. "ssh-cs" through the composition on the card
+        db_cs = timed("ssh-cs build", lambda: TimeSeriesDB.build(
+            series[:PIPELINE_CS_ROWS], spec_cs, cfg))
+        out["cs_card"] = (db_cs.index.encoder.state(),
+                          db_cs.index.signatures, db_cs.index.keys,
+                          db_cs.index.encoder.sketch_batch(
+                              db_cs.index.series))
+        out["cs_route"] = db_cs.index.encoder.route
+        # 4. pure_encode_fn of each encoder against its encode_batch
+        x = index.series[:PIPELINE_PURE_ROWS]
+        out["pure"] = {}
+        for name, sp in pure_specs.items():
+            enc = (index.encoder if name == "ssh" else
+                   db_cs.index.encoder if name == "ssh-cs" else
+                   make_encoder(sp, dev, length=m))
+            out["pure"][name] = (enc.pure_encode_fn()(x, enc.state()),
+                                 enc.encode_batch(x))
+
+    t0 = time.perf_counter()
+    with Recorder(ops, ("sketch_conv", "cs_tables")) as rec:
+        counted("pipeline", ("sketch_conv", "cs_tables",
+                             "collision_count_batch", "dtw_wavefront_pairs"),
+                run)
+    run_s = time.perf_counter() - t0
+    o = out
+
+    if not o["leaves"]:
+        raise AssertionError("pipeline: the out-of-tree PipelineEncoder's "
+                             "state differs from the 'ssh' encoder's")
+    if o["sigs"] or o["keys"]:
+        raise AssertionError(f"pipeline: {o['sigs']} signatures and "
+                             f"{o['keys']} band keys of {n} rows differ from "
+                             "the main index's")
+    if o["routes"] != ("ids", "ids") or o["dense_route"] != "dense" \
+            or o["cs_route"] != "entries":
+        raise AssertionError(f"pipeline: routes {o['routes']}, "
+                             f"{o['dense_route']}, {o['cs_route']}")
+    for i, (got, want) in enumerate(zip(o["answers"], ctx["results"][0])):
+        if not np.array_equal(got.ids, want.ids):
+            raise AssertionError(f"pipeline: query {i}: ids {got.ids} != the "
+                                 f"main path's {want.ids}")
+        np.testing.assert_allclose(got.dists, want.dists, rtol=1e-5,
+                                   atol=1e-6)
+    if o["dense"] or o["dense_mp"]:
+        raise AssertionError(f"pipeline: the dense route differs from the "
+                             f"active one on {o['dense']} of "
+                             f"{PIPELINE_DENSE_ROWS} rows' hashes and "
+                             f"{o['dense_mp']} multiprobe hashes")
+
+    # "ssh-cs": the CPU's draw and encode, held to the card's bit for bit
+    t = time.perf_counter()
+    state_c, sigs_c, keys_c, agg_c = o["cs_card"]
+    enc_cpu = make_encoder(spec_cs, "cpu")
+    rows_cpu = torch.from_numpy(series[:PIPELINE_CS_ROWS])
+    sigs_h = enc_cpu.encode_batch(rows_cpu)
+    for k, v in enc_cpu.state().items():
+        if not torch.equal(state_c[k].cpu(), v):
+            raise AssertionError(f"pipeline: ssh-cs leaf {k} differs on "
+                                 "the card and on the CPU")
+    if not (torch.equal(sigs_c.cpu(), sigs_h)
+            and torch.equal(keys_c.cpu(), enc_cpu.band_keys(sigs_h))
+            and torch.equal(agg_c.cpu(), enc_cpu.sketch_batch(rows_cpu))):
+        raise AssertionError(
+            f"pipeline: ssh-cs on the card differs from the CPU: "
+            f"{int((sigs_c.cpu() != sigs_h).sum())} hashes")
+    cs_cpu_s = time.perf_counter() - t
+    for name, (pure, batch) in o["pure"].items():
+        if not torch.equal(pure, batch):
+            raise AssertionError(f"pipeline: {name} pure_encode_fn differs "
+                                 f"from encode_batch on "
+                                 f"{int((pure != batch).sum())} entries")
+    enc_ms = {k: [round(v, 4) for v in vs]
+              for k, vs in o["encode_ms"].items()}
+    log(f"pipeline: {run_s:.1f} s for the counted run; an out-of-tree "
+        f"PipelineEncoder of the stock stages drew the 'ssh' state and "
+        f"built {n} signatures and keys bit for bit in "
+        f"{times['build']:.2f} s (the main build {ctx['build_s']:.2f} s), "
+        f"batch 0's {len(qs)} queries answered as the main path's")
+    log(f"pipeline: encode_batch_multiprobe of {len(qs)} queries x "
+        f"{cfg.multiprobe_offsets} offsets, call ms by CUDA events in turns: "
+        f"{enc_ms}")
+    log(f"pipeline: the dense route (a protocol-only shingler, (64, "
+        f"{index.encoder.num_hashes}, {index.encoder.dim}) scores a block) "
+        f"on {PIPELINE_DENSE_ROWS} rows equal to the active route in "
+        f"{times['dense']:.2f} s, multiprobe in "
+        f"{times['dense multiprobe']:.2f} s; ssh-cs on {PIPELINE_CS_ROWS} "
+        f"rows equal on the card and the CPU (state, signatures, keys, "
+        f"sketch; build {times['ssh-cs build']:.2f} s, CPU check "
+        f"{cs_cpu_s:.1f} s); pure_encode_fn = encode_batch on "
+        f"{PIPELINE_PURE_ROWS} rows of {sorted(o['pure'])}")
+    del out, o
+    return rec.calls
+
+
 def ssh_paths(args, counted, phases) -> list:
     """Paths a-d and the six SSH kernels (steps 2-5 of the docstring);
     returns their kernel entries.  Every tensor of the SSH state is freed
@@ -2456,35 +2663,48 @@ def ssh_paths(args, counted, phases) -> list:
                     f"times in turns {shape['schedule_call_ms']}")
 
     # cs_tables: the level-0 tables of one 4096-row build chunk
-    (bkt, sgn, width), _ = rec_c.calls["cs_tables"][0]
-    kern = ops.cs_tables(bkt, sgn, width)
-    plain = ref.cs_tables_ref(bkt, sgn, width)
-    if not torch.equal(kern, plain):
-        raise AssertionError(f"cs_tables is not bit-identical: "
-                             f"{int((kern != plain).sum())} bins differ")
-    b_, r_, s_ = bkt.shape
-    tgt = torch.where(bkt >= 0, bkt, width).to(torch.int64).reshape(
-        b_ * r_, s_)
-    sg2 = sgn.reshape(b_ * r_, s_)
+    def cs_check(bkt, sgn, width):
+        """The kernel's tables, after holding them bit for bit."""
+        kern = ops.cs_tables(bkt, sgn, width)
+        plain = ref.cs_tables_ref(bkt, sgn, width)
+        if not torch.equal(kern, plain):
+            raise AssertionError(f"cs_tables is not bit-identical: "
+                                 f"{int((kern != plain).sum())} bins differ")
+        return kern, plain
 
-    def scatter_lib():
-        return torch.zeros((b_ * r_, width + 1), dtype=torch.float32,
-                           device=bkt.device).scatter_add_(1, tgt, sg2)
-    if not torch.equal(scatter_lib()[:, :width].reshape(b_, r_, width),
-                       plain):
-        raise AssertionError("scatter_add_ yardstick disagrees")
-    bms, bkind = bound_ms(4 * (2 * bkt.numel() + kern.numel()),
-                          int((bkt >= 0).sum()))
+    def cs_at(bkt, sgn, width):
+        """Check and time one call, with its scatter_add_ yardstick."""
+        kern, plain = cs_check(bkt, sgn, width)
+        b_, r_, s_ = bkt.shape
+        tgt = torch.where(bkt >= 0, bkt, width).to(torch.int64).reshape(
+            b_ * r_, s_)
+        sg2 = sgn.reshape(b_ * r_, s_)
+
+        def scatter_lib():
+            return torch.zeros((b_ * r_, width + 1), dtype=torch.float32,
+                               device=bkt.device).scatter_add_(1, tgt, sg2)
+        if not torch.equal(scatter_lib()[:, :width].reshape(b_, r_, width),
+                           plain):
+            raise AssertionError("scatter_add_ yardstick disagrees")
+        bms, bkind = bound_ms(4 * (2 * bkt.numel() + kern.numel()),
+                              int((bkt >= 0).sum()))
+        return dict(
+            max_abs_err=0.0,
+            **kernel_times(lambda: ops.cs_tables(bkt, sgn, width),
+                           scatter_lib),
+            plain_ms=cuda_time_ms(lambda: ref.cs_tables_ref(bkt, sgn,
+                                                            width)),
+            bound_ms=bms, bound_by=bkind,
+            shape=f"bucket {tuple(bkt.shape)} width {width}; "
+                  f"{float((kern == 0).float().mean()):.4f} of the bins "
+                  "zero")
+
     entries.append(dict(
         name="cs_tables", route="cuda",
         source="src/repro_torch/csrc/count_sketch.cu",
         replaces="src/repro/kernels/count_sketch.py:51",
-        launches=phases["streaming"]["cs_tables"], max_abs_err=0.0,
-        **kernel_times(lambda: ops.cs_tables(bkt, sgn, width), scatter_lib),
-        plain_ms=cuda_time_ms(lambda: ref.cs_tables_ref(bkt, sgn, width)),
-        bound_ms=bms, bound_by=bkind,
-        shape=f"bucket {tuple(bkt.shape)} width {width}; "
-              f"{float((kern == 0).float().mean()):.4f} of the bins zero",
+        launches=phases["streaming"]["cs_tables"],
+        **cs_at(*rec_c.calls["cs_tables"][0][0]),
         tolerance="bit-identical",
         library="zeros(B*R, width + 1).scatter_add_(1, bucket, sign)"))
 
@@ -2566,6 +2786,43 @@ def ssh_paths(args, counted, phases) -> list:
         f"and {len(one_calls)} dtw_wavefront calls held; the phase with its "
         f"checks and timings {time.perf_counter() - t:.1f} s")
     del paper_calls, sk_calls, held, cc_calls, pair_calls, one_calls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 5a'. the encoder composition ----------------------------------------
+    t = time.perf_counter()
+    pipe_calls = pipeline_paths(args, counted, dict(
+        series=series, batches=batches, cfg=cfg, db=db, results=results,
+        build_s=build_s))
+    # its sketch and cs_tables calls held to their plain versions (every
+    # 64th sketch chunk of the 2^20 build, the last two; every cs_tables
+    # call), one of each timed
+    sk_calls = pipe_calls["sketch_conv"]
+    held = sk_calls[::PAPER_SKETCH_HOLD] + sk_calls[-2:]
+    for (x, filt_p, step_p), _ in held[1:]:
+        sketch_check(x, filt_p, step_p, "pipeline")
+    cs_calls = pipe_calls["cs_tables"]
+    for (bkt_p, sgn_p, width_p), _ in cs_calls[1:]:
+        cs_check(bkt_p, sgn_p, width_p)
+    pipe = {"sketch_conv": dict(sketch_at(*held[0][0], "pipeline"),
+                                calls_held=len(held)),
+            "cs_tables": dict(cs_at(*cs_calls[0][0]),
+                              calls_held=len(cs_calls))}
+    by_name = {e["name"]: e for e in entries}
+    for name in ("sketch_conv", "cs_tables", "collision_count_batch",
+                 "dtw_wavefront_pairs"):
+        by_name[name].setdefault("launches_by_phase", {})["pipeline"] = \
+            phases["pipeline"][name]
+    for name, got in pipe.items():
+        by_name[name]["pipeline_shapes"] = got
+        log(f"kernel {name} at the pipeline shape, {got['calls_held']} calls "
+            f"held to the plain version: [{got['shape']}] device ms "
+            f"{got['ms']:.4f} call ms {got['call_ms']:.4f} plain_ms "
+            f"{got['plain_ms']:.4f} bound_ms {got['bound_ms']:.5f} "
+            f"({got['bound_by']})")
+    log(f"pipeline: the phase with its checks and timings "
+        f"{time.perf_counter() - t:.1f} s")
+    del pipe_calls, sk_calls, held, cs_calls
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -173,11 +173,16 @@ def latest_step(directory: str | Path) -> Optional[int]:
 
 
 def restore_checkpoint(directory: str | Path, tree_like: Tree,
-                       step: Optional[int] = None) -> Tuple[int, Tree]:
+                       step: Optional[int] = None,
+                       shardings: Optional[Tree] = None) -> Tuple[int, Tree]:
     """Restore step ``step`` (the latest when None) into the structure of
     ``tree_like``, whose leaves give the expected shapes (arrays or
     tensors); returns ``(step, tree of numpy arrays)``, bfloat16 arrays
-    as ``torch.bfloat16`` tensors."""
+    as ``torch.bfloat16`` tensors.  ``shardings``, a tree of the same
+    paths, places each leaf it names (a ``torch.device``, a device name,
+    or a ``distributed.sharding.Sharding`` of a one-device mesh) as a
+    tensor on that device (``checkpointer.py:105-140``); a leaf it omits
+    or gives None comes back as a host array."""
     directory = Path(directory)
     step = step if step is not None else latest_step(directory)
     if step is None:
@@ -206,6 +211,11 @@ def restore_checkpoint(directory: str | Path, tree_like: Tree,
         if tuple(arrays[key].shape) != want:
             raise ValueError(f"{key}: checkpoint shape "
                              f"{arrays[key].shape} != expected {want}")
+    if shardings is not None:
+        for key, where in _flatten_with_paths(shardings):
+            if where is not None and key in arrays:
+                arrays[key] = torch.as_tensor(arrays[key]).to(
+                    torch.device(getattr(where, "device", where)))
     return step, _unflatten(tree_like, arrays)
 
 

@@ -44,12 +44,14 @@ class ShapeCell:
 @dataclasses.dataclass(frozen=True)
 class ArchDef:
     name: str
-    family: str                    # lm | gnn | recsys
+    family: str                    # lm | gnn | recsys | ssh
     config: Any
     smoke_config: Any
     shapes: Dict[str, ShapeCell]
     # optional per-shape config override (the GNN's d_feat differs per cell)
     config_for_shape: Optional[Callable[[Any, str], Any]] = None
+    # search-time defaults of the ssh family: a ``db.SearchConfig``
+    search_defaults: Optional[Any] = None
 
     def cell_config(self, shape: str) -> Any:
         """The config a cell runs: ``config``, through
@@ -57,6 +59,33 @@ class ArchDef:
         if self.config_for_shape is not None:
             return self.config_for_shape(self.config, shape)
         return self.config
+
+    def index_spec(self, smoke: bool = False, **params):
+        """The ssh arch's ``IndexSpec`` (the smoke one when asked), with
+        stage-param overrides (``repro/configs/base.py:53-64``); a config
+        given as ``core.index.SSHParams`` lowers by ``to_spec()``."""
+        from repro_torch.core.index import SSHParams
+        if self.family != "ssh":
+            raise ValueError(
+                f"arch {self.name!r} (family {self.family!r}) has no "
+                "index spec; index_spec() is for ssh arches")
+        spec = self.smoke_config if smoke else self.config
+        if isinstance(spec, SSHParams):
+            spec = spec.to_spec()
+        return spec.with_params(**params) if params else spec
+
+    def search_config(self, length: Optional[int] = None, **overrides):
+        """The ``SearchConfig`` at a series length (the UCR suite's 5 %
+        band: max(4, length // 20)) with per-call overrides
+        (``base.py:66-80``); arches without search defaults raise."""
+        if self.search_defaults is None:
+            raise ValueError(
+                f"arch {self.name!r} (family {self.family!r}) defines no "
+                "search defaults; search_config() is for ssh arches")
+        cfg = self.search_defaults
+        if length is not None:
+            cfg = dataclasses.replace(cfg, band=max(4, length // 20))
+        return cfg.replace(**overrides) if overrides else cfg.validate()
 
     def input_specs(self, shape: str) -> Tuple[str, Dict[str, Any]]:
         cell = self.shapes[shape]

@@ -1,20 +1,16 @@
-"""``--arch`` registry (counterpart of ``repro.configs.registry``): the
-SSH arches as objects with ``index_spec()`` and ``search_config()``,
-what ``launch.build_index`` and ``launch.serve`` read, and the lm, gnn
-and recsys arches as ``configs.base.ArchDef`` (shape cells, input
-specs), what ``launch.serve``, ``launch.steps`` and ``launch.train``
-read.  An SSH arch also has the reference's shape cells (``build``,
-``query``), which ``launch.steps`` and the dry run read as they read an
-``ArchDef``'s."""
+"""``--arch`` registry (counterpart of ``repro.configs.registry``): every
+arch is a ``configs.base.ArchDef`` (shape cells, input specs), what
+``launch.serve``, ``launch.steps``, ``launch.train`` and the dry run
+read; an SSH arch (``SSHArch``) also answers ``index_spec()`` and
+``search_config()``, what ``launch.build_index`` and ``launch.serve``
+read, and has the reference's shape cells (``build``, ``query``)."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Dict, List, Optional, Tuple
+from typing import List, Optional
 
-from repro_torch.configs.base import ShapeCell, ssh_specs
-from repro_torch.db.config import SearchConfig
-from repro_torch.encoders import IndexSpec
+from repro_torch.configs.base import ArchDef
 
 _MODULES = {
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
@@ -33,39 +29,12 @@ _MODULES = {
 
 
 @dataclasses.dataclass(frozen=True)
-class SSHArch:
-    """An SSH deployment: the build-time spec (full and smoke), the
+class SSHArch(ArchDef):
+    """An SSH deployment: an ``ArchDef`` of the ``"ssh"`` family whose
+    configs are the build-time ``IndexSpec``s (full and smoke), with the
     search-time defaults and the shape cells of its build and query
-    steps."""
-    name: str
-    config: IndexSpec
-    smoke_config: IndexSpec
-    search_defaults: SearchConfig
-    shapes: Dict[str, ShapeCell] = dataclasses.field(default_factory=dict)
-    family: str = "ssh"
-
-    def cell_config(self, shape: str) -> IndexSpec:
-        """The spec a cell runs (every cell runs ``config``)."""
-        return self.config
-
-    def input_specs(self, shape: str) -> Tuple[str, Dict[str, Any]]:
-        cell = self.shapes[shape]
-        return cell.kind, ssh_specs(self.cell_config(shape), cell)
-
-    def index_spec(self, smoke: bool = False, **params) -> IndexSpec:
-        """The ``IndexSpec`` (the smoke one when asked), with stage-param
-        overrides."""
-        spec = self.smoke_config if smoke else self.config
-        return spec.with_params(**params) if params else spec
-
-    def search_config(self, length: Optional[int] = None,
-                      **overrides) -> SearchConfig:
-        """The ``SearchConfig`` at a series length (the UCR suite's 5 %
-        band: max(4, length // 20)) with per-call overrides."""
-        cfg = self.search_defaults
-        if length is not None:
-            cfg = dataclasses.replace(cfg, band=max(4, length // 20))
-        return cfg.replace(**overrides) if overrides else cfg.validate()
+    steps; every cell runs ``config``."""
+    family: str = dataclasses.field(default="ssh", kw_only=True)
 
 
 def list_archs(family: Optional[str] = None) -> List[str]:

@@ -19,9 +19,12 @@ is the tensor-parallel axis.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
 
 from repro_torch.launch.mesh import MeshSpec, dp_axes
 
@@ -83,6 +86,33 @@ def spec_for(logicals: Sequence[Optional[str]], shape: Sequence[int],
         else:
             out.append(None)
     return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A tensor's placement over a mesh, the reference's
+    ``NamedSharding``: the mesh and the spec of each dim."""
+    mesh: MeshSpec
+    spec: Spec
+
+    @property
+    def device(self) -> torch.device:
+        """The device a mesh of one device covers, where the tensor lives
+        whole (what ``checkpoint.restore_checkpoint`` places a leaf on);
+        a described layout or a mesh of several devices has none: the
+        port runs a program on one card and splits an index by rows
+        (``distributed.dist_index``)."""
+        if len(self.mesh.devices) != 1:
+            raise ValueError(f"a mesh of {len(self.mesh.devices)} devices "
+                             "places no tensor on one device")
+        return self.mesh.devices[0]
+
+
+def sharding_for(logicals: Sequence[Optional[str]], shape: Sequence[int],
+                 mesh: MeshSpec) -> Sharding:
+    """The placement of a tensor of ``shape`` over ``mesh`` under the
+    rules (``repro/distributed/sharding.py:84-85``)."""
+    return Sharding(mesh, spec_for(logicals, shape, mesh))
 
 
 def shard_factor(spec: Spec, mesh: MeshSpec) -> int:

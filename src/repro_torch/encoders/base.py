@@ -13,12 +13,21 @@ device (the reference's leaf names): drawn by ``materialize`` from a
 ``repro_torch.convert``), both of which refuse a leaf set or a shape
 that disagrees with the spec.  ``arrays`` gives the state back as host
 arrays in the dtypes the reference stores.
+
+The stage protocols ``Sketcher``, ``Shingler`` and ``Hasher`` are the
+contract of the three stages of the paper's Fig. 5, which
+``encoders.pipeline.PipelineEncoder`` composes; an out-of-tree stage
+that implements one plugs into it.  Stage methods take a leading row
+axis where the reference's take one row under ``vmap``: a block
+(R, ...) gives (R, ...), and row r of the block equals the reference's
+result for row r.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterable, Mapping, Optional,
+                    Protocol, Tuple, runtime_checkable)
 
 import numpy as np
 import torch
@@ -76,6 +85,54 @@ class IndexSpec:
             warnings.warn(f"IndexSpec.from_dict: ignoring unknown fields "
                           f"{extra}", RuntimeWarning, stacklevel=2)
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@runtime_checkable
+class Sketcher(Protocol):
+    """Stage 1: series (R, m) -> bit-profile (R, N_B, F) uint8."""
+
+    def materialize(self, generator: torch.Generator
+                    ) -> Dict[str, torch.Tensor]:
+        """Draw the stage's random state (the filter bank) on the CPU."""
+
+    def sketch(self, x: torch.Tensor, state: Mapping[str, torch.Tensor]
+               ) -> torch.Tensor:
+        """Sign bits of each row."""
+
+
+@runtime_checkable
+class Shingler(Protocol):
+    """Stage 2: bit-profile (R, N_B, F) -> weighted set (R, D)."""
+
+    @property
+    def dim(self) -> int:
+        """D, the weighted set's dimension, which the hasher is sized to."""
+
+    @property
+    def min_bits(self) -> int:
+        """Fewest bit-profile rows that still hold one whole shingle."""
+
+    def histogram(self, bits: torch.Tensor) -> torch.Tensor:
+        """Each row's weighted set: integer-valued counts."""
+
+    def histogram_masked(self, bits: torch.Tensor, valid_bits
+                         ) -> torch.Tensor:
+        """Counts of only the shingles inside each row's first
+        ``valid_bits`` bits (an int, or an (R,) tensor of them): the
+        multiprobe path."""
+
+
+@runtime_checkable
+class Hasher(Protocol):
+    """Stage 3: weighted set (R, D) -> signature (R, K) int32."""
+
+    def materialize(self, generator: torch.Generator, dim: int
+                    ) -> Dict[str, torch.Tensor]:
+        """Draw the stage's random state over D dimensions on the CPU."""
+
+    def hash(self, counts: torch.Tensor, state: Mapping[str, torch.Tensor]
+             ) -> torch.Tensor:
+        """The signature of each row's weighted set."""
 
 
 class Encoder:
@@ -236,6 +293,13 @@ class Encoder:
     def band_keys(self, signatures: torch.Tensor) -> torch.Tensor:
         """(..., K) -> (..., L) int32 bucket keys (uint32 bit pattern)."""
         return minhash.combine_bands(signatures, self.num_tables)
+
+    def pure_encode_fn(self) -> Callable:
+        """A function ``fn(x, state)`` of the series and a state dict
+        (:meth:`state`'s form): (m,) -> (K,) or (R, m) -> (R, K) int32,
+        the stage hyper-parameters closed over (the reference's form for
+        ``shard_map``, ``encoders/base.py:267-272``)."""
+        raise NotImplementedError
 
     def __repr__(self) -> str:
         return (f"{type(self).__name__}(spec={self.spec!r}, "

@@ -7,8 +7,8 @@ too — together with the ``IndexSpec``, the build route and a variant tag
 (``sig``, ``keys``, ``mp<o>``), so a hit returns exactly the array the
 encoder would produce and answers cannot change.  The bytes themselves
 are the key, where the reference's is a blake2b digest of them
-(``series_digest``, which has no counterpart here): exact, and cheaper
-than a digest a row.
+(:func:`series_digest`, kept for callers of the reference's): exact, and
+cheaper than a digest a row.
 Values stay where the encoder made them (on the card for a CUDA index),
 so a miss stores without a sync and a hit needs no copy.  One cache
 lives on each index (``SSHIndex.sig_cache``, made at first use); hits
@@ -16,6 +16,7 @@ surface as ``SearchStats.sig_cache_hit``.
 """
 from __future__ import annotations
 
+import hashlib
 import threading
 from collections import OrderedDict
 from typing import Hashable, List, Optional, Sequence, Tuple
@@ -37,6 +38,19 @@ def row_bytes(queries) -> List[bytes]:
     if arr.ndim == 1:
         return [arr.tobytes()]
     return [row.tobytes() for row in arr.reshape(arr.shape[0], -1)]
+
+
+def series_digest(series) -> bytes:
+    """The reference's content hash of a query (``sigcache.py:32-43``):
+    the blake2b-16 digest of its shape and its float32 bytes, so a
+    float64 list and the equal float32 array share one digest."""
+    if isinstance(series, torch.Tensor):
+        series = series.detach().cpu().numpy()
+    arr = np.ascontiguousarray(np.asarray(series, np.float32))
+    h = hashlib.blake2b(digest_size=16)
+    h.update(str(arr.shape).encode())
+    h.update(arr.tobytes())
+    return h.digest()
 
 
 class SignatureCache:

@@ -66,6 +66,13 @@ class SRPEncoder(Encoder):
 
     def encode_batch(self, xs: torch.Tensor) -> torch.Tensor:
         """(B, m) -> (B, K) int32 sign bits."""
-        planes = self._require_state()["planes"]
-        xs = xs.to(device=planes.device, dtype=torch.float32)
-        return srp.srp_bits(xs, planes).to(torch.int32)
+        return self.pure_encode_fn()(xs, self._require_state())
+
+    def pure_encode_fn(self):
+        """``fn(x, state)``: the sign bits against ``state["planes"]``,
+        (m,) -> (K,) or (R, m) -> (R, K) int32 (``srp.py:114-117``)."""
+        def encode(x: torch.Tensor, state) -> torch.Tensor:
+            planes = state["planes"]
+            x = x.to(device=planes.device, dtype=torch.float32)
+            return srp.srp_bits(x, planes).to(torch.int32)
+        return encode

@@ -71,6 +71,28 @@ def check_backend(backend: str,
                          "run only with device='cpu'")
 
 
+def resolve_backend(backend: str) -> Optional[bool]:
+    """The ``backend`` knob as the reference's ``use_pallas`` tri-state
+    (``repro/kernels/ops.py:31-42``): ``"auto"`` -> None, ``"pallas"``
+    -> True, ``"jnp"`` -> False; an unknown name raises."""
+    check_backend(backend)
+    return {"auto": None, "pallas": True, "jnp": False}[backend]
+
+
+def backend_name(use_pallas: Optional[bool], device: DeviceLike = None
+                 ) -> str:
+    """The route that runs for a ``use_pallas`` tri-state on ``device``
+    (CUDA unless the caller asks for the CPU; ``ops.py:45-50``):
+    ``"pallas"`` for the CUDA kernel, ``"jnp"`` for the plain version on
+    the CPU, which is what True gives there too (the port has no
+    interpret mode).  False, the plain version, raises off the CPU, as
+    :func:`check_backend` does."""
+    dev = resolve_device(device)
+    if use_pallas is False:
+        check_backend("jnp", dev)
+    return "pallas" if dev.type == "cuda" else "jnp"
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset."""
     with _build.COUNT_LOCK:

@@ -171,10 +171,19 @@ def mesh_for(name: str) -> MeshSpec:
     return make_production_mesh(multi_pod=name == "multi")
 
 
-def run_cell(arch_name: str, shape: str, mesh_name: str,
-             report_dir: Optional[Path] = REPORT_DIR, verbose: bool = True
-             ) -> Dict[str, Any]:
-    """One cell's report (written to ``report_dir`` unless None)."""
+def run_cell(arch_name: str, shape: str, multi_pod: bool = False,
+             report_dir: Optional[Path] = REPORT_DIR, verbose: bool = True,
+             *, mesh: Optional[str] = None) -> Dict[str, Any]:
+    """One cell's report (written to ``report_dir`` unless None), on the
+    reference's (2, 16, 16) layout if ``multi_pod`` else its (16, 16)
+    (``repro/launch/dryrun.py:115-118``), or on the mesh of :data:`MESHES`
+    that ``mesh`` names (``"local"``: the CUDA devices present)."""
+    if not isinstance(multi_pod, bool):
+        raise TypeError(f"multi_pod is a bool, got {multi_pod!r}; name a "
+                        "mesh with mesh=")
+    mesh_name = mesh or ("multi" if multi_pod else "single")
+    if mesh_name not in MESHES:
+        raise ValueError(f"mesh must be one of {MESHES}, got {mesh_name!r}")
     arch = get_arch(arch_name)
     t0 = time.time()
     mesh = mesh_for(mesh_name)
@@ -248,7 +257,7 @@ def main(argv=None) -> int:
                 print(f"[skip] {tag}")
                 continue
             try:
-                run_cell(name, shape, mesh_name, rdir)
+                run_cell(name, shape, report_dir=rdir, mesh=mesh_name)
             except Exception as e:  # noqa: BLE001 — report and continue
                 failures.append(tag)
                 print(f"[FAIL] {tag}: {type(e).__name__}: {e}")

@@ -14,11 +14,16 @@ them.  The port's own kernels (the flash attention among them) report
 no FLOPs to the profiler, so their work is counted analytically
 (``launch.analytic``).  Collectives are NCCL kernels
 (``hlo_analysis.collective_stats``).
+
+The reference's HLO text parser (:func:`parse_hlo`, :class:`Op`,
+:class:`Computation`) is kept as it is, pure Python over text, for
+reading HLO that another tool wrote; nothing in the port lowers to HLO.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable
+import re
+from typing import Dict, Iterable, List, Optional, Tuple
 
 from repro_torch.launch.hlo_analysis import COLLECTIVES, collective_stats
 
@@ -53,3 +58,69 @@ def executed_costs(events: Iterable) -> Cost:
         c.coll_counts[kind] = float(st["count"])
         c.coll_bytes[kind] = float(st["bytes"])
     return c
+
+
+# -- the reference's HLO text parser (``repro/launch/hlo_graph.py:35-115``)
+
+# the patterns as strings (``re`` caches what it builds of them); params
+# may be tuple-typed (nested parens): match only the name
+_HEADER_RE = r"^(?:ENTRY\s+)?%?([\w.\-]+)\s+\("
+_OP_RE = (r"^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=\s*((?:\([^)]*\))|(?:[a-z0-9]+"
+          r"\[[0-9,]*\](?:\{[^}]*\})?))\s+([a-z0-9\-]+)\(")
+_OPERANDS_RE = r"\(([^)]*)\)"
+
+
+@dataclasses.dataclass
+class Op:
+    name: str
+    opcode: str
+    result_shape: str
+    operands: List[str]
+    attrs: str
+
+
+@dataclasses.dataclass
+class Computation:
+    name: str
+    ops: Dict[str, Op]
+    order: List[str]
+
+
+def parse_hlo(text: str) -> Tuple[Dict[str, Computation], Optional[str]]:
+    """HLO text -> (computations by name, the entry computation's name)."""
+    comps: Dict[str, Computation] = {}
+    entry: Optional[str] = None
+    cur: Optional[Computation] = None
+    for line in text.splitlines():
+        stripped = line.strip()
+        if cur is None:
+            if stripped.endswith("{") and "->" in stripped:
+                m = re.match(_HEADER_RE, stripped)
+                if m:
+                    cur = Computation(m.group(1), {}, [])
+                    if stripped.startswith("ENTRY"):
+                        entry = cur.name
+            continue
+        if stripped.startswith("}"):        # may carry a trailing comment
+            comps[cur.name] = cur
+            cur = None
+            continue
+        m = re.match(_OP_RE, line)
+        if not m:
+            continue
+        name, shape, opcode = m.group(1), m.group(2), m.group(3)
+        rest = line[m.end() - 1:]
+        ops_m = re.match(_OPERANDS_RE, rest)
+        operands = []
+        if ops_m:
+            inner = ops_m.group(1)
+            # operands may carry a type prefix ("f32[2,3]{1,0} %x") whose
+            # shape commas break a naive split: take the %names
+            operands = re.findall(r"%([\w.\-]+)", inner)
+            if not operands:
+                operands = [t.strip() for t in inner.split(",") if t.strip()]
+        # attrs keeps the whole rest, operand text included: constants
+        # such as `constant(40)` live inside the "operand" parens
+        cur.ops[name] = Op(name, opcode, shape, operands, rest)
+        cur.order.append(name)
+    return comps, entry

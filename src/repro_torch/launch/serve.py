@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.bench.timing import StageTimer
+from repro_torch.configs.base import ArchDef
 from repro_torch.configs.registry import get_arch, list_archs
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
@@ -95,18 +96,30 @@ def check_prefill_against_decode(res: ServeResult, rel_tol: float) -> dict:
     return out
 
 
-def serve_lm(cfg: T.LMConfig, params: Optional[T.Params] = None,
-             prompts: Optional[np.ndarray] = None, *, batch: int = 2,
+def serve_lm(cfg, params=None, prompts=None, *, batch: int = 2,
              prompt_len: int = 16, gen_len: int = 8, seed: int = 0,
              device=None) -> ServeResult:
     """The reference's ``serve_lm`` loop (``launch/serve.py:147-170``):
     step ``decode_step`` over the prompts, then ``gen_len`` greedy steps
     (argmax, first index on ties); then one ``prefill`` of the prompts.
 
-    ``params`` default to random ones from ``seed`` on ``device`` (CUDA
-    unless the caller asks for the CPU); ``prompts`` (B, P) default to
+    ``cfg`` is an ``LMConfig``; ``params`` default to random ones from
+    ``seed`` on ``device`` (CUDA unless the caller asks for the CPU);
+    ``prompts`` (B, P) default to
     ``np.random.default_rng(seed).integers(0, vocab, (batch, prompt_len))``.
+
+    The reference's call form ``serve_lm(arch, requests, smoke)`` is
+    taken too: an ``ArchDef`` first, then the request count, which the
+    reference does not read either, and ``smoke``, which picks the
+    arch's smoke config over its full one; the weights and prompts are
+    then the defaults, as the reference's are fixed.
     """
+    if isinstance(cfg, ArchDef):
+        if not isinstance(params, int) or not isinstance(prompts, bool):
+            raise TypeError("serve_lm(arch, requests, smoke) takes an int "
+                            f"and a bool, got {params!r}, {prompts!r}")
+        cfg = cfg.smoke_config if prompts else cfg.config
+        params = prompts = None
     dev = ops.resolve_device(device)
     if params is None:
         params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(

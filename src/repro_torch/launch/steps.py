@@ -75,16 +75,17 @@ def _ssh_init(spec, generator: Optional[torch.Generator], device
     """The filter bank, then the CWS fields, drawn on the CPU from
     ``generator`` (default: seeded by ``spec.seed``), as
     ``SSHEncoder.materialize`` draws them, then moved to ``device``."""
-    from repro_torch.core import minhash, sketch
+    from repro_torch.core import minhash
     from repro_torch.encoders.pipeline import SSHEncoder
     dev = ops.resolve_device(device)
     enc = SSHEncoder(spec)
     gen = generator if generator is not None else (
         torch.Generator().manual_seed(spec.seed))
-    filters = sketch.make_filter(enc.window, enc.num_filters, gen)
-    cws = minhash.make_cws(enc.num_hashes, enc.dim, gen)
-    return {"filters": filters.to(dev),
-            "cws": {f: getattr(cws, f).to(dev) for f in cws._fields}}
+    state = enc.sketcher.materialize(gen)
+    state.update(enc.hasher.materialize(gen, enc.dim))
+    return {"filters": state["filters"].to(dev),
+            "cws": {f: state[f"cws/{f}"].to(dev)
+                    for f in minhash.CWSParams._fields}}
 
 
 def _spec_of(x) -> TensorSpec:
@@ -249,11 +250,13 @@ def _make_ssh_build(spec) -> Callable:
         signatures, ties to the lowest dimension included, without
         it.  ``chunk`` is :data:`SSH_BUILD_CHUNK`."""
         enc = _ssh_encoder(spec, params)
-        bits = enc._sketch_bits(batch["series"])         # (B, N_B, F)
+        state = enc.state()
+        bits = enc.sketcher.sketch(batch["series"], state)  # (B, N_B, F)
         shingles = bits.shape[2] * max(1, bits.shape[1] - enc.ngram + 1)
         rows = max(1, SSH_BUILD_CHUNK // shingles)
-        return torch.cat([enc._hash_shingles(enc._ids_from_bits(
-            bits[lo:lo + rows])) for lo in range(0, bits.shape[0], rows)])
+        return torch.cat([enc.hasher.hash_ids(enc.shingler.shingle_ids(
+            bits[lo:lo + rows]), state)
+            for lo in range(0, bits.shape[0], rows)])
     return build_step
 
 

@@ -154,6 +154,24 @@ def unflatten(flat: Dict[str, torch.Tensor]) -> Params:
     return params
 
 
+def _init_leaf(cfg: LMConfig, path: str, shape: Tuple[int, ...],
+               generator: torch.Generator, dev: torch.device,
+               stacked: bool) -> torch.Tensor:
+    """One parameter of ``path`` at ``shape``: ones for a norm, else
+    float32 normals times its scale cast to its dtype, drawn a layer at a
+    time along a ``stacked`` leading L axis."""
+    dt = param_dtype(cfg, path)
+    if path in _NORMS:
+        return torch.ones(shape, dtype=dt, device=dev)
+    scale = (0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
+             if path in _OUT_PROJECTIONS else 0.02)
+    t = torch.empty(shape, dtype=dt, device=dev)
+    for part in (t if stacked else (t,)):
+        part.copy_(torch.randn(part.shape, generator=generator, device=dev,
+                               dtype=torch.float32).mul_(scale))
+    return t
+
+
 def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> Params:
     """Random weights with the reference's distributions
@@ -168,23 +186,28 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
     ``jax.random`` cannot be reproduced.
     """
     dev = ops.resolve_device(device)
-    shapes = param_shapes(cfg)
     generator = ops.generator_for(generator, dev)
-    so = 0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
-    flat = {}
-    for path, shape in shapes.items():
-        dt = param_dtype(cfg, path)
-        if path in _NORMS:
-            flat[path] = torch.ones(shape, dtype=dt, device=dev)
-            continue
-        scale = so if path in _OUT_PROJECTIONS else 0.02
-        t = torch.empty(shape, dtype=dt, device=dev)
-        for part in (t if path.startswith("layers/") else (t,)):
-            part.copy_(torch.randn(part.shape, generator=generator,
-                                   device=dev, dtype=torch.float32)
-                       .mul_(scale))
-        flat[path] = t
-    return unflatten(flat)
+    return unflatten({
+        path: _init_leaf(cfg, path, shape, generator, dev,
+                         stacked=path.startswith("layers/"))
+        for path, shape in param_shapes(cfg).items()})
+
+
+def init_layer_params(cfg: LMConfig,
+                      generator: Optional[torch.Generator] = None,
+                      device=None) -> Dict[str, torch.Tensor]:
+    """One layer's parameters without the leading L axis
+    (``transformer.py:97-135``): the reference's keys, shapes, dtypes and
+    init scales for dense, MLA and MoE layers, drawn on ``device`` from
+    ``generator`` (default: seeded with 0) in :func:`param_shapes`'
+    order; :func:`init_params` draws a parameter's layers in turn, so
+    its layer 0 is not this draw."""
+    dev = ops.resolve_device(device)
+    generator = ops.generator_for(generator, dev)
+    return {path[len("layers/"):]: _init_leaf(cfg, path, shape[1:],
+                                              generator, dev, stacked=False)
+            for path, shape in param_shapes(cfg).items()
+            if path.startswith("layers/")}
 
 
 def _layer_params(params: Params, i: int) -> Dict[str, torch.Tensor]:

@@ -48,6 +48,12 @@ class BatchSearchResult:
     wall_seconds: float
     stats: Optional[SearchStats] = None
 
+    @property
+    def dtw_evals(self) -> int:
+        """DTW evaluations across the batch, the re-rank survivors
+        (``repro/serving/batched.py:65-68``)."""
+        return int(self.n_candidates.sum())
+
     @classmethod
     def of_fanout(cls, ids, dists, n_database: int, top_c: int,
                   t0: float, stats: SearchStats) -> "BatchSearchResult":

@@ -157,6 +157,17 @@ class SubsequenceIndex:
     def build_backend(self) -> str:
         return self.inner.build_backend
 
+    def offsets(self) -> np.ndarray:
+        """(nw,) int64 stream start of every indexed window
+        (``repro/subseq/index.py:140-142``)."""
+        return np.arange(self.num_windows, dtype=np.int64) * self.hop
+
+    def window(self, j: int) -> torch.Tensor:
+        """Window ``j``'s points, a view of the stream on the index's
+        device (``index.py:144-147``)."""
+        lo = int(j) * self.hop
+        return self.stream[lo:lo + self.length]
+
     def nbytes(self) -> int:
         """Signatures, keys and encoder state plus the stream itself."""
         return self.inner.nbytes() + self.stream.numel() * 4
@@ -268,9 +279,11 @@ class SubsequenceIndex:
         return max(n_new, 0)
 
     # -- persistence -------------------------------------------------------
-    def save(self, directory, config: Optional[SearchConfig] = None):
+    def save(self, directory, config: Optional[SearchConfig] = None,
+             n_shards: int = 1):
+        """:func:`repro_torch.subseq.persistence.save_subseq`."""
         from repro_torch.subseq.persistence import save_subseq
-        return save_subseq(directory, self, config)
+        return save_subseq(directory, self, config, n_shards=n_shards)
 
     @classmethod
     def load(cls, directory, device=None):

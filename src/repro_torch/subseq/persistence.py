@@ -42,11 +42,12 @@ ARRAYS_SUBDIR = "index"
 _ENC_PREFIX = "encoder/"
 
 
-def save_subseq(directory, index, config: Optional[SearchConfig] = None
-                ) -> Path:
-    """Persist ``index`` (and ``config`` when given) under ``directory``;
-    returns the directory.  The arrays publish atomically, and the meta
-    is renamed into place, so a re-save never leaves a torn database."""
+def save_subseq(directory, index, config: Optional[SearchConfig] = None,
+                n_shards: int = 1) -> Path:
+    """Persist ``index`` (and ``config`` when given) under ``directory``
+    in ``n_shards`` checkpoint shards; returns the directory.  The arrays
+    publish atomically, and the meta is renamed into place, so a re-save
+    never leaves a torn database."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     inner = index.inner
@@ -61,7 +62,7 @@ def save_subseq(directory, index, config: Optional[SearchConfig] = None
     prev = latest_step(directory / ARRAYS_SUBDIR)
     step = 0 if prev is None else prev + 1
     save_checkpoint(directory / ARRAYS_SUBDIR, step=step, tree=arrays,
-                    keep=2)
+                    keep=2, n_shards=n_shards)
     meta: Dict[str, Any] = {
         "format_version": FORMAT_VERSION,
         "checkpoint_step": step,

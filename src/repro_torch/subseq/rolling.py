@@ -36,7 +36,8 @@ import math
 import torch
 
 from repro_torch.core import shingle
-from repro_torch.encoders.pipeline import SSHEncoder
+from repro_torch.encoders.pipeline import (GaussianFilterSketcher,
+                                           PipelineEncoder, SSHEncoder)
 from repro_torch.kernels import ops
 
 #: windows a chunk on the plain ``"ssh"`` path: bounds the (K, chunk, S)
@@ -135,7 +136,8 @@ def delta_histograms(global_ids: torch.Tensor, s: int, shift: int,
 def _check_encoder(encoder) -> None:
     """``repro/subseq/rolling.py:213-221``: the sketch must be a strided
     filter bank (the ``"ssh"`` family); ``"srp"`` is refused."""
-    if not isinstance(encoder, SSHEncoder):
+    if not isinstance(encoder, PipelineEncoder) \
+            or not isinstance(encoder.sketcher, GaussianFilterSketcher):
         raise ValueError(
             "subsequence indexing requires a strided-filter sketch "
             "encoder (PipelineEncoder with a GaussianFilterSketcher); "
@@ -154,10 +156,12 @@ def rolling_signatures(stream, encoder, length: int, hop: int, *,
     slices the stream's global shingle ids; at other hops, and for the
     other encoders (``"ssh-multires"``, ``"ssh-cs"``), each chunk of
     windows takes its bits from the shared sketch grid and hashes them
-    through the encoder's own bits→ids and hash stages.
+    through the encoder's own shingle and hash stages
+    (``PipelineEncoder.encode_bits``).
     """
     _check_encoder(encoder)
-    filters = encoder._require_state()["filters"]
+    state = encoder.state()
+    filters = state["filters"]
     stream = torch.as_tensor(stream, dtype=torch.float32).to(filters.device)
     step, w = encoder.step, encoder.window
     nw = _check_stream(stream, length, hop, w)
@@ -179,12 +183,11 @@ def rolling_signatures(stream, encoder, length: int, hop: int, *,
         wins = gids.as_strided((nw, f, s), ((hop // step), p, 1))
         for lo in range(0, nw, chunk):
             ids = wins[lo:lo + chunk].reshape(-1, f * s)
-            out[lo:lo + chunk] = encoder._hash_shingles(ids)
+            out[lo:lo + chunk] = encoder.hasher.hash_ids(ids, state)
         return out
     if type(encoder) is not SSHEncoder:
         chunk = min(chunk, DENSE_CHUNK)
     bits = _window_bits(stream, filters, step, length, hop, nw)
     for lo in range(0, nw, chunk):
-        ids = encoder._ids_from_bits(bits[lo:lo + chunk])
-        out[lo:lo + chunk] = encoder._hash_shingles(ids)
+        out[lo:lo + chunk] = encoder.encode_bits(bits[lo:lo + chunk])
     return out

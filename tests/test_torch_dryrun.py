@@ -227,7 +227,7 @@ def test_granite_decode_argument_bytes_equal_the_committed_report():
     read too where it is there).  The port reckons the state's bytes a
     device under the rules: the same number, with no difference to
     pin."""
-    rep = dryrun.run_cell("granite-3-2b", "decode_32k", "single",
+    rep = dryrun.run_cell("granite-3-2b", "decode_32k", False,
                           report_dir=None, verbose=False)
     assert rep["memory"]["argument_bytes"] == 2_049_274_400
     assert (rep["kind"], rep["n_chips"]) == ("decode", 256)
@@ -240,8 +240,8 @@ def test_granite_decode_argument_bytes_equal_the_committed_report():
 
 
 def test_report_keys_and_the_local_fit(tmp_path):
-    rep = dryrun.run_cell("granite-3-2b", "train_4k", "local", tmp_path,
-                          verbose=False)
+    rep = dryrun.run_cell("granite-3-2b", "train_4k", False, tmp_path,
+                          verbose=False, mesh="local")
     assert set(rep) >= {"arch", "shape", "mesh", "kind", "n_chips",
                         "compile_seconds", "model_flops", "memory",
                         "roofline"}
@@ -257,8 +257,8 @@ def test_report_keys_and_the_local_fit(tmp_path):
     written = json.loads((tmp_path / "granite-3-2b__train_4k__local.json")
                          .read_text())
     assert written == json.loads(json.dumps(rep))
-    big = dryrun.run_cell("dbrx-132b", "train_4k", "local", None,
-                          verbose=False)
+    big = dryrun.run_cell("dbrx-132b", "train_4k", False, None,
+                          verbose=False, mesh="local")
     assert not big["memory"]["fits_device"]
     assert big["memory"]["argument_bytes"] > 1.8e12
 
