@@ -137,6 +137,27 @@
    ``"srp"``.  Then its ``sketch_conv`` calls (every 64th, the last two)
    and every ``cs_tables`` call held to their plain versions, one of
    each timed (``pipeline_shapes``).
+5a''. The reference's public surface (phase ``surface``): the port's
+   three examples run on the card at their default sizes through their
+   ``run`` functions: ``examples/torch_index_and_search.py`` (20,000
+   ECG points, windows of 256: build, save, load, 3 queries with UCR and
+   brute force; the loaded database must equal the built one bit for
+   bit), ``torch_distributed_search.py`` (8 row shards on the card: the
+   fan-out's top-5 must equal the ``"distributed"`` facade's, the query
+   row its own top-1 there and in the single-device facade) and
+   ``torch_train_recsys_ssh.py`` (BST 5 steps, then SSH over 512 users'
+   trajectories: user 7 its own top-1).  Then, on the 2^20 index, the
+   call forms the surface walk closed: ``SSHIndex(fns=index.fns, ...)``
+   answers batch 0 as the encoder-built index bit for bit (its encoder
+   adopting the same tensors); ``dtw_evals`` equals the candidates that
+   reached DTW (batch 0 and 4 sequential searches); ``backend="auto"``
+   and ``"pallas"`` give the default's signatures and probe;
+   ``SearchConfig(max_batch=16, max_wait_ms=1.0)`` warns once, folds
+   into ``batch_policy`` and answers 8 queries as the main path;
+   ``Checkpointer.restore_latest(shardings=)`` puts 4,096 signature and
+   key rows on the card as ``restore_checkpoint`` does; ``backend="jnp"``
+   on CUDA tensors is refused by seven entry points.  Every kernel call
+   of the examples is then held to its plain version.
 5b. Distributed and fleet tiers (phases ``dist``, ``fleet``,
    ``fleet_faulty``, ``fleet_drain``, ``fleet_launcher``; before the
    engine, whose insert makes the index N + 1 rows, which no longer
@@ -179,7 +200,7 @@
    15) sets the capacity ``8 / s8`` qps and the SLO p99 <= max(100 ms,
    4 s8).  Open-loop Poisson traces from ``repro_torch.loadgen`` (from
    ``--seed``, length 512, topk 10) over batch 0's 64 queries, each
-   holding about 3 s of arrivals at its own load (at most 4096
+   holding about 2 s of arrivals at its own load (at most 4096
    requests): fixed 2 ms at 0.25, 0.5, 0.75 and 1.1 x capacity through
    ``sweep``, adaptive at 0.5 x over the same trace as fixed's.
    Logged: latency from arrival (p50, p95, p99), achieved against
@@ -407,8 +428,9 @@
    rebuilt and 2 queries answered on the CPU (signatures and ids equal).
    ``query_2048``: the database CUT from 20,971,520 to 4,194,304 windows
    of 2,048 (34.4 GB; the full one is 171.8 GB), 16 queries, each its
-   own top-1 at distance 0, its first 65,536 rows rebuilt and 2 queries
-   answered on the CPU as at 128.  One query's ``collision_count`` and DTW
+   own top-1 at distance 0, its first 16,384 rows (cut from 65,536, to
+   keep the script inside its time limit) rebuilt and 2 queries answered
+   on the CPU as at 128.  One query's ``collision_count`` and DTW
    calls held to their plain versions and timed at each query shape
    (the ``ssh_step_shapes`` of the kernel entries).
 13. Roofline: for each timed run (the 8 x 2,048 prefill, granite
@@ -464,11 +486,12 @@ STREAM_SHARDS, STREAM_BLOCKS = 2, 8
 # (benchmarks/loadgen_bench.py:45-54), a Poisson trace a load holding
 # about ENGINE_TRACE_S seconds of arrivals at that load (at most
 # ENGINE_MAX_REQUESTS requests), and the SLO p99 <= max(100 ms, 4 x one
-# full batch's service time)
+# full batch's service time); the traces were cut from 6 s to 3 s, then
+# to 2 s to keep the script inside its time limit
 ENGINE_MAX_BATCH, ENGINE_WAIT_MS = 8, 2.0
 ENGINE_LOAD_FRACS = (0.25, 0.5, 0.75, 1.1)
 ENGINE_ADAPTIVE_FRAC = 0.5
-ENGINE_TRACE_S, ENGINE_MAX_REQUESTS = 3.0, 4096
+ENGINE_TRACE_S, ENGINE_MAX_REQUESTS = 2.0, 4096
 ENGINE_S8_BATCHES = 15
 ENGINE_SLO_FLOOR_MS, ENGINE_SLO_MULT = 100.0, 4.0
 ENGINE_LAUNCHER_REQUESTS = 16
@@ -595,7 +618,7 @@ ATTN_MLA_BATCH, ATTN_MLA_S = 8, 512
 SSH_BUILD_BATCH, SSH_BUILD_STRIDE = 65_536, 256
 SSH_BUILD_STEPS = 5
 SSH_QUERIES = 16
-SSH_CPU_ROWS = {128: 65_536, 2048: 65_536}
+SSH_CPU_ROWS = {128: 65_536, 2048: 16_384}     # 2048: cut from 65,536
 SSH_CPU_BUILD_ROWS = 16_384
 SSH_DB_CHUNK = {128: 1 << 20, 2048: 1 << 16}
 # the query databases: query_128's at full size, query_2048's CUT from
@@ -2201,6 +2224,236 @@ def pipeline_paths(args, counted, ctx) -> dict:
     return rec.calls
 
 
+def load_example(name):
+    """The module ``examples/<name>.py`` of this checkout."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def surface_paths(args, counted, ctx) -> dict:
+    """Step 5a'', phase ``surface``: the port's three examples at their
+    default sizes and the reference's call forms that the surface walk
+    closed, on the 2^20 index (see the docstring).  Returns the calls of
+    the five SSH kernels that the examples made; every gate raises."""
+    import shutil
+    import tempfile
+    import warnings
+    from repro_torch.checkpoint import Checkpointer, restore_checkpoint
+    from repro_torch.core import rerank as rr
+    from repro_torch.core import search
+    from repro_torch.core.index import SSHIndex
+    from repro_torch.db import SearchConfig, TimeSeriesDB
+    from repro_torch.kernels import ops
+    from repro_torch.serving.batched import ssh_search_batch
+    from repro_torch.streaming import StreamIngestor
+
+    series, batches, cfg, db = (ctx["series"], ctx["batches"], ctx["cfg"],
+                                ctx["db"])
+    index, want = db.index, ctx["results"][0]
+    dev = index.device
+    qs = batches[0][1]
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="surface_", dir=root))
+    out, times = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        return r
+
+    def examples():
+        ias = load_example("torch_index_and_search")
+        out["index_and_search"] = timed("index_and_search", lambda: ias.run(
+            ias.parse_args(["--db-dir", str(tmp / "db")])))
+        dist = load_example("torch_distributed_search")
+        res = timed("distributed_search", lambda: dist.run(
+            dist.parse_args([])))
+        out["distributed_search"] = (res, dist.agree(res))
+        rec = load_example("torch_train_recsys_ssh")
+        out["train_recsys_ssh"] = timed("train_recsys_ssh", lambda: rec.run(
+            rec.parse_args([])))
+
+    def entry_points():
+        qd = torch.as_tensor(qs, device=dev)
+        # SSHIndex(fns=...): the encoder adopts the index's own tensors
+        idx_f = SSHIndex(fns=index.fns, signatures=index.signatures,
+                         keys=index.keys, series=index.series,
+                         env_radius=index.env_radius,
+                         env_upper=index.env_upper,
+                         env_lower=index.env_lower)
+        st_f, st = idx_f.enc.state(), index.encoder.state()
+        out["fns_adopts"] = all(st_f[k].data_ptr() == v.data_ptr()
+                                for k, v in st.items())
+        res_f = timed("fns search", lambda: ssh_search_batch(
+            qs, idx_f, config=db.config))
+        out["fns"] = [res_f.per_query(i) for i in range(res_f.n_queries)]
+        out["batch_dtw_evals"] = (res_f.dtw_evals,
+                                  int(res_f.n_candidates.sum()))
+        # dtw_evals of sequential searches; backend="auto" and "pallas"
+        local = cfg.replace(searcher="local")
+        seq = [search.ssh_search(qs[i], index, local) for i in range(4)]
+        out["dtw_evals"] = [(r.dtw_evals, r.n_candidates, r.stats.n_dtw)
+                            for r in seq]
+        sig = index.encoder.encode_batch(qd)
+        out["backend"] = {b: (torch.equal(index.encoder.encode_batch(
+            qd, backend=b), sig), torch.equal(search.hash_probe(
+                qd[0], index, cfg.top_c, backend=b),
+                search.hash_probe(qd[0], index, cfg.top_c)))
+            for b in ("auto", "pallas")}
+        # the flat batcher knobs of older releases
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            legacy = SearchConfig(topk=cfg.topk, top_c=cfg.top_c,
+                                  band=cfg.band,
+                                  multiprobe_offsets=cfg.multiprobe_offsets,
+                                  max_batch=16, max_wait_ms=1.0)
+        out["legacy_config"] = (
+            [str(x.category.__name__) for x in w], legacy.batch_policy,
+            TimeSeriesDB(index, legacy).search_batch(qs[:8]))
+        # restore_latest(shardings=): onto the card, as restore_checkpoint
+        tree = {"sigs": index.signatures[:4096].cpu().numpy(),
+                "keys": index.keys[:4096].cpu().numpy()}
+        ck = Checkpointer(tmp / "ck")
+        ck.save(1, tree)
+        ck.wait()
+        where = {"sigs": dev, "keys": dev}
+        step, got = ck.restore_latest(tree, shardings=where)
+        _, ref_tree = restore_checkpoint(tmp / "ck", tree, shardings=where)
+        out["restore"] = (step, all(
+            got[k].device == dev and torch.equal(got[k], ref_tree[k])
+            and torch.equal(got[k], t_[:4096])
+            for k, t_ in (("sigs", index.signatures), ("keys", index.keys))))
+        # backend="jnp" on CUDA tensors: refused before any work
+        cand = torch.arange(64, device=dev)
+        refused = {}
+        for name, call in (
+                ("encode_batch", lambda: index.encoder.encode_batch(
+                    qd, backend="jnp")),
+                ("hash_probe", lambda: search.hash_probe(
+                    qd[0], index, 8, backend="jnp")),
+                ("rerank", lambda: rr.rerank(qd[0], cand, index, cfg.topk,
+                                             cfg.band, backend="jnp")),
+                ("ucr_search", lambda: search.ucr_search(
+                    qd[0], index.series, cfg.topk, cfg.band, backend="jnp")),
+                ("SSHIndex.build", lambda: SSHIndex.build(
+                    series[:64], spec=db.spec, backend="jnp")),
+                ("StreamIngestor", lambda: StreamIngestor(
+                    index.encoder, backend="jnp")),
+                ("ssh_search_batch", lambda: ssh_search_batch(
+                    qs, index, config=cfg.replace(backend="jnp")))):
+            try:
+                call()
+                refused[name] = False
+            except ValueError:
+                refused[name] = True
+        out["refused"] = refused
+
+    def run():
+        with Recorder(ops, ("sketch_conv", "collision_count_batch",
+                            "collision_count", "dtw_rerank_pairs",
+                            "dtw_rerank")) as rec:
+            examples()
+        entry_points()
+        return rec
+
+    t0 = time.perf_counter()
+    try:
+        rec = counted("surface", ("sketch_conv", "collision_count_batch",
+                                  "collision_count", "dtw_wavefront_pairs",
+                                  "dtw_wavefront"), run)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    run_s = time.perf_counter() - t0
+    o = out
+
+    ias = o["index_and_search"]
+    if ias["loaded_equal"] is not True:
+        raise AssertionError("surface: torch_index_and_search's loaded "
+                             "database differs from the built one")
+    res, agreed = o["distributed_search"]
+    if not agreed:
+        raise AssertionError(f"surface: torch_distributed_search: fan-out "
+                             f"{res['fanout']} != facade {res['facade']} or "
+                             f"row {res['row']} not its own top-1 (single "
+                             f"device {res['single']})")
+    rec_res = o["train_recsys_ssh"]
+    if int(rec_res["ids"][0]) != rec_res["user"] or not np.all(
+            np.isfinite(rec_res["losses"])):
+        raise AssertionError(f"surface: torch_train_recsys_ssh: user "
+                             f"{rec_res['user']} top-k {rec_res['ids']}, "
+                             f"losses {rec_res['losses']}")
+    if not o["fns_adopts"]:
+        raise AssertionError("surface: SSHIndex(fns=) copied the state")
+    for i, (got, w_) in enumerate(zip(o["fns"], want)):
+        if not (np.array_equal(got.ids, w_.ids)
+                and np.array_equal(got.dists, w_.dists)):
+            raise AssertionError(f"surface: query {i}: the fns-built "
+                                 f"index's ids {got.ids} != the "
+                                 f"encoder-built {w_.ids}")
+    if o["batch_dtw_evals"][0] != o["batch_dtw_evals"][1] or any(
+            len(set(t_)) != 1 for t_ in o["dtw_evals"]):
+        raise AssertionError(f"surface: dtw_evals {o['batch_dtw_evals']}, "
+                             f"sequential {o['dtw_evals']}")
+    if not all(all(v) for v in o["backend"].values()):
+        raise AssertionError(f"surface: backend= changed the bits: "
+                             f"{o['backend']}")
+    kinds, policy, legacy_res = o["legacy_config"]
+    if kinds != ["DeprecationWarning"] or (policy.max_batch,
+                                           policy.max_wait_ms) != (16, 1.0):
+        raise AssertionError(f"surface: SearchConfig(max_batch=16, "
+                             f"max_wait_ms=1.0) warned {kinds}, policy "
+                             f"{policy}")
+    for i, (got, w_) in enumerate(zip(legacy_res, want)):
+        if not np.array_equal(got.ids, w_.ids):
+            raise AssertionError(f"surface: legacy config query {i}: ids "
+                                 f"{got.ids} != {w_.ids}")
+    if o["restore"] != (1, True):
+        raise AssertionError(f"surface: restore_latest(shardings=) "
+                             f"{o['restore']}")
+    if not all(o["refused"].values()):
+        raise AssertionError(f"surface: backend='jnp' on CUDA tensors was "
+                             f"not refused by "
+                             f"{[k for k, v in o['refused'].items() if not v]}")
+
+    q = ias["queries"]
+    log(f"surface: {run_s:.1f} s for the counted run; examples at their "
+        f"default sizes on the card: torch_index_and_search "
+        f"{times['index_and_search']:.2f} s ({ias['n_series']} series, "
+        f"loaded = built bit for bit; per query ssh s "
+        f"{[round(x['ssh_s'], 4) for x in q]}, ucr s "
+        f"{[round(x['ucr_s'], 4) for x in q]}, precision@10 "
+        f"{[x['precision'] for x in q]}, ndcg@10 "
+        f"{[round(x['ndcg'], 3) for x in q]}, pruned "
+        f"{[round(x['ssh_pruned'], 4) for x in q]} against UCR's "
+        f"{[round(x['ucr_pruned'], 4) for x in q]}, UCR exact "
+        f"{[x['ucr_exact'] for x in q]}), torch_distributed_search "
+        f"{times['distributed_search']:.2f} s (top-k {res['fanout'][0]} = "
+        f"the facade's; single device {res['single'][0]}), "
+        f"torch_train_recsys_ssh {times['train_recsys_ssh']:.2f} s (losses "
+        f"{[round(x, 4) for x in rec_res['losses']]}, user "
+        f"{rec_res['user']}'s top-5 {rec_res['ids']})")
+    log(f"surface: on the {len(db)}-row index, SSHIndex(fns=) answered batch "
+        f"0 as the encoder-built index bit for bit in "
+        f"{times['fns search']:.3f} s "
+        f"(its encoder adopts the index's tensors); dtw_evals batch "
+        f"{o['batch_dtw_evals'][0]}, sequential "
+        f"{[t_[0] for t_ in o['dtw_evals']]}; backend auto and pallas give "
+        f"the default's bits; SearchConfig(max_batch=16, max_wait_ms=1.0) "
+        f"warned once and answered 8 queries alike; restore_latest("
+        f"shardings=) put 4096 rows on the card as restore_checkpoint; "
+        f"backend='jnp' refused by {sorted(o['refused'])}")
+    del out, o
+    return rec.calls
+
+
 def ssh_paths(args, counted, phases) -> list:
     """Paths a-d and the six SSH kernels (steps 2-5 of the docstring);
     returns their kernel entries.  Every tensor of the SSH state is freed
@@ -2823,6 +3076,34 @@ def ssh_paths(args, counted, phases) -> list:
     log(f"pipeline: the phase with its checks and timings "
         f"{time.perf_counter() - t:.1f} s")
     del pipe_calls, sk_calls, held, cs_calls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 5a''. the reference's surface: the examples and the closed gaps -----
+    t = time.perf_counter()
+    surf_calls = surface_paths(args, counted, dict(
+        series=series, batches=batches, cfg=cfg, db=db, results=results))
+    # every kernel call of the three examples held to its plain version
+    for (x, filt_s, step_s), _ in surf_calls["sketch_conv"]:
+        sketch_check(x, filt_s, step_s, "surface")
+    for (qk_s, dbk_s), _ in surf_calls["collision_count_batch"]:
+        counts_check(qk_s, dbk_s)
+    for (q1, dbk1), _ in surf_calls["collision_count"]:
+        collision_check(q1, dbk1)
+    held_dtw = {k: dtw_calls_log(k, surf_calls[c]) for k, c in (
+        ("dtw_wavefront_pairs", "dtw_rerank_pairs"),
+        ("dtw_wavefront", "dtw_rerank"))}
+    by_name = {e["name"]: e for e in entries}
+    for name in ("sketch_conv", "collision_count_batch", "collision_count",
+                 "dtw_wavefront_pairs", "dtw_wavefront", "cs_tables"):
+        by_name[name].setdefault("launches_by_phase", {})["surface"] = \
+            phases["surface"][name]
+    log(f"surface: launches per kernel {phases['surface']}; the examples' "
+        f"calls held to the plain versions: "
+        f"{ {k: len(v) for k, v in surf_calls.items()} } (DTW schedules "
+        f"{held_dtw}); the phase with its checks "
+        f"{time.perf_counter() - t:.1f} s")
+    del surf_calls
     gc.collect()
     torch.cuda.empty_cache()
 

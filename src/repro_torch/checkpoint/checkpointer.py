@@ -263,10 +263,13 @@ class Checkpointer:
             err, self._error = self._error, None
             raise err
 
-    def restore_latest(self, tree_like: Tree
+    def restore_latest(self, tree_like: Tree,
+                       shardings: Optional[Tree] = None
                        ) -> Tuple[Optional[int], Tree]:
         """``(step, tree)`` of the newest checkpoint, or ``(None,
-        tree_like)`` when there is none."""
+        tree_like)`` when there is none; ``shardings`` places leaves as
+        :func:`restore_checkpoint` places them."""
         if latest_step(self.directory) is None:
             return None, tree_like
-        return restore_checkpoint(self.directory, tree_like)
+        return restore_checkpoint(self.directory, tree_like,
+                                  shardings=shardings)

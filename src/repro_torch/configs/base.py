@@ -200,7 +200,9 @@ def lm_shapes() -> Dict[str, ShapeCell]:
     }
 
 
-def recsys_shapes() -> Dict[str, ShapeCell]:
+def recsys_shapes(seq_len: int = 0) -> Dict[str, ShapeCell]:
+    """The recsys families' cells; ``seq_len`` is taken as the reference
+    takes it (``repro/configs/base.py:179``) and shapes none of them."""
     return {
         "train_batch": ShapeCell("train", {"batch": 65536}),
         "serve_p99": ShapeCell("serve", {"batch": 512}),

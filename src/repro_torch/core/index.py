@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,6 +103,15 @@ class SSHFunctions:
         return make_encoder(params.to_spec(), device).legacy_functions()
 
 
+def encoder_of(fns: SSHFunctions) -> Encoder:
+    """The ``"ssh"`` encoder that holds ``fns``' tensors (no copy), so
+    it hashes bit for bit as the encoder ``fns`` was drawn from."""
+    state = {"filters": fns.filters,
+             **{f"cws/{f}": getattr(fns.cws, f)
+                for f in minhash.CWSParams._fields}}
+    return encoder_class("ssh")(fns.params.to_spec()).load_state(state)
+
+
 def build_signatures(series, fns: SSHFunctions,
                      batch: int = 256) -> torch.Tensor:
     """(N, m) -> (N, K) int32 CWS signatures on the functions' device, in
@@ -111,12 +120,8 @@ def build_signatures(series, fns: SSHFunctions,
     rows are independent, so the chunk size does not change a bit; on
     the card a 256-row chunk is host-bound, and the facade's 4,096 rows
     build 2^20 series several times faster."""
-    state = {"filters": fns.filters,
-             **{f"cws/{f}": getattr(fns.cws, f)
-                for f in minhash.CWSParams._fields}}
-    enc = encoder_class("ssh")(fns.params.to_spec()).load_state(state)
     series = torch.as_tensor(series).to(fns.filters.device, torch.float32)
-    return enc.encode_chunked(series, batch=batch)
+    return encoder_of(fns).encode_chunked(series, batch=batch)
 
 
 def band_keys(signatures: torch.Tensor, params: SSHParams) -> torch.Tensor:
@@ -234,6 +239,20 @@ class HostBuckets:
             self._keys[t] = np.insert(self._keys[t], pos, k)
             self._ids[t] = np.insert(self._ids[t], pos, i)
 
+    @property
+    def tables(self) -> List[Dict[int, List[int]]]:
+        """The reference's form of the tables: for each of the L, a dict
+        from the uint32 key to its bucket's ids in insertion order (a
+        copy, made from the sorted arrays)."""
+        self.merge()
+        out = []
+        for keys, ids in zip(self._keys, self._ids):
+            table: Dict[int, List[int]] = {}
+            for k, i in zip(keys.view(np.uint32).tolist(), ids.tolist()):
+                table.setdefault(k, []).append(i)
+            out.append(table)
+        return out
+
     def probe(self, query_keys) -> np.ndarray:
         """Members of the query's L buckets (paper Alg. 2 lines 7-9) as
         int64 ids: most collisions first, ties in first-insertion
@@ -268,29 +287,53 @@ class SSHIndex:
     use; set it to None to empty it.  ``series`` is None for the inner
     index of a ``subseq.SubsequenceIndex``, whose rows are the windows
     of a stream it keeps itself.
+
+    The reference's historical construction ``SSHIndex(fns=...)`` (its
+    positional order too: the ``SSHFunctions`` first) gives an ``"ssh"``
+    index whose encoder holds the same tensors (``encoder_of``), so it
+    hashes bit for bit as an encoder-built one.  The reference makes
+    that encoder lazily, at the first ``.enc``
+    (``repro/core/index.py:225-312``); here it costs no copy and no
+    draw, so it is made at construction, where every path reads
+    ``encoder``.  ``fns`` reads back as the ``"ssh"`` encoder's view.
     """
-    encoder: Encoder
-    signatures: torch.Tensor           # (N, K) int32
-    keys: torch.Tensor                 # (N, L) int32 (uint32 bit pattern)
-    series: Optional[torch.Tensor]     # (N, m) float32, or None
+    encoder: Optional[Encoder] = None
+    signatures: Optional[torch.Tensor] = None   # (N, K) int32
+    keys: Optional[torch.Tensor] = None  # (N, L) int32 (uint32 bit pattern)
+    series: Optional[torch.Tensor] = None       # (N, m) float32, or None
     env_radius: Optional[int] = None
     env_upper: Optional[torch.Tensor] = None
     env_lower: Optional[torch.Tensor] = None
     build_backend: str = "cuda"
     host_buckets: Optional[HostBuckets] = None
     sig_cache: Optional[SignatureCache] = None
+    fns: dataclasses.InitVar[Optional[SSHFunctions]] = None
+
+    def __post_init__(self, fns):
+        if isinstance(self.encoder, SSHFunctions):
+            if fns is not None:
+                raise TypeError("SSHIndex() got SSHFunctions twice")
+            self.encoder, fns = None, self.encoder
+        if self.encoder is None:
+            if fns is None:
+                raise TypeError("SSHIndex() needs encoder= or the legacy "
+                                "fns=")
+            self.encoder = encoder_of(fns)
+        if self.signatures is None or self.keys is None:
+            raise TypeError("SSHIndex() needs signatures= and keys=")
 
     @classmethod
     def build(cls, series, params=None, *, spec: Optional[IndexSpec] = None,
               with_host_buckets: bool = False, batch: int = 4096,
-              envelope_band: Optional[int] = None,
+              envelope_band: Optional[int] = None, backend: str = "auto",
               device=None) -> "SSHIndex":
         """Paper Alg. 1: encode every series in chunks of ``batch`` rows
         and fold band keys; fill the host tables and the envelopes at
         ``envelope_band`` when asked.  The spec comes as ``spec=`` or in
         the ``params`` slot, where a legacy ``SSHParams`` lowers under a
         ``DeprecationWarning`` (``repro/core/index.py:260-301``).  Runs on
-        CUDA unless ``device="cpu"``."""
+        CUDA unless ``device="cpu"``; ``backend`` is checked against that
+        device (``"jnp"`` only on the CPU)."""
         if spec is not None:
             if params is not None:
                 raise TypeError("SSHIndex.build() takes spec= or a legacy "
@@ -298,6 +341,7 @@ class SSHIndex:
         else:
             spec = _spec_from_legacy(params, "SSHIndex.build")
         dev = ops.resolve_device(device)
+        ops.check_backend(backend, dev)
         series = torch.as_tensor(series, dtype=torch.float32).to(dev)
         enc = make_encoder(spec, dev, length=int(series.shape[1]))
         sigs = enc.encode_chunked(series, batch=batch)
@@ -309,13 +353,17 @@ class SSHIndex:
             idx.candidate_envelopes(envelope_band)
         return idx
 
-    @property
-    def fns(self) -> Optional[SSHFunctions]:
+    def _legacy_fns(self) -> Optional[SSHFunctions]:
         """The legacy ``SSHFunctions`` view of an ``"ssh"`` index's
         encoder state (no copy); None for any other encoder."""
         if self.encoder.spec.encoder != "ssh":
             return None
         return self.encoder.legacy_functions()
+
+    @property
+    def enc(self) -> Encoder:
+        """The index's encoder (the reference's accessor)."""
+        return self.encoder
 
     def build_host_buckets(self) -> HostBuckets:
         """Fill the host tables from the stored band keys."""
@@ -468,3 +516,10 @@ class SSHIndex:
                   self.env_lower, *self.encoder._require_state().values()]
         return sum(a.numel() * a.element_size()
                    for a in arrays if a is not None)
+
+
+# set after the class: ``fns`` is also the init-only argument of the
+# reference's constructor above, whose default the dataclass reads from
+# the class body
+SSHIndex.fns = property(SSHIndex._legacy_fns,
+                        doc=SSHIndex._legacy_fns.__doc__)

@@ -48,7 +48,8 @@ class SearchStats:
     "cpu" plain versions).  The fleet tier (``repro_torch.fleet``) adds
     its resilience counters: shard calls ``hedged`` and ``failovers``,
     and ``degraded`` when any shard answered from a non-primary
-    replica."""
+    replica.  ``n_windows`` counts the sliding windows a subsequence
+    search probed (``repro_torch.subseq``), 0 for whole-series search."""
     n_in: int = 0
     pruned_kim: int = 0
     pruned_keogh: int = 0
@@ -64,6 +65,7 @@ class SearchStats:
     hedged: int = 0                   # fleet: shard calls hedged
     failovers: int = 0                # fleet: shard calls failed over
     degraded: bool = False            # fleet: a non-primary answered
+    n_windows: int = 0                # subseq: windows; 0 whole-series
 
     @property
     def lb_pruned(self) -> int:
@@ -87,10 +89,13 @@ class SearchStats:
 
 
 def dtw_candidates(query: torch.Tensor, candidates: torch.Tensor,
-                   band: Optional[int], threshold=None) -> torch.Tensor:
+                   band: Optional[int], backend: str = "auto",
+                   threshold=None) -> torch.Tensor:
     """One query against a candidate block in one dispatch, (m,) x (C, m)
     -> (C,); ``threshold`` (scalar or (C,)) is the early-abandon
-    contract."""
+    contract.  ``backend`` is checked against the candidates' device,
+    which picks the route (``ops.check_backend``)."""
+    ops.check_backend(backend, candidates.device)
     if candidates.shape[0] == 0:
         return torch.zeros(0, dtype=torch.float32, device=candidates.device)
     return ops.dtw_rerank(query.contiguous(), candidates.contiguous(), band,
@@ -187,16 +192,18 @@ def _gathered_env(index: SSHIndex, ids: torch.Tensor, band: int):
 
 def rerank(query: torch.Tensor, cand_ids: torch.Tensor, index: SSHIndex,
            topk: int, band: Optional[int], *, use_lb_cascade: bool = True,
-           seed_size: Optional[int] = None, early_abandon: bool = True,
-           timer: StageTimer = DISABLED):
+           backend: str = "auto", seed_size: Optional[int] = None,
+           early_abandon: bool = True, timer: StageTimer = DISABLED):
     """Candidate ids (C,) int64 -> (ids (k,) int64, dists (k,) f32, stats)
     as host arrays, best first; stage 2+3 of Alg. 2 for one query.
 
     The threshold is the topk-th best seed DTW, always a valid upper
     bound on the final k-th distance, so no pruned or abandoned
-    candidate can belong to the answer.
+    candidate can belong to the answer.  ``backend`` is checked against
+    the index's device, which picks the route.
     """
     dev = index.device
+    ops.check_backend(backend, dev)
     cands = index.series[cand_ids]
     n_hash = int(cand_ids.shape[0])
     stats = SearchStats(n_in=n_hash, backend=dev.type)
@@ -268,16 +275,19 @@ def dtw_pairs(q_rows: torch.Tensor, c_rows: torch.Tensor,
 def rerank_batch(queries: torch.Tensor, ids: torch.Tensor,
                  valid: torch.Tensor, index: SSHIndex, topk: int,
                  band: Optional[int], *, use_lb_cascade: bool = True,
-                 seed_size: Optional[int] = None, early_abandon: bool = True,
-                 timer: StageTimer = DISABLED):
+                 backend: str = "auto", seed_size: Optional[int] = None,
+                 early_abandon: bool = True, timer: StageTimer = DISABLED):
     """Batched stage 2+3 over per-query candidate blocks.
 
     queries (B, m); ids (B, C) int64 candidate ids; valid (B, C) bool, all
     on the index's device.  Returns host arrays (out_ids (B, k) int64,
     out_d (B, k) f32, n_final (B,) int64), n_union and the stats; filler
     slots (fewer survivors than topk) carry id -1 / dist BIG.
+    ``backend`` is checked against the index's device, which picks the
+    route.
     """
     dev = index.device
+    ops.check_backend(backend, dev)
     b, c = ids.shape
     n_hash = valid.sum(1)                                      # (B,)
     stats = SearchStats(backend=dev.type)

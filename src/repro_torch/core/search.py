@@ -44,6 +44,12 @@ class SearchResult:
     wall_seconds: float
     stats: Optional[SearchStats] = None
 
+    @property
+    def dtw_evals(self) -> int:
+        """DTW evaluations, the candidates that reached the DTW stage
+        (``repro/core/search.py:39-41``)."""
+        return self.n_candidates
+
 
 def _as_tensor(x, device) -> torch.Tensor:
     """float32 tensor on ``device``; a tensor keeps its own device when
@@ -57,7 +63,7 @@ def _as_tensor(x, device) -> torch.Tensor:
 def hash_probe(query: torch.Tensor, index: SSHIndex, top_c: int,
                rank_by_signature: bool = True, multiprobe_offsets: int = 1,
                use_host_buckets: bool = False, topk: int = 10,
-               timer: StageTimer = DISABLED,
+               backend: str = "auto", timer: StageTimer = DISABLED,
                probe_stats: Optional[dict] = None,
                content: Optional[bytes] = None) -> torch.Tensor:
     """Stage 1 of Alg. 2 for one (m,) query: candidate ids (int64, on
@@ -71,7 +77,10 @@ def hash_probe(query: torch.Tensor, index: SSHIndex, top_c: int,
     Encodes go through the index's signature LRU, keyed by ``content``,
     the query's host bytes (``sigcache.row_bytes``; read back from
     ``query`` when None); ``probe_stats`` receives
-    ``{"sig_cache_hit": 0 or 1}``."""
+    ``{"sig_cache_hit": 0 or 1}``.  ``backend`` is checked against the
+    index's device (``ops.check_backend``); the device picks the route,
+    and the counts are integers, so the ids are the same either way."""
+    ops.check_backend(backend, index.device)
     n = int(index.keys.shape[0])
     c = min(top_c, n)
     if use_host_buckets and index.host_buckets is not None:
@@ -160,16 +169,19 @@ def _topk_ascending(d: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def ucr_search(query, series, topk: int = 10, band: Optional[int] = None,
-               seed_size: int = 64, *, device=None) -> SearchResult:
+               seed_size: int = 64, backend: str = "auto", *,
+               device=None) -> SearchResult:
     """Vectorised UCR suite: exact top-k through an LB cascade over the
     whole database against the k-th best DTW of the first ``seed_size``
     series, then exact DTW of every survivor
     (``repro/core/search.py:175-209``).  A candidate is dropped only when
     a lower bound exceeds a valid upper bound on the k-th best distance,
     so the answer is exact.  ``series`` (N, m) runs where it lies when it
-    is a tensor, else on CUDA unless ``device="cpu"``."""
+    is a tensor, else on CUDA unless ``device="cpu"``; ``backend`` is
+    checked against that device (``"jnp"`` only on the CPU)."""
     t0 = time.perf_counter()
     series = _as_tensor(series, device)
+    ops.check_backend(backend, series.device)
     query = torch.as_tensor(query, dtype=torch.float32).to(series.device)
     n = int(series.shape[0])
     seed = rr.dtw_candidates(query, series[:seed_size], band)

@@ -148,7 +148,9 @@ class SearchConfig:
     max(2, R); R <= W), ``hedge_policy`` ("off", "fixed" after
     ``hedge_ms``, or "adaptive": after max(``hedge_ms``, threshold x the
     fleet-median shard time)) and ``hedge_ms``.  ``stage_timings``
-    records per-stage seconds."""
+    records per-stage seconds.  The flat ``max_batch``/``max_wait_ms``
+    of older releases are taken for one release: they warn
+    (``DeprecationWarning``) and fold into ``batch_policy``."""
 
     topk: int = 10
     top_c: int = 256
@@ -170,6 +172,27 @@ class SearchConfig:
     subseq_window: Optional[int] = None
     subseq_hop: int = 1
     exclusion_zone: Optional[int] = None
+    # The one-release shims of the flat batcher knobs
+    # (``repro/db/config.py:288-313``): init-only, they warn and fold into
+    # ``batch_policy``, and are not readable back (``dataclasses.replace``
+    # re-feeds an InitVar from ``getattr``, so a read alias would
+    # overwrite a policy passed explicitly).
+    max_batch: dataclasses.InitVar[Optional[int]] = None
+    max_wait_ms: dataclasses.InitVar[Optional[float]] = None
+
+    def __post_init__(self, max_batch, max_wait_ms):
+        flat = {k: v for k, v in (("max_batch", max_batch),
+                                  ("max_wait_ms", max_wait_ms))
+                if v is not None}
+        if not flat:
+            return
+        warnings.warn(
+            "SearchConfig(max_batch=..., max_wait_ms=...) flat batcher "
+            "kwargs are deprecated; pass "
+            "batch_policy=repro_torch.db.BatchPolicy(...) instead",
+            DeprecationWarning, stacklevel=3)
+        object.__setattr__(self, "batch_policy", dataclasses.replace(
+            self.batch_policy, **flat))
 
     def validate(self) -> "SearchConfig":
         if self.topk < 1:

@@ -24,11 +24,13 @@ fleet's ``FleetWorker.query_shard`` calls it too.
 """
 from __future__ import annotations
 
+import inspect
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.index import SSHParams
+from repro_torch.core import minhash
+from repro_torch.core.index import SSHFunctions, SSHParams, encoder_of
 from repro_torch.core.search import top_c_by_count
 from repro_torch.db.config import SearchConfig, config_from_legacy_kwargs
 from repro_torch.encoders.registry import encoder_class
@@ -90,10 +92,43 @@ def encoder_on(encoder, device: torch.device):
         {k: v.to(device) for k, v in encoder._require_state().items()})
 
 
-def build_sharded(series: torch.Tensor, encoder, mesh: Mesh
-                  ) -> List[torch.Tensor]:
+_FORM = inspect.Signature([inspect.Parameter(
+    n, inspect.Parameter.POSITIONAL_OR_KEYWORD) for n in ("encoder", "mesh")])
+_LEGACY_FORM = inspect.Signature([inspect.Parameter(
+    n, inspect.Parameter.POSITIONAL_OR_KEYWORD)
+    for n in ("filters", "cws", "params", "mesh")])
+
+
+def build_sharded(series: torch.Tensor, *args, encoder=None,
+                  mesh: Optional[Mesh] = None, filters=None, cws=None,
+                  params: Optional[SSHParams] = None) -> List[torch.Tensor]:
     """series (N, m) -> each row shard's (N / shards, K) signatures on its
-    device, encoded there (no communication)."""
+    device, encoded there (no communication).
+
+    Two call forms: ``build_sharded(series, encoder, mesh)``, and the
+    reference's ``build_sharded(series, filters, cws, params, mesh)``
+    (``repro/distributed/dist_index.py:52-62``), whose filter bank,
+    ``cws`` (a dict of the ``CWSParams`` fields, or a ``CWSParams``) and
+    ``SSHParams`` make the ``"ssh"`` encoder that ``SSHFunctions`` holds
+    (``core.index.encoder_of``, no copy), so both give the same
+    signatures.  Either takes its arguments by position or by name.
+    """
+    given = {k: v for k, v in dict(encoder=encoder, mesh=mesh,
+                                   filters=filters, cws=cws,
+                                   params=params).items() if v is not None}
+    legacy = len(args) > 2 or bool({"filters", "cws", "params"} & set(given))
+    form = _LEGACY_FORM if legacy else _FORM
+    bound = form.bind(*args, **given).arguments
+    if legacy:
+        cws = bound["cws"]
+        if not isinstance(cws, minhash.CWSParams):
+            cws = minhash.CWSParams(**cws)
+        encoder = encoder_of(SSHFunctions(params=bound["params"],
+                                          filters=bound["filters"],
+                                          cws=cws))
+    else:
+        encoder = bound["encoder"]
+    mesh = bound["mesh"]
     shards = index_shardings(mesh, int(series.shape[0]))
     return [encoder_on(encoder, dev).encode_chunked(rows)
             for (dev, _, _), rows in zip(shards, place_rows(series, shards))]
@@ -170,14 +205,14 @@ def _make_query_core(encode: Callable[[torch.Tensor], torch.Tensor],
     return query
 
 
-def make_query_fn(spec, mesh: Mesh, *, length: Optional[int] = None,
+def make_query_fn(params, mesh: Mesh, *, length: Optional[int] = None,
                   config: Optional[SearchConfig] = None,
                   top_c: Optional[int] = None, band: Optional[int] = None,
                   topk: Optional[int] = None,
                   backend: Optional[str] = None):
     """``query(series_shards, sig_shards, filters, cws, q) -> (ids,
-    dists)`` for the ``"ssh"`` encoder of ``spec`` (an ``IndexSpec``, or
-    the reference's ``SSHParams``, lowered by ``to_spec``), whose filter
+    dists)`` for the ``"ssh"`` encoder of ``params`` (the reference's
+    ``SSHParams``, lowered by ``to_spec``, or an ``IndexSpec``), whose filter
     bank and CWS fields stay call-time operands (the reference's
     historical signature; ``cws`` maps the ``CWSParams`` field names to
     tensors).  ``length`` is accepted for the reference's signature; the
@@ -186,8 +221,7 @@ def make_query_fn(spec, mesh: Mesh, *, length: Optional[int] = None,
     of ``config`` (``repro/distributed/dist_index.py:117-147``).  The
     schedule is :func:`_make_query_core`.
     """
-    if isinstance(spec, SSHParams):
-        spec = spec.to_spec()
+    spec = params.to_spec() if isinstance(params, SSHParams) else params
     loose = dict(top_c=top_c, band=band, topk=topk, backend=backend)
     if config is None:
         config = config_from_legacy_kwargs(

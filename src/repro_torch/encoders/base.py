@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import minhash
+from repro_torch.kernels import ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,30 +261,45 @@ class Encoder:
         return next(iter(self._require_state().values())).device
 
     # -- encoding ---------------------------------------------------------
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
+    # Every encode takes the reference's ``backend`` knob, checked against
+    # the device of the state (``ops.check_backend``): that device picks
+    # the route, the kernels on CUDA and their plain versions on the CPU,
+    # and ``"jnp"`` is refused off the CPU.  The public methods check it
+    # once and call ``encode_batch`` without it, so an out-of-tree
+    # ``encode_batch(xs)`` serves unchanged.
+    def check_backend(self, backend: str) -> None:
+        """Refuse ``backend`` for this encoder's device."""
+        ops.check_backend(backend, self.device)
+
+    def encode(self, x: torch.Tensor, *, backend: str = "auto"
+               ) -> torch.Tensor:
         """One series (m,) -> signature (K,) int32: row 0 of
         :meth:`encode_batch`."""
+        self.check_backend(backend)
         return self.encode_batch(x[None, :])[0]
 
-    def encode_batch(self, xs: torch.Tensor) -> torch.Tensor:
+    def encode_batch(self, xs: torch.Tensor, *, backend: str = "auto"
+                     ) -> torch.Tensor:
         """Series block (B, m) -> (B, K) int32."""
         raise NotImplementedError
 
-    def encode_chunked(self, series: torch.Tensor, batch: int = 4096
-                       ) -> torch.Tensor:
+    def encode_chunked(self, series: torch.Tensor, batch: int = 4096, *,
+                       backend: str = "auto") -> torch.Tensor:
         """Database build: (N, m) -> (N, K) int32 in chunks of ``batch``
         rows, bounding each chunk's working set."""
+        self.check_backend(backend)
         return torch.cat([self.encode_batch(series[lo:lo + batch])
                           for lo in range(0, int(series.shape[0]), batch)])
 
-    def encode_multiprobe(self, q: torch.Tensor, offsets: int
-                          ) -> torch.Tensor:
+    def encode_multiprobe(self, q: torch.Tensor, offsets: int, *,
+                          backend: str = "auto") -> torch.Tensor:
         """(m,) -> (O, K): row o encodes q[o:]; encoders without
         shift-alignment classes raise ``ValueError``."""
+        self.check_backend(backend)
         return self.encode_batch_multiprobe(q[None, :], offsets)[0]
 
-    def encode_batch_multiprobe(self, qs: torch.Tensor, offsets: int
-                                ) -> torch.Tensor:
+    def encode_batch_multiprobe(self, qs: torch.Tensor, offsets: int, *,
+                                backend: str = "auto") -> torch.Tensor:
         """(B, m) -> (B, O, K); encoders without shift-alignment classes
         raise."""
         raise ValueError(

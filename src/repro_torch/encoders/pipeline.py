@@ -368,18 +368,21 @@ class PipelineEncoder(Encoder):
             out.append(self.hasher.hash(counts, st))
         return torch.cat(out)
 
-    def encode_batch(self, xs: torch.Tensor) -> torch.Tensor:
+    def encode_batch(self, xs: torch.Tensor, *, backend: str = "auto"
+                     ) -> torch.Tensor:
         """Series block (B, m) -> (B, K) int32."""
+        self.check_backend(backend)
         return self.encode_bits(
             self.sketcher.sketch(xs, self._require_state()))
 
-    def encode_batch_multiprobe(self, qs: torch.Tensor, offsets: int
-                                ) -> torch.Tensor:
+    def encode_batch_multiprobe(self, qs: torch.Tensor, offsets: int, *,
+                                backend: str = "auto") -> torch.Tensor:
         """(B, m) -> (B, O, K); row [b, o] equals ``encode_batch`` of
         qs[b, o:] (``pipeline.py:268-286``): every offset sketches the
         fixed-length shifted slice of the zero-padded query, and its
         weighted set keeps only the shingles of the shorter series.  All
         B·O rows go through one sketch launch."""
+        self.check_backend(backend)
         b, m = qs.shape
         self._check_offsets(m, offsets)
         qpad = F.pad(qs, (0, offsets - 1))

@@ -50,8 +50,13 @@ def encoder_class(name: str) -> Type:
                          f"{available_encoders()}") from None
 
 
-def make_encoder(spec, device=None, *, length: Optional[int] = None):
-    """The materialised encoder named by ``spec.encoder`` on ``device``
+def make_encoder(spec, device=None, *, length: Optional[int] = None,
+                 materialize: bool = True):
+    """The encoder named by ``spec.encoder``, materialised on ``device``
     (CUDA unless the caller asks for the CPU); ``length`` is the series
-    length, read by encoders whose state is sized to it."""
-    return encoder_class(spec.encoder)(spec).materialize(device, length)
+    length, read by encoders whose state is sized to it.  With
+    ``materialize=False`` it holds no state yet: ``load_state`` or
+    ``load_arrays`` gives it one (``repro/encoders/registry.py:56-65``),
+    and ``device`` is not read."""
+    enc = encoder_class(spec.encoder)(spec)
+    return enc.materialize(device, length) if materialize else enc

@@ -66,9 +66,21 @@ class SignatureCache:
         self.misses = 0
 
     @staticmethod
-    def key(content: bytes, spec: Hashable, backend: str,
+    def key(series, spec: Hashable, backend: str,
             variant: str = "sig") -> Tuple:
-        """(row bytes, IndexSpec, build route, variant)."""
+        """(content, IndexSpec, build route, variant).  ``series`` is a
+        query, as the reference takes it (``sigcache.py:60-70``): an (m,)
+        array, list or tensor keys by its float32 bytes, so it shares its
+        entry with the row bytes that the port's own callers pass
+        (:func:`row_bytes`), and bytes pass as they are.  Any other shape
+        keys by its shape and bytes."""
+        if isinstance(series, bytes):
+            return (series, spec, backend, variant)
+        if isinstance(series, torch.Tensor):
+            series = series.detach().cpu().numpy()
+        arr = np.ascontiguousarray(np.asarray(series, np.float32))
+        content = (arr.tobytes() if arr.ndim == 1
+                   else str(arr.shape).encode() + arr.tobytes())
         return (content, spec, backend, variant)
 
     def get(self, key: Tuple) -> Optional[torch.Tensor]:

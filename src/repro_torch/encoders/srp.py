@@ -64,8 +64,10 @@ class SRPEncoder(Encoder):
     def _adopt(self) -> None:
         self.length = int(self._state["planes"].shape[0])
 
-    def encode_batch(self, xs: torch.Tensor) -> torch.Tensor:
+    def encode_batch(self, xs: torch.Tensor, *, backend: str = "auto"
+                     ) -> torch.Tensor:
         """(B, m) -> (B, K) int32 sign bits."""
+        self.check_backend(backend)
         return self.pure_encode_fn()(xs, self._require_state())
 
     def pure_encode_fn(self):

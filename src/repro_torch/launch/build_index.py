@@ -11,7 +11,9 @@ finished batch.  The index is published as a database directory that
 ``TimeSeriesDB.load(out)`` (of either package) and ``serve --db-dir
 out`` read without paying the build again; the scratch checkpoint is
 then removed.  ``--encoder`` names any registered encoder (default: the
-arch's ``"ssh"`` spec).  Runs on CUDA unless ``--device cpu``.
+arch's ``"ssh"`` spec).  Runs on CUDA unless ``--device cpu``;
+``--backend`` is the reference's knob, checked against the device
+(``jnp`` only with ``--device cpu``).
 """
 from __future__ import annotations
 
@@ -46,6 +48,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="registered encoder name (default: the arch's "
                          "'ssh' spec; 'srp'/'ssh-multires' take their "
                          "defaults)")
+    ap.add_argument("--backend", choices=list(ops.BACKENDS), default="auto",
+                    help="the reference's kernel knob: 'auto' and "
+                         "'pallas' run the kernels on CUDA and their plain "
+                         "versions on the CPU; 'jnp' (the plain versions) "
+                         "only with --device cpu")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -53,6 +60,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def build(args: argparse.Namespace) -> TimeSeriesDB:
     """Hash, checkpointing every batch, then publish ``args.out``."""
     dev = ops.resolve_device(args.device)
+    ops.check_backend(args.backend, dev)
     stream = _GENERATORS[args.dataset](args.points, seed=3)
     series = extract_subsequences(stream, args.length, stride=1, znorm=True)
     n = series.shape[0]

@@ -41,6 +41,14 @@ class Cost:
     coll_counts: Dict[str, float] = dataclasses.field(
         default_factory=lambda: {k: 0.0 for k in COLLECTIVES})
 
+    def add(self, other: "Cost", mult: float = 1.0) -> None:
+        """Add ``mult`` times ``other`` in place (a window's costs summed
+        over windows, or scaled by a repeat count)."""
+        self.dot_flops += other.dot_flops * mult
+        for k in COLLECTIVES:
+            self.coll_bytes[k] += other.coll_bytes[k] * mult
+            self.coll_counts[k] += other.coll_counts[k] * mult
+
     @property
     def total_coll_bytes(self) -> float:
         return sum(self.coll_bytes.values())

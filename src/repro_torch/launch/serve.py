@@ -96,9 +96,10 @@ def check_prefill_against_decode(res: ServeResult, rel_tol: float) -> dict:
     return out
 
 
-def serve_lm(cfg, params=None, prompts=None, *, batch: int = 2,
-             prompt_len: int = 16, gen_len: int = 8, seed: int = 0,
-             device=None) -> ServeResult:
+def serve_lm(cfg=None, params=None, prompts=None, *, arch=None,
+             requests: Optional[int] = None, smoke: Optional[bool] = None,
+             batch: int = 2, prompt_len: int = 16, gen_len: int = 8,
+             seed: int = 0, device=None) -> ServeResult:
     """The reference's ``serve_lm`` loop (``launch/serve.py:147-170``):
     step ``decode_step`` over the prompts, then ``gen_len`` greedy steps
     (argmax, first index on ties); then one ``prefill`` of the prompts.
@@ -109,11 +110,21 @@ def serve_lm(cfg, params=None, prompts=None, *, batch: int = 2,
     ``np.random.default_rng(seed).integers(0, vocab, (batch, prompt_len))``.
 
     The reference's call form ``serve_lm(arch, requests, smoke)`` is
-    taken too: an ``ArchDef`` first, then the request count, which the
-    reference does not read either, and ``smoke``, which picks the
-    arch's smoke config over its full one; the weights and prompts are
-    then the defaults, as the reference's are fixed.
+    taken too, by position or by those names: an ``ArchDef`` first, then
+    the request count, which the reference does not read either, and
+    ``smoke``, which picks the arch's smoke config over its full one;
+    the weights and prompts are then the defaults, as the reference's
+    are fixed.
     """
+    if arch is not None or requests is not None or smoke is not None:
+        if cfg is not None or params is not None or prompts is not None:
+            raise TypeError("serve_lm() takes cfg, params and prompts or "
+                            "the reference's arch, requests and smoke, "
+                            "not both")
+        cfg, params, prompts = arch, requests, smoke
+    if cfg is None:
+        raise TypeError("serve_lm() needs an LMConfig (cfg) or an ArchDef "
+                        "(arch)")
     if isinstance(cfg, ArchDef):
         if not isinstance(params, int) or not isinstance(prompts, bool):
             raise TypeError("serve_lm(arch, requests, smoke) takes an int "

@@ -240,11 +240,13 @@ class StreamingSSHEncoder(PipelineEncoder):
         return torch.zeros(self.sketch_shape, dtype=torch.float32,
                            device=self.device)
 
-    def sketch_batch(self, xs: torch.Tensor, batch: int = 4096
-                     ) -> torch.Tensor:
+    def sketch_batch(self, xs: torch.Tensor, batch: int = 4096, *,
+                     backend: str = "auto") -> torch.Tensor:
         """(B, m) series -> their hierarchical sketch contribution, in
         chunks of ``batch`` rows.  Additive and exact, so any partition of
-        a stream sums to the sketch of the whole."""
+        a stream sums to the sketch of the whole.  ``backend`` as for the
+        encodes (``Encoder.check_backend``)."""
+        self.check_backend(backend)
         st = self._require_state()
         agg = self.empty_sketch()
         for lo in range(0, int(xs.shape[0]), batch):

@@ -53,13 +53,17 @@ class StreamIngestor:
     """Shard-local continuous ingest for a materialised encoder.
 
     Blocks encode on the encoder's device, so the appended signatures are
-    those a batch build on that device would have given.
+    those a batch build on that device would have given.  ``backend`` is
+    the reference's knob, checked against that device
+    (``Encoder.check_backend``: ``"jnp"`` only on the CPU).
     """
 
-    def __init__(self, encoder, *, shard: str = "shard0"):
-        encoder._require_state()
+    def __init__(self, encoder, *, shard: str = "shard0",
+                 backend: str = "auto"):
+        encoder.check_backend(backend)
         self.encoder = encoder
         self.shard = str(shard)
+        self.backend = backend
         self._segments: List[_Segment] = []
         self._order = 0
         self._auto_seq = 0
@@ -149,7 +153,8 @@ class StreamIngestor:
                 f"cannot merge ingestors over different specs: "
                 f"{self.encoder.spec!r} vs {other.encoder.spec!r}")
         out = StreamIngestor(self.encoder,
-                             shard=f"{self.shard}+{other.shard}")
+                             shard=f"{self.shard}+{other.shard}",
+                             backend=self.backend)
         out._segments = list(self._segments) + list(other._segments)
         out._auto_seq = max(self._auto_seq, other._auto_seq)
         if self._sketch is not None and other._sketch is not None:

@@ -113,14 +113,16 @@ class SubsequenceIndex:
     # -- construction ------------------------------------------------------
     @classmethod
     def build(cls, stream, spec: IndexSpec, *, length: int, hop: int = 1,
-              device=None) -> "SubsequenceIndex":
+              backend: str = "auto", device=None) -> "SubsequenceIndex":
         """Index every length-``length`` window (starts 0, h, 2h, …) of
         ``stream`` through one rolling encode, on CUDA unless
-        ``device="cpu"``.  ``spec`` is an ``IndexSpec``; an ``SSHParams``
-        lowers by ``to_spec()`` (``repro/subseq/index.py:100-105``)."""
+        ``device="cpu"``; ``backend`` is checked against that device.
+        ``spec`` is an ``IndexSpec``; an ``SSHParams`` lowers by
+        ``to_spec()`` (``repro/subseq/index.py:100-105``)."""
         if isinstance(spec, SSHParams):
             spec = spec.to_spec()
         dev = ops.resolve_device(device)
+        ops.check_backend(backend, dev)
         stream = _stream_tensor(stream, dev)
         if num_windows(int(stream.shape[0]), length, hop) == 0:
             raise ValueError(

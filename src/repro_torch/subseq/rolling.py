@@ -147,6 +147,7 @@ def _check_encoder(encoder) -> None:
 
 
 def rolling_signatures(stream, encoder, length: int, hop: int, *,
+                       backend: str = "auto",
                        chunk: int = SPARSE_CHUNK) -> torch.Tensor:
     """Signatures of every sliding window of ``stream``, (num_windows, K)
     int32 on the encoder's device, equal to ``encoder.encode_batch`` of
@@ -157,9 +158,12 @@ def rolling_signatures(stream, encoder, length: int, hop: int, *,
     other encoders (``"ssh-multires"``, ``"ssh-cs"``), each chunk of
     windows takes its bits from the shared sketch grid and hashes them
     through the encoder's own shingle and hash stages
-    (``PipelineEncoder.encode_bits``).
+    (``PipelineEncoder.encode_bits``).  ``backend`` is checked against
+    the encoder's device (``Encoder.check_backend``), which picks the
+    route.
     """
     _check_encoder(encoder)
+    encoder.check_backend(backend)
     state = encoder.state()
     filters = state["filters"]
     stream = torch.as_tensor(stream, dtype=torch.float32).to(filters.device)

@@ -2,8 +2,9 @@
 
 * importing every module of ``repro_torch`` in a fresh interpreter where
   ``import jax`` fails must work;
-* no ``import`` under ``src/repro_torch/`` or in ``chip_smoke.py`` names
-  ``jax`` or the ``repro`` package (AST scan);
+* no ``import`` under ``src/repro_torch/``, in ``chip_smoke.py`` or in
+  ``examples/torch_*.py`` names ``jax`` or the ``repro`` package (AST
+  scan);
 * an entry point called without ``device="cpu"`` on a host without CUDA
   raises instead of carrying on on the CPU.
 """
@@ -104,9 +105,11 @@ def _imported_roots(path: Path):
 
 
 def test_no_jax_or_reference_imports():
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert QUICKSTART in examples and len(examples) == 4
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "attention_yardstick.py",
-                                          QUICKSTART]
+                                          *examples]
     assert len(files) > 20
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f) if root in ("jax", "repro")}
