@@ -36,6 +36,7 @@ from repro_torch.core import lower_bounds as lb
 from repro_torch.core.dtw import BIG, PAIRWISE_CHUNK
 from repro_torch.core.index import SSHIndex
 from repro_torch.kernels import ops
+from repro_torch.kernels.dtw_wavefront import band_cells
 
 
 @dataclasses.dataclass
@@ -49,7 +50,12 @@ class SearchStats:
     its resilience counters: shard calls ``hedged`` and ``failovers``,
     and ``degraded`` when any shard answered from a non-primary
     replica.  ``n_windows`` counts the sliding windows a subsequence
-    search probed (``repro_torch.subseq``), 0 for whole-series search."""
+    search probed (``repro_torch.subseq``), 0 for whole-series search.
+    With stage timings on (``bench.timing.StageTimer``), ``stage_seconds``
+    has the stages and ``span_seconds`` every span; ``dtw_cells`` counts
+    the DP cells the batched searcher's pair DTW computed before each
+    pair ended or was abandoned, and ``dtw_band_cells`` the band's cells
+    of the same pairs (0 and 0 with timings off)."""
     n_in: int = 0
     pruned_kim: int = 0
     pruned_keogh: int = 0
@@ -60,12 +66,15 @@ class SearchStats:
     dtw_abandoned: int = 0
     backend: str = "cuda"
     stage_seconds: Optional[Dict[str, float]] = None
+    span_seconds: Optional[Dict[str, Dict[str, Optional[float]]]] = None
     index_bytes: Optional[int] = None
     sig_cache_hit: int = 0            # encodes served by the LRU
     hedged: int = 0                   # fleet: shard calls hedged
     failovers: int = 0                # fleet: shard calls failed over
     degraded: bool = False            # fleet: a non-primary answered
     n_windows: int = 0                # subseq: windows; 0 whole-series
+    dtw_cells: int = 0                # DP cells the pair DTW computed
+    dtw_band_cells: int = 0           # band cells of the same pairs
 
     @property
     def lb_pruned(self) -> int:
@@ -211,7 +220,7 @@ def rerank(query: torch.Tensor, cand_ids: torch.Tensor, index: SSHIndex,
     counters = None
 
     if use_lb_cascade and band is not None and n_hash > topk:
-        with timer.stage("lb") as sync:
+        with timer.stage("lb"):
             # the seed is clamped to >= topk: a smaller one would make the
             # threshold bound a better-than-kth distance
             s = min(max(seed_size or 0, topk), n_hash)
@@ -223,8 +232,7 @@ def rerank(query: torch.Tensor, cand_ids: torch.Tensor, index: SSHIndex,
             forced[:s] = True                 # never drop the seeded set
             keep, stage_counts = _count_stages(k1, k2, k3, forced)
             cand_ids, cands = cand_ids[keep], cands[keep]
-            sync(None)
-        with timer.stage("lb_improved") as sync:
+        with timer.stage("lb_improved"):
             # Lemire's two-pass bound over the cascade survivors only
             lbi = lb.lb_improved(query, cands, band)
             forced_surv = forced[keep]
@@ -234,12 +242,11 @@ def rerank(query: torch.Tensor, cand_ids: torch.Tensor, index: SSHIndex,
             counters = torch.cat([stage_counts, torch.stack([
                 (~keep2).sum(), (forced_surv & pass123_surv & ~below).sum()])])
             cand_ids, cands = cand_ids[keep2], cands[keep2]
-            sync(None)
         if early_abandon:
             thr = best
     stats.n_dtw = int(cands.shape[0])
 
-    with timer.stage("dtw") as sync:
+    with timer.stage("dtw"):
         d = dtw_candidates(query, cands, band, threshold=thr)
         k = min(topk, int(cands.shape[0]))
         # stable ascending sort: ties to the lowest candidate slot, as
@@ -249,27 +256,42 @@ def rerank(query: torch.Tensor, cand_ids: torch.Tensor, index: SSHIndex,
         if thr is not None:
             extra.append((d >= BIG * 0.5).sum()[None])
         host = [t.cpu() for t in (cand_ids[order], d[order], *extra)]
-        sync(None)
     if counters is not None:
         (stats.pruned_kim, stats.pruned_keogh, stats.pruned_keogh2,
          stats.forced_kept, stats.pruned_improved, more) = host[2].tolist()
         stats.forced_kept += more
     if thr is not None:
         stats.dtw_abandoned = int(host[-1][0])
-    if timer.enabled:
-        stats.stage_seconds = dict(timer.timings)
+    timer.report(stats)
     return host[0].numpy().astype(np.int64), host[1].numpy(), stats
 
 
 def dtw_pairs(q_rows: torch.Tensor, c_rows: torch.Tensor,
               band: Optional[int],
-              threshold: Optional[torch.Tensor] = None) -> torch.Tensor:
+              threshold: Optional[torch.Tensor] = None,
+              cells: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Row-aligned pair DTW over all P pairs in one dispatch:
-    (P, m) x (P, m) -> (P,)."""
+    (P, m) x (P, m) -> (P,); ``cells`` (P,) int32, when given, receives
+    the DP cells each pair computed (``ops.dtw_rerank_pairs``)."""
     if q_rows.shape[0] == 0:
         return torch.zeros(0, dtype=torch.float32, device=q_rows.device)
     return ops.dtw_rerank_pairs(q_rows.contiguous(), c_rows.contiguous(),
-                                band, threshold)
+                                band, threshold, cells=cells)
+
+
+def _dtw_counted(q_rows: torch.Tensor, c_rows: torch.Tensor,
+                 band: Optional[int], threshold: Optional[torch.Tensor],
+                 count: bool):
+    """:func:`dtw_pairs` -> (P,) distances and, with ``count``, the sum
+    of the pairs' computed cells (a 0-d tensor on the device), else
+    None.  Without ``count`` it passes no ``cells``, so a stand-in for
+    ``dtw_pairs`` of the four-argument form still fits."""
+    if not count:
+        return dtw_pairs(q_rows, c_rows, band, threshold), None
+    cells = torch.zeros(q_rows.shape[0], dtype=torch.int32,
+                        device=q_rows.device)
+    return (dtw_pairs(q_rows, c_rows, band, threshold, cells=cells),
+            cells.sum())
 
 
 def rerank_batch(queries: torch.Tensor, ids: torch.Tensor,
@@ -296,13 +318,16 @@ def rerank_batch(queries: torch.Tensor, ids: torch.Tensor,
     cascade_on = use_lb_cascade and band is not None
     thr_rows = None
     counters = [valid.sum()]
+    seed_cells = None
 
     if cascade_on:
-        with timer.stage("lb") as sync:
+        with timer.stage("lb"):
             seed_ids = ids[:, :seed_k]
-            seed_d = dtw_pairs(queries.repeat_interleave(seed_k, 0),
-                               index.series[seed_ids.reshape(-1)],
-                               band).reshape(b, seed_k)
+            seed_d, seed_cells = _dtw_counted(
+                queries.repeat_interleave(seed_k, 0),
+                index.series[seed_ids.reshape(-1)], band, None,
+                timer.enabled)
+            seed_d = seed_d.reshape(b, seed_k)
             if seed_size is not None:
                 # a widened seed may overrun a row's valid candidates
                 col = torch.arange(seed_k, device=dev)[None, :]
@@ -332,7 +357,6 @@ def rerank_batch(queries: torch.Tensor, ids: torch.Tensor,
             # LB_Improved and early abandoning
             thr_rows = torch.where(n_hash > topk, best,
                                    torch.full_like(best, torch.inf))
-            sync(None)
     else:
         ok = valid.clone()
 
@@ -343,7 +367,7 @@ def rerank_batch(queries: torch.Tensor, ids: torch.Tensor,
     q_rows = queries[rows_idx]                                 # (P, m)
 
     if cascade_on:
-        with timer.stage("lb_improved") as sync:
+        with timer.stage("lb_improved"):
             lbi = lb.lb_improved_pairs(q_rows, c_rows, band)
             thr_pair = thr_rows[rows_idx]
             forced_pair = forced[rows_idx, cols_idx]
@@ -354,14 +378,17 @@ def rerank_batch(queries: torch.Tensor, ids: torch.Tensor,
             ok[rows_idx[~keep], cols_idx[~keep]] = False
             rows_idx, cols_idx = rows_idx[keep], cols_idx[keep]
             q_rows, c_rows = q_rows[keep], c_rows[keep]
-            sync(None)
 
-    with timer.stage("dtw") as sync:
+    with timer.stage("dtw"):
         thr_pairs = (thr_rows[rows_idx]
                      if (cascade_on and early_abandon) else None)
-        pair_d = dtw_pairs(q_rows, c_rows, band, thr_pairs)    # (P,)
+        pair_d, cells = _dtw_counted(q_rows, c_rows, band, thr_pairs,
+                                     timer.enabled)            # (P,)
         if thr_pairs is not None:
             counters.append((pair_d >= BIG * 0.5).sum())
+        if cells is not None:          # the seed's and the survivors'
+            counters.append(cells if seed_cells is None
+                            else cells + seed_cells)
         cand_d = torch.full((b, c), BIG, dtype=torch.float32, device=dev)
         cand_d[rows_idx, cols_idx] = pair_d
         # stable ascending sort: ties go to the lowest candidate slot, as
@@ -373,7 +400,6 @@ def rerank_batch(queries: torch.Tensor, ids: torch.Tensor,
         n_union = torch.unique(pair_ids).numel()
         host = [t.cpu() for t in (out_ids, out_d, n_final,
                                   torch.stack(counters))]
-        sync(None)
     out_ids, out_d, n_final, cnt = host
     cnt = cnt.tolist()
     stats.n_in = cnt[0]
@@ -385,6 +411,12 @@ def rerank_batch(queries: torch.Tensor, ids: torch.Tensor,
             stats.dtw_abandoned = cnt[7]
     stats.n_dtw = int(pair_d.shape[0])
     if timer.enabled:
-        stats.stage_seconds = dict(timer.timings)
+        m = int(queries.shape[1])
+        stats.dtw_cells = cnt[-1]
+        n_pairs = int(pair_d.shape[0]) + (0 if seed_cells is None
+                                          else b * seed_k)
+        stats.dtw_band_cells = n_pairs * band_cells(
+            m, m - 1 if band is None else min(band, m - 1))
+    timer.report(stats)
     return (out_ids.numpy().astype(np.int64), out_d.numpy(),
             n_final.numpy().astype(np.int64), n_union, stats)

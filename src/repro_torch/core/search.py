@@ -84,15 +84,13 @@ def hash_probe(query: torch.Tensor, index: SSHIndex, top_c: int,
     n = int(index.keys.shape[0])
     c = min(top_c, n)
     if use_host_buckets and index.host_buckets is not None:
-        with timer.stage("encode") as sync:
+        with timer.stage("encode"):
             qk, hit = index.query_keys_cached(query, content)
-            sync(None)
-        with timer.stage("probe") as sync:
+        with timer.stage("probe"):
             ids = index.host_buckets.probe(qk)[:max(top_c, topk)]
             cand_ids = torch.from_numpy(ids).to(index.device)
-            sync(None)
     else:
-        with timer.stage("encode") as sync:
+        with timer.stage("encode"):
             if multiprobe_offsets > 1:
                 qk, hit = index.query_signatures_multiprobe_cached(
                     query, multiprobe_offsets, content)
@@ -105,8 +103,7 @@ def hash_probe(query: torch.Tensor, index: SSHIndex, top_c: int,
                 qk, hit = index.query_keys_cached(query, content)
                 qk = qk[None]
             db = index.signatures if rank_by_signature else index.keys
-            sync(None)
-        with timer.stage("probe") as sync:
+        with timer.stage("probe"):
             # one launch per probe row, then the max over rows
             counts = ops.collision_count(qk[0].contiguous(), db)
             for row in qk[1:]:
@@ -114,7 +111,6 @@ def hash_probe(query: torch.Tensor, index: SSHIndex, top_c: int,
                     counts, ops.collision_count(row.contiguous(), db))
             ids, vals = top_c_by_count(counts[None], c)
             cand_ids = ids[0][vals[0] > 0]
-            sync(None)
     if probe_stats is not None:
         probe_stats["sig_cache_hit"] = int(hit)
     if cand_ids.numel() == 0:            # degenerate: the first top_c ids

@@ -7,9 +7,15 @@
 //    DTW.
 //
 //      queries (P, m) f32, candidates (P, m) f32, radius r, thr (P,) or
-//      none  ->  out (P,) f32
+//      none  ->  out (P,) f32, and cells (P,) int32 when not null
 //      out[p] = banded (|i - j| <= r) squared DTW of the pair; with thr,
 //      the exact cost when it is <= thr[p] and BIG = 1e30 otherwise.
+//      cells[p] = the band's cells the pair's schedule computed before it
+//      ended or was abandoned: A, those of the rows its block swept; B,
+//      those of the diagonals its warp stepped.  A closed form at exit,
+//      one store a pair (band_rows, band_diagonals); the loops count
+//      nothing.  The count is a template flag (COUNT), so a launch with
+//      cells null runs the instance that has no trace of it.
 //
 // 2. dtw_wavefront_launch replaces repro/kernels/dtw_wavefront.py::
 //    dtw_wavefront (one query against a candidate block): the sequential
@@ -95,6 +101,28 @@ constexpr int SMEM_MAX = 232448;   // 227 KB a block
 
 __device__ __forceinline__ float pos_inf() {
   return __int_as_float(0x7f800000);
+}
+
+// Band cells (i, j), |i - j| <= r, of an m x m matrix in rows j < J:
+// row j holds min(m, j + r + 1) - max(0, j - r) of them.
+__device__ __forceinline__ long long band_rows(int m, int r, int J) {
+  const long long t = max(0, min(m - r, J));    // rows with j + r + 1 <= m
+  const long long u = max(0, J - r - 1);        // rows with j > r
+  return t * (t - 1) / 2 + t * (r + 1) + (J - t) * m - u * (u + 1) / 2;
+}
+
+// Band cells on the anti-diagonals d = i + j < D.  Up to d = m - 1 the
+// matrix clips nothing: diagonal d holds d + 1 cells while d <= r, then
+// r + 1 and r in turn (r + 1 where d - r is even); past the middle the
+// count is the whole band's less that of the 2m - 1 - D diagonals at the
+// far corner, by the symmetry (i, j) -> (m - 1 - i, m - 1 - j).
+__device__ __forceinline__ long long band_diagonals(int m, int r, int D) {
+  const bool far = D > m;
+  const long long e = far ? 2 * m - 1 - D : D;
+  const long long a = min(e, static_cast<long long>(r) + 1);
+  const long long n = max(0LL, e - r - 1);
+  const long long near = a * (a + 1) / 2 + n * r + n / 2;
+  return far ? band_rows(m, r, m) - near : near;
 }
 
 // dst = src[i] for i in [0, m), else +inf: an asynchronous 4-byte copy
@@ -183,11 +211,13 @@ __device__ __forceinline__ void row_sweep(float (&R)[W], const float* qb,
 
 // W: slot class (2r + 1 <= W); ONE: one query for every pair (q is (m,)),
 // else q is (P, m).  thr_stride 0: one threshold for all, 1: thr[p].
-template <int W, bool HAS_THR, bool ONE>
+// COUNT: cells[p] = the band cells of the rows the block swept.
+template <int W, bool HAS_THR, bool ONE, bool COUNT>
 __global__ void __launch_bounds__(32)
 dtw_rows_kernel(const float* __restrict__ q, const float* __restrict__ x,
                 const float* __restrict__ thr, int thr_stride,
-                float* __restrict__ out, int P, int m, int r) {
+                float* __restrict__ out, int* __restrict__ cells, int P,
+                int m, int r) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x;
   const long long p0 = static_cast<long long>(blockIdx.x) * 32;
@@ -213,6 +243,7 @@ dtw_rows_kernel(const float* __restrict__ q, const float* __restrict__ x,
   const float t = (HAS_THR && live) ? thr[p * thr_stride] : 0.0f;
   bool dead = !live;
 
+  [[maybe_unused]] int swept = m;            // rows the block swept
   for (int j0 = 0; j0 < m; j0 += TILE) {
     const int rows = min(TILE, m - j0);
     __syncthreads();                         // the last tile is consumed
@@ -239,7 +270,10 @@ dtw_rows_kernel(const float* __restrict__ q, const float* __restrict__ x,
 #pragma unroll
       for (int k = 0; k < W; ++k) lo = fminf(lo, R[k]);
       dead = dead || lo > t;
-      if (__syncthreads_and(dead)) break;    // every pair past its bound
+      if (__syncthreads_and(dead)) {         // every pair past its bound
+        if constexpr (COUNT) swept = j0 + rows;
+        break;
+      }
     }
   }
   if (!live) return;
@@ -248,6 +282,7 @@ dtw_rows_kernel(const float* __restrict__ q, const float* __restrict__ x,
   for (int k = 0; k < W; ++k) v = pick(k == r + off, R[k], v);
   if (HAS_THR && (dead || v > t)) v = BIG;
   out[p] = v;
+  if constexpr (COUNT) cells[p] = static_cast<int>(band_rows(m, r, swept));
 }
 
 // -- schedule B ----------------------------------------------------------
@@ -299,12 +334,13 @@ __device__ __forceinline__ void diag_step(float (&prev1)[S],
   }
 }
 
-template <int S, bool HAS_THR, bool ONE>
+// COUNT: cells[p] = the band cells of the diagonals the warp stepped.
+template <int S, bool HAS_THR, bool ONE, bool COUNT>
 __global__ void __launch_bounds__(32)
 dtw_diag_kernel(const float* __restrict__ q, const float* __restrict__ x,
                 const float* __restrict__ thr, int thr_stride,
-                float* __restrict__ out, int P, int m, int r,
-                int check_every) {
+                float* __restrict__ out, int* __restrict__ cells, int P,
+                int m, int r, int check_every) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x;
   const long long p = blockIdx.x;
@@ -370,6 +406,9 @@ dtw_diag_kernel(const float* __restrict__ q, const float* __restrict__ x,
   v = __shfl_sync(FULL, v, s_end / S);
   if (HAS_THR && (abandoned || v > t)) v = BIG;
   if (lane == 0) out[p] = v;
+  if (COUNT && lane == 0)              // an abandon leaves after d + 1
+    cells[p] = static_cast<int>(
+        band_diagonals(m, r, abandoned ? d + 2 : n_diag));
 }
 
 // -- launch ----------------------------------------------------------------
@@ -404,77 +443,92 @@ struct Args {
   const float *q, *x, *thr;
   int thr_stride;
   float* out;
+  int* cells;
   int P, m, r, check_every;
   cudaStream_t st;
 };
 
-template <int W, bool HAS_THR, bool ONE>
+template <int W, bool HAS_THR, bool ONE, bool COUNT>
 int launch_rows(const Args& a) {
-  auto kernel = dtw_rows_kernel<W, HAS_THR, ONE>;
+  auto kernel = dtw_rows_kernel<W, HAS_THR, ONE, COUNT>;
   const int smem = rows_smem(ONE, a.m, a.r);
   if (const int e = prepare(kernel, smem)) return e;
   const unsigned grid = static_cast<unsigned>((a.P + 31) / 32);
   kernel<<<grid, 32, smem, a.st>>>(a.q, a.x, a.thr, a.thr_stride, a.out,
-                                   a.P, a.m, a.r);
+                                   a.cells, a.P, a.m, a.r);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int S, bool HAS_THR, bool ONE>
+template <int S, bool HAS_THR, bool ONE, bool COUNT>
 int launch_diag(const Args& a) {
-  auto kernel = dtw_diag_kernel<S, HAS_THR, ONE>;
+  auto kernel = dtw_diag_kernel<S, HAS_THR, ONE, COUNT>;
   const int smem = diag_smem(a.m, a.r);
   if (const int e = prepare(kernel, smem)) return e;
   kernel<<<static_cast<unsigned>(a.P), 32, smem, a.st>>>(
-      a.q, a.x, a.thr, a.thr_stride, a.out, a.P, a.m, a.r, a.check_every);
+      a.q, a.x, a.thr, a.thr_stride, a.out, a.cells, a.P, a.m, a.r,
+      a.check_every);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool HAS_THR, bool ONE, int... C>
+template <bool HAS_THR, bool ONE, bool COUNT, int... C>
 int rows_class(const Args& a, std::integer_sequence<int, C...>) {
   // the class W = 8 (c + 1) with 2r + 1 <= W: off = W - 1 - 2r in [0, 8)
   const int c = 2 * a.r / 8;
   int rc = static_cast<int>(cudaErrorInvalidValue);
-  ((c == C ? (rc = launch_rows<8 * (C + 1), HAS_THR, ONE>(a), 0) : 0), ...);
+  ((c == C ? (rc = launch_rows<8 * (C + 1), HAS_THR, ONE, COUNT>(a), 0)
+            : 0), ...);
   return rc;
 }
 
-template <bool HAS_THR, bool ONE>
+template <bool HAS_THR, bool ONE, bool COUNT>
 int dispatch_rows(const Args& a) {
-  return rows_class<HAS_THR, ONE>(
+  return rows_class<HAS_THR, ONE, COUNT>(
       a, std::make_integer_sequence<int, ROWS_MAX_W / 8>{});
 }
 
 // S = slots a lane for r + 1 in-band cells: 1..8 exactly, then 16, 32
-template <bool HAS_THR, bool ONE>
+template <bool HAS_THR, bool ONE, bool COUNT>
 int dispatch_diag(const Args& a) {
   switch ((a.r + 1 + 31) / 32) {
-    case 1: return launch_diag<1, HAS_THR, ONE>(a);
-    case 2: return launch_diag<2, HAS_THR, ONE>(a);
-    case 3: return launch_diag<3, HAS_THR, ONE>(a);
-    case 4: return launch_diag<4, HAS_THR, ONE>(a);
-    case 5: return launch_diag<5, HAS_THR, ONE>(a);
-    case 6: return launch_diag<6, HAS_THR, ONE>(a);
-    case 7: return launch_diag<7, HAS_THR, ONE>(a);
-    case 8: return launch_diag<8, HAS_THR, ONE>(a);
+    case 1: return launch_diag<1, HAS_THR, ONE, COUNT>(a);
+    case 2: return launch_diag<2, HAS_THR, ONE, COUNT>(a);
+    case 3: return launch_diag<3, HAS_THR, ONE, COUNT>(a);
+    case 4: return launch_diag<4, HAS_THR, ONE, COUNT>(a);
+    case 5: return launch_diag<5, HAS_THR, ONE, COUNT>(a);
+    case 6: return launch_diag<6, HAS_THR, ONE, COUNT>(a);
+    case 7: return launch_diag<7, HAS_THR, ONE, COUNT>(a);
+    case 8: return launch_diag<8, HAS_THR, ONE, COUNT>(a);
     default: break;
   }
   const int need = (a.r + 1 + 31) / 32;
-  if (need <= 16) return launch_diag<16, HAS_THR, ONE>(a);
-  if (need <= DIAG_MAX_S) return launch_diag<DIAG_MAX_S, HAS_THR, ONE>(a);
+  if (need <= 16) return launch_diag<16, HAS_THR, ONE, COUNT>(a);
+  if (need <= DIAG_MAX_S)
+    return launch_diag<DIAG_MAX_S, HAS_THR, ONE, COUNT>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// schedule 0: rows (A), 1: diagonals (B)
+template <bool ONE, bool COUNT>
+int dispatch_schedule(const Args& a, int schedule) {
+  const bool thr = a.thr != nullptr;
+  if (schedule == 0)
+    return thr ? dispatch_rows<true, ONE, COUNT>(a)
+               : dispatch_rows<false, ONE, COUNT>(a);
+  if (schedule == 1)
+    return thr ? dispatch_diag<true, ONE, COUNT>(a)
+               : dispatch_diag<false, ONE, COUNT>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// schedule 0: rows (A), 1: diagonals (B); the counting instances exist
+// for the pairs entry point alone (cells is null for the other)
 template <bool ONE>
 int dispatch(const Args& a, int schedule) {
   if (a.m < 1 || a.r < 0 || a.r > a.m - 1 || a.check_every < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool thr = a.thr != nullptr;
-  if (schedule == 0)
-    return thr ? dispatch_rows<true, ONE>(a) : dispatch_rows<false, ONE>(a);
-  if (schedule == 1)
-    return thr ? dispatch_diag<true, ONE>(a) : dispatch_diag<false, ONE>(a);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (!ONE) {
+    if (a.cells != nullptr) return dispatch_schedule<false, true>(a, schedule);
+  }
+  return dispatch_schedule<ONE, false>(a, schedule);
 }
 
 }  // namespace
@@ -500,10 +554,11 @@ extern "C" int dtw_max_length() {
 
 extern "C" int dtw_wavefront_pairs_launch(const float* q, const float* x,
                                           const float* thr, float* out,
-                                          int P, int m, int r, int schedule,
-                                          int check_every, void* stream) {
-  return dispatch<false>(Args{q, x, thr, 1, out, P, m, r, check_every,
-                              static_cast<cudaStream_t>(stream)},
+                                          int* cells, int P, int m, int r,
+                                          int schedule, int check_every,
+                                          void* stream) {
+  return dispatch<false>(Args{q, x, thr, 1, out, cells, P, m, r,
+                              check_every, static_cast<cudaStream_t>(stream)},
                          schedule);
 }
 
@@ -512,7 +567,7 @@ extern "C" int dtw_wavefront_launch(const float* q, const float* x,
                                     float* out, int C, int m, int r,
                                     int schedule, int check_every,
                                     void* stream) {
-  return dispatch<true>(Args{q, x, thr, thr_stride, out, C, m, r,
+  return dispatch<true>(Args{q, x, thr, thr_stride, out, nullptr, C, m, r,
                              check_every, static_cast<cudaStream_t>(stream)},
                         schedule);
 }

@@ -148,9 +148,12 @@ class SearchConfig:
     max(2, R); R <= W), ``hedge_policy`` ("off", "fixed" after
     ``hedge_ms``, or "adaptive": after max(``hedge_ms``, threshold x the
     fleet-median shard time)) and ``hedge_ms``.  ``stage_timings``
-    records per-stage seconds.  The flat ``max_batch``/``max_wait_ms``
-    of older releases are taken for one release: they warn
-    (``DeprecationWarning``) and fold into ``batch_policy``."""
+    records the search's spans (``bench.timing.StageTimer``: profiler
+    ranges, host and stream seconds, the pair DTW's cell count) and the
+    batcher's profiler ranges; it never synchronises.  The flat
+    ``max_batch``/``max_wait_ms`` of older releases are taken for one
+    release: they warn (``DeprecationWarning``) and fold into
+    ``batch_policy``."""
 
     topk: int = 10
     top_c: int = 256

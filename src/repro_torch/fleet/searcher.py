@@ -328,8 +328,7 @@ class FleetSearcher:
             self.degraded_total += degraded
         stats = SearchStats(backend=self.device.type, hedged=hedged,
                             failovers=failovers, degraded=degraded > 0)
-        if timer.enabled:
-            stats.stage_seconds = dict(timer.timings)
+        timer.report(stats)
         return BatchSearchResult.of_fanout(ids, dists, n, cfg.top_c, t0,
                                            stats)
 

@@ -55,8 +55,9 @@ SIGNATURES = {
         "collision_count_max_k": [],
     },
     "dtw_wavefront": {
-        "dtw_wavefront_pairs_launch": [C_PTR, C_PTR, C_PTR, C_PTR, C_INT,
-                                       C_INT, C_INT, C_INT, C_INT, C_PTR],
+        "dtw_wavefront_pairs_launch": [C_PTR, C_PTR, C_PTR, C_PTR, C_PTR,
+                                       C_INT, C_INT, C_INT, C_INT, C_INT,
+                                       C_PTR],
         "dtw_wavefront_launch": [C_PTR, C_PTR, C_PTR, C_INT, C_PTR, C_INT,
                                  C_INT, C_INT, C_INT, C_INT, C_PTR],
         "dtw_rows_max_radius": [],

@@ -20,6 +20,11 @@ The source says what bounds them and how each schedule answers that;
 their plain PyTorch versions, equal to them bit for bit.  Launches count
 under the kernel's name and, per schedule, under
 ``"<kernel>:<schedule>"`` (:func:`schedule_counts`).
+
+``dtw_wavefront_pairs`` also counts work: given a (P,) int32 ``cells``,
+each pair writes the band's cells its schedule computed before the pair
+ended or was abandoned, by the closed forms :func:`band_cells` (rows)
+and :func:`band_cells_diagonals` repeat.
 """
 from __future__ import annotations
 
@@ -45,6 +50,30 @@ ROWS_TILE = 32
 DIAG_CHECK_EVERY = 32
 #: shared memory a block may hold (227 KB)
 SMEM_MAX = 232448
+
+
+def band_cells(m: int, r: int, rows: Optional[int] = None) -> int:
+    """Cells (i, j) with |i - j| <= r of an m x m matrix, in its first
+    ``rows`` rows (all by default): the row schedule's count for a pair
+    whose block swept that many rows (``band_rows`` in the source)."""
+    rows = m if rows is None else rows
+    t = max(0, min(m - r, rows))         # rows j with j + r + 1 <= m
+    u = max(0, rows - r - 1)             # rows j with j > r
+    return t * (t - 1) // 2 + t * (r + 1) + (rows - t) * m - u * (u + 1) // 2
+
+
+def band_cells_diagonals(m: int, r: int, diagonals: int) -> int:
+    """Band cells on the anti-diagonals i + j < ``diagonals``: the
+    diagonal schedule's count for a pair whose warp stepped that many
+    (``band_diagonals`` in the source).  Up to the middle diagonal d
+    holds d + 1 cells while d <= r, then r + 1 and r in turn; past it,
+    the whole band less the far corner's 2m - 1 - ``diagonals``."""
+    far = diagonals > m
+    e = 2 * m - 1 - diagonals if far else diagonals
+    a = min(e, r + 1)
+    n = max(0, e - r - 1)
+    near = a * (a + 1) // 2 + n * r + n // 2
+    return band_cells(m, r) - near if far else near
 
 
 def dtw_schedule(n_pairs: int, m: int, r: int) -> str:
@@ -107,13 +136,17 @@ def _launch(kernel: str, n: int, m: int, r: int, schedule: Optional[str],
 
 def dtw_wavefront_pairs(queries: torch.Tensor, candidates: torch.Tensor,
                         band: int, threshold: Optional[torch.Tensor] = None,
-                        schedule: Optional[str] = None) -> torch.Tensor:
+                        schedule: Optional[str] = None,
+                        cells: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(P, m) x (P, m) f32 on one CUDA device, Sakoe-Chiba radius ``band``
     (m - 1 for unconstrained) -> (P,) f32.
 
     ``threshold`` (P,) f32 applies the early-abandon contract: the exact
     cost where it is <= threshold, BIG = 1e30 elsewhere.  ``schedule``
     (``"rows"`` or ``"diagonals"``) overrides :func:`dtw_schedule`.
+    ``cells``, a contiguous (P,) int32 tensor on the operands' device,
+    receives each pair's computed band cells; without it nothing is
+    counted.
     """
     if not (queries.is_cuda and candidates.device == queries.device):
         raise ValueError("dtw_wavefront_pairs kernel needs both operands on "
@@ -139,6 +172,13 @@ def dtw_wavefront_pairs(queries: torch.Tensor, candidates: torch.Tensor,
                              "operands' device")
         threshold = threshold.contiguous()
         thr_ptr = threshold.data_ptr()
+    cells_ptr = None
+    if cells is not None:
+        if (cells.device != queries.device or cells.dtype != torch.int32
+                or tuple(cells.shape) != (p,) or not cells.is_contiguous()):
+            raise ValueError("cells must be a contiguous (P,) int32 tensor "
+                             "on the operands' device")
+        cells_ptr = cells.data_ptr()
     out = torch.empty((p,), dtype=torch.float32, device=queries.device)
     if p == 0:
         return out
@@ -147,7 +187,8 @@ def dtw_wavefront_pairs(queries: torch.Tensor, candidates: torch.Tensor,
     _launch("dtw_wavefront_pairs", p, m, r, schedule, False,
             lambda lib, code: lib.dtw_wavefront_pairs_launch(
                 queries.data_ptr(), candidates.data_ptr(), thr_ptr,
-                out.data_ptr(), p, m, r, code, DIAG_CHECK_EVERY, stream))
+                out.data_ptr(), cells_ptr, p, m, r, code, DIAG_CHECK_EVERY,
+                stream))
     return out
 
 

@@ -177,17 +177,19 @@ def dtw_rerank(query: torch.Tensor, candidates: torch.Tensor,
 
 def dtw_rerank_pairs(queries: torch.Tensor, candidates: torch.Tensor,
                      band: Optional[int],
-                     threshold: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     threshold: Optional[torch.Tensor] = None,
+                     cells: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Row-aligned pair DTW (P, m) x (P, m) -> (P,); ``band=None`` is
     radius m - 1.  ``threshold`` (P,): exact where <= threshold, else
-    BIG."""
+    BIG.  ``cells`` (P,) int32, when given, receives the band cells each
+    pair computed: the kernel's count, or the full band on the CPU."""
     if _route(queries):
         m = queries.shape[1]
         return _dtw.dtw_wavefront_pairs(queries, candidates,
                                         m - 1 if band is None else band,
-                                        threshold)
-    return ref.dtw_pairs_ref(queries, candidates, band, threshold)
+                                        threshold, cells=cells)
+    return ref.dtw_pairs_ref(queries, candidates, band, threshold,
+                             cells=cells)
 
 
 def cs_tables(bucket: torch.Tensor, sign: torch.Tensor, width: int

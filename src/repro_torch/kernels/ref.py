@@ -14,7 +14,7 @@ import torch
 from repro_torch.core import dtw as _dtw
 from repro_torch.core.sketch import sketch_projections
 from repro_torch.kernels import collision_count as _cc
-from repro_torch.kernels.dtw_wavefront import ROWS_TILE
+from repro_torch.kernels.dtw_wavefront import ROWS_TILE, band_cells
 from repro_torch.kernels.flash_attention import REORDER
 
 
@@ -147,15 +147,22 @@ def collision_count_stream_ref(query_keys: torch.Tensor,
 
 def dtw_pairs_ref(queries: torch.Tensor, candidates: torch.Tensor,
                   band: Optional[int] = None,
-                  threshold: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  threshold: Optional[torch.Tensor] = None,
+                  cells: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Row-aligned banded squared DTW: (P, m) x (P, m) -> (P,).
 
     The reference routes narrow bands to its O(m·band) window DP and the
     rest to the full DP (``repro/kernels/ref.py:30-73``); both compute the
     same function, which the wavefront of ``core.dtw`` computes at radius
     ``min(band, m - 1)`` (``None`` -> m - 1), with the same threshold
-    contract: exact where <= threshold, else BIG.
+    contract: exact where <= threshold, else BIG.  The wavefront computes
+    every band cell of every pair, so ``cells`` (P,), when given, is
+    filled with the band's count.
     """
+    if cells is not None:
+        m = int(queries.shape[1])
+        cells.fill_(band_cells(m, m - 1 if band is None
+                               else min(int(band), m - 1)))
     return _dtw.dtw_banded_pairs(queries, candidates, band,
                                  threshold=threshold)
 

@@ -106,13 +106,14 @@ def batch_probe(queries: torch.Tensor, index: SSHIndex, top_c: int,
     top_c = min(top_c, int(index.signatures.shape[0]))
     variant = (f"mp{multiprobe_offsets}" if multiprobe_offsets > 1
                else "sig")
-    with timer.stage("encode") as sync:
+    with timer.stage("encode"):
         cache = index._sig_cache()
-        if contents is None:
-            contents = row_bytes(queries)
-        spec, route = index.encoder.spec, index.build_backend
-        keys = [cache.key(c, spec, route, variant) for c in contents]
-        cached = cache.get_many(keys)
+        with timer.stage("sigcache"):
+            if contents is None:
+                contents = row_bytes(queries)
+            spec, route = index.encoder.spec, index.build_backend
+            keys = [cache.key(c, spec, route, variant) for c in contents]
+            cached = cache.get_many(keys)
         hits = 0
         if all(r is not None for r in cached):
             sigs = torch.stack(cached)                         # (B, [O,] K)
@@ -123,7 +124,8 @@ def batch_probe(queries: torch.Tensor, index: SSHIndex, top_c: int,
                     queries, multiprobe_offsets)               # (B, O, K)
             else:
                 sigs = index.query_signatures_batch(queries)   # (B, K)
-            cache.put_many(keys, sigs.unbind(0))
+            with timer.stage("sigcache"):
+                cache.put_many(keys, sigs.unbind(0))
         if probe_stats is not None:
             probe_stats["sig_cache_hit"] = hits
         sigs = sigs.reshape(-1, sigs.shape[-1])                # (B·O, K)
@@ -132,13 +134,12 @@ def batch_probe(queries: torch.Tensor, index: SSHIndex, top_c: int,
         else:
             qk, db = minhash.combine_bands(sigs, index.num_tables), \
                 index.keys
-        sync(None)
-    with timer.stage("probe") as sync:
+    with timer.stage("probe"):
         counts = ops.collision_count_batch(qk.contiguous(), db)  # (B·O, N)
         if multiprobe_offsets > 1:
             counts = counts.reshape(b, multiprobe_offsets, -1).amax(1)
-        ids, vals = top_c_by_count(counts, top_c)
-        sync(None)
+        with timer.stage("topc"):
+            ids, vals = top_c_by_count(counts, top_c)
     return ids, vals
 
 
@@ -155,8 +156,8 @@ def ssh_search_batch(queries, index: SSHIndex,
     t0 = time.perf_counter()
     timer = StageTimer(enabled=config.stage_timings, prefill=STAGES,
                        device=dev)
-    with timer.stage("encode"):          # the LRU keys, from the host copy
-        contents = row_bytes(queries)
+    with timer.stage("encode"), timer.stage("sigcache"):
+        contents = row_bytes(queries)    # the LRU keys, from the host copy
     queries = torch.as_tensor(queries, dtype=torch.float32).to(dev)
     b = queries.shape[0]
     n = int(index.signatures.shape[0])

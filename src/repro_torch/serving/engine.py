@@ -24,6 +24,12 @@ is per thread) and launches on the legacy default stream: callers of
 ``search_batch`` and the batcher serialise under one lock, as in the
 reference, and ``ssh_search_batch`` synchronises before it returns.
 
+``ServingMetrics`` splits each request's queue wait at the batch's
+opening into queued and collect seconds and times each batch's service,
+dispatch to results on the host; with ``stage_timings`` on, the
+batcher's phases are profiler ranges too: ``engine.wait`` (no request
+pending), ``engine.collect``, ``engine.serve`` and ``engine.resolve``.
+
 Streaming inserts are applied on the batcher thread between batches,
 under the same lock, so a query submitted after ``insert()`` returned
 is served by an index that holds the series.
@@ -39,6 +45,7 @@ metrics.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -50,7 +57,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.bench.timing import StageTimer
+from repro_torch.bench.timing import StageTimer, profiler_range
 from repro_torch.core.index import SSHIndex
 from repro_torch.core.rerank import SearchStats
 from repro_torch.core.search import SearchResult
@@ -153,8 +160,7 @@ class DistributedSearcher:
                 ids.append(gid.cpu().numpy())
                 dists.append(d.cpu().numpy())
         stats = SearchStats(backend=self.index.device.type)
-        if timer.enabled:
-            stats.stage_seconds = dict(timer.timings)
+        timer.report(stats)
         return BatchSearchResult.of_fanout(ids, dists, n, cfg.top_c, t0,
                                            stats)
 
@@ -272,9 +278,8 @@ class ServingEngine:
         self._cond = threading.Condition()
         self._pending: deque = deque()
         self._inserts: "queue.Queue" = queue.Queue()
-        # EWMA of batch service seconds (the stage-seconds sum when the
-        # config records them, else the batch's wall time) and of the
-        # gaps between submits: the adaptive policy's inputs
+        # EWMA of batch service seconds (the batch's wall time) and of
+        # the gaps between submits: the adaptive policy's inputs
         self._service_ewma_s: Optional[float] = None
         self._arrival_gap_ewma_s: Optional[float] = None
         self._last_enqueue_t: Optional[float] = None
@@ -395,6 +400,7 @@ class ServingEngine:
             dtw_abandoned_frac=_abandon_fracs(res),
             stage_seconds=_stage_seconds(res),
             sig_cache_hits=_sig_hits(res),
+            queued_s=[0.0] * b, collect_s=[0.0] * b, service_s=wall,
             **_fleet_counters(res))
         return [res.per_query(i) for i in range(b)]
 
@@ -487,8 +493,8 @@ class ServingEngine:
         bucket = next(s for s in self.config.buckets() if s >= b)
         return np.stack(list(queries) + [queries[0]] * (bucket - b))
 
-    def _collect(self, first: _Request,
-                 opened_idle: bool = True) -> List[_Request]:
+    def _collect(self, first: _Request, opened_idle: bool = True,
+                 t_open: Optional[float] = None) -> List[_Request]:
         """Grow a batch around ``first`` under the ``BatchPolicy``.
 
         The wait budget is recomputed whenever the state changes and
@@ -496,11 +502,12 @@ class ServingEngine:
         batch, never the deadline.  ``opened_idle`` says whether the
         worker slept for ``first`` (the adaptive policy may stretch the
         wait) or found it queued (busy: drain).  A ``_STOP`` sentinel is
-        left in the deque for the worker's loop.
+        left in the deque for the worker's loop.  ``t_open`` is when the
+        batch opened (now by default).
         """
         pol = self.config.batch_policy
         batch = [first]
-        t_open = time.perf_counter()
+        t_open = time.perf_counter() if t_open is None else t_open
         with self._cond:
             while len(batch) < pol.max_batch:
                 while self._pending and len(batch) < pol.max_batch:
@@ -520,57 +527,85 @@ class ServingEngine:
                     break                   # budget elapsed, nothing new
         return batch
 
-    def _observe_service(self, res: BatchSearchResult,
-                         wall_s: float) -> None:
-        """Fold one batch's service time into the adaptive EWMA."""
-        stage = _stage_seconds(res)
-        sample = sum(stage.values()) if stage else wall_s
+    def _observe_service(self, wall_s: float) -> None:
+        """Fold one batch's service time, its wall time from dispatch to
+        results on the host, into the adaptive EWMA.  It is the wall
+        time whether or not stage timings are on, so the policy closes
+        the same batches with telemetry on and off."""
         alpha = self.config.batch_policy.ewma_alpha
         prev = self._service_ewma_s
-        self._service_ewma_s = sample if prev is None \
-            else alpha * sample + (1.0 - alpha) * prev
+        self._service_ewma_s = wall_s if prev is None \
+            else alpha * wall_s + (1.0 - alpha) * prev
+
+    def _span(self, name: str):
+        """The profiler range ``engine.<name>`` when stage timings are
+        on, else nothing."""
+        if self.config.stage_timings:
+            return profiler_range(f"engine.{name}")
+        return contextlib.nullcontext()
 
     def _worker(self) -> None:
         with ops.device_scope(self.index.device):
             self._serve_loop()
 
     def _serve_loop(self) -> None:
-        pol = self.config.batch_policy
         while True:
-            with self._cond:
-                opened_idle = not self._pending
-                while not self._pending:
-                    self._cond.wait()
-                item = self._pending.popleft()
-            if item is self._STOP:
-                return
-            batch = self._collect(item, opened_idle)
-            t0 = time.perf_counter()
-            try:             # a failing insert fails the batch loudly and
-                with self._serve_lock:       # keeps the worker alive
+            batch: List[_Request] = []
+            # a failing insert or search, or a profiler range that fails
+            # to close, fails the batch's open requests loudly and keeps
+            # the worker alive
+            try:
+                with self._cond:
+                    opened_idle = not self._pending
+                    if opened_idle:
+                        with self._span("wait"):
+                            while not self._pending:
+                                self._cond.wait()
+                    item = self._pending.popleft()
+                if item is self._STOP:
+                    return
+                batch = [item]
+                t_open = time.perf_counter()
+                with self._span("collect"):
+                    batch = self._collect(item, opened_idle, t_open)
+                t0 = time.perf_counter()
+                with self._serve_lock, self._span("serve"):
                     self._drain_inserts()
                     block = self._pad_batch([r.query for r in batch])
                     res = self.searcher.search_batch(block)
+                done = time.perf_counter()   # results are on the host
+                with self._span("resolve"):
+                    self._resolve(batch, res, t_open, t0, done)
             except Exception as exc:
                 for r in batch:
-                    r.future.set_exception(exc)
-                continue
-            done = time.perf_counter()       # results are on the host
-            self._observe_service(res, done - t0)
-            for i, r in enumerate(batch):
-                r.future.set_result(res.per_query(i))
-            self.metrics.set_index_bytes(self.index.nbytes())
-            self.metrics.on_batch(
-                len(batch),
-                [done - r.t_enqueue for r in batch],
-                [t0 - r.t_enqueue for r in batch],
-                list(res.pruned_by_hash_frac[:len(batch)]),
-                list(res.pruned_total_frac[:len(batch)]),
-                len(self._pending),
-                lb_pruned_frac=_lb_fracs(res),
-                dtw_abandoned_frac=_abandon_fracs(res),
-                stage_seconds=_stage_seconds(res),
-                sig_cache_hits=_sig_hits(res),
-                batch_wait_s=t0 - batch[0].t_enqueue,
-                batch_occupancy=len(batch) / pol.max_batch,
-                **_fleet_counters(res))
+                    if not r.future.done():
+                        r.future.set_exception(exc)
+
+    def _resolve(self, batch: List[_Request], res: BatchSearchResult,
+                 t_open: float, t0: float, done: float) -> None:
+        """Answer a served batch and record it: ``t_open`` when it
+        opened, ``t0`` its dispatch, ``done`` its results on the host.
+        A request's queue wait ``t0 - t_enqueue`` splits at
+        ``max(t_enqueue, t_open)`` into queued and collect."""
+        pol = self.config.batch_policy
+        self._observe_service(done - t0)
+        for i, r in enumerate(batch):
+            r.future.set_result(res.per_query(i))
+        self.metrics.set_index_bytes(self.index.nbytes())
+        self.metrics.on_batch(
+            len(batch),
+            [done - r.t_enqueue for r in batch],
+            [t0 - r.t_enqueue for r in batch],
+            list(res.pruned_by_hash_frac[:len(batch)]),
+            list(res.pruned_total_frac[:len(batch)]),
+            len(self._pending),
+            lb_pruned_frac=_lb_fracs(res),
+            dtw_abandoned_frac=_abandon_fracs(res),
+            stage_seconds=_stage_seconds(res),
+            sig_cache_hits=_sig_hits(res),
+            batch_wait_s=t0 - batch[0].t_enqueue,
+            batch_occupancy=len(batch) / pol.max_batch,
+            queued_s=[max(0.0, t_open - r.t_enqueue) for r in batch],
+            collect_s=[t0 - max(r.t_enqueue, t_open) for r in batch],
+            service_s=done - t0,
+            **_fleet_counters(res))

@@ -110,6 +110,13 @@ class ServingMetrics:
         # depths (sampled at every enqueue and batch dispatch) so the
         # load harness reads depth percentiles, not just the last gauge
         self.batch_wait = RunningMean()
+        # the batcher's phases: each request's wait before its batch
+        # opened and inside the open batch (their sum is its
+        # queue_latency sample), and each batch's service, from dispatch
+        # to results on the host
+        self.queued = RunningMean()
+        self.collect = RunningMean()
+        self.service = RunningMean()
         self.batch_occupancy = RunningMean()
         self.batch_sizes: Dict[int, int] = {}
         self.queue_depths = LatencyTracker(latency_window)
@@ -158,7 +165,9 @@ class ServingMetrics:
                  sig_cache_hits: int = 0, hedged: int = 0,
                  failovers: int = 0, degraded: int = 0,
                  batch_wait_s: Optional[float] = None,
-                 batch_occupancy: Optional[float] = None) -> None:
+                 batch_occupancy: Optional[float] = None,
+                 queued_s=(), collect_s=(),
+                 service_s: Optional[float] = None) -> None:
         with self._lock:
             self.sig_cache_hits += int(sig_cache_hits)
             self.hedged_total += int(hedged)
@@ -173,6 +182,12 @@ class ServingMetrics:
                 self.batch_wait.record(batch_wait_s)
             if batch_occupancy is not None:
                 self.batch_occupancy.record(batch_occupancy)
+            for s in queued_s:
+                self.queued.record(s)
+            for s in collect_s:
+                self.collect.record(s)
+            if service_s is not None:
+                self.service.record(service_s)
             self.queue_depth = depth_after
             self.queue_depths.record(depth_after)
             self.throughput.record(batch_size)
@@ -243,6 +258,9 @@ class ServingMetrics:
                 "pruned_total_frac_mean": self.pruned_total.mean,
                 "lb_pruned_frac_mean": self.lb_pruned.mean,
                 "dtw_abandoned_frac_mean": self.dtw_abandoned.mean,
+                "queued_ms_mean": self.queued.mean * 1e3,
+                "collect_ms_mean": self.collect.mean * 1e3,
+                "service_ms_mean": self.service.mean * 1e3,
             }
 
     def format(self) -> str:

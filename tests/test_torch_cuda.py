@@ -1322,3 +1322,93 @@ def test_cascade_stats_and_srp_search_on_the_card(cuda):
     w = search.srp_search(q, series, planes, bits, topk=10, device="cpu")
     np.testing.assert_array_equal(g.ids, w.ids)
     np.testing.assert_array_equal(g.dists, w.dists)
+
+
+# -- the DTW cell count and the sync-free stage timer ------------------------
+
+def _pairs(rng, n, m, cuda):
+    return _walk_rows(rng, n, m, cuda), _walk_rows(rng, n, m, cuda)
+
+
+@pytest.mark.parametrize("schedule", ["rows", "diagonals"])
+@pytest.mark.parametrize("m,band,n", [(1, 0, 5), (40, 6, 70), (96, 40, 33),
+                                      (512, 25, 300), (130, 63, 40)])
+def test_dtw_cells_count_the_band_without_a_threshold(cuda, schedule, m,
+                                                      band, n):
+    """With no threshold every pair computes its whole band, under both
+    schedules, and the values are those without the counter."""
+    rng = np.random.default_rng(m + band)
+    q, c = _pairs(rng, n, m, cuda)
+    cells = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    got = kd.dtw_wavefront_pairs(q, c, band, schedule=schedule, cells=cells)
+    plain = kd.dtw_wavefront_pairs(q, c, band, schedule=schedule)
+    assert torch.equal(got, plain)
+    assert torch.equal(got, ref.dtw_pairs_ref(q, c, band))
+    r = min(band, m - 1)
+    assert cells.tolist() == [kd.band_cells(m, r)] * n
+
+
+@pytest.mark.parametrize("schedule", ["rows", "diagonals"])
+@pytest.mark.parametrize("m,band", [(200, 6), (512, 25), (256, 63)])
+def test_dtw_cells_fall_where_pairs_are_abandoned(cuda, schedule, m, band):
+    """Pairs under their threshold count the whole band; pairs abandoned
+    count fewer, at the closed form of the rows or diagonals their
+    schedule stepped; the values are those without the counter."""
+    from repro_torch.core.dtw import BIG
+    rng = np.random.default_rng(m * 3 + band)
+    n = 96                                   # three row-schedule blocks
+    q, c = _pairs(rng, n, m, cuda)
+    exact = ref.dtw_pairs_ref(q, c, band)
+    full = kd.band_cells(m, band)
+    # every pair over (at zero: every cost is positive) or under its bound
+    for thr, abandoned in ((torch.zeros_like(exact), True),
+                           (exact * 1.5, False), (exact, False)):
+        cells = torch.zeros(n, dtype=torch.int32, device=cuda)
+        got = kd.dtw_wavefront_pairs(q, c, band, thr.contiguous(),
+                                     schedule=schedule, cells=cells)
+        assert torch.equal(got, kd.dtw_wavefront_pairs(
+            q, c, band, thr.contiguous(), schedule=schedule))
+        assert torch.equal(got, ref.dtw_pairs_ref(q, c, band, thr))
+        counts = cells.tolist()
+        if not abandoned:
+            assert counts == [full] * n
+            continue
+        assert bool((got == BIG).all())
+        assert all(0 < k < full for k in counts), counts
+        if schedule == "rows":               # one tile, then every pair
+            assert counts == [kd.band_cells(m, band, kd.ROWS_TILE)] * n
+        else:                                # the first check's diagonals
+            d = kd.DIAG_CHECK_EVERY + (band & 1)
+            assert counts == [kd.band_cells_diagonals(m, band, d)] * n
+
+
+def test_batched_search_timer_never_synchronises(cuda, monkeypatch):
+    """``ssh_search_batch`` with stage timings on: no
+    ``torch.cuda.synchronize`` at all, every span on the stream's clock,
+    and the cell count no more than the band's."""
+    series = make_benchmark_db("ecg", 600, 128, seed=15)
+    cfg = SearchConfig(topk=10, top_c=64, band=6, multiprobe_offsets=3)
+    db = TimeSeriesDB.build(series, SMOKE, cfg, device=cuda)
+    qs = series[[1, 40, 333, 599]]
+    db.search_batch(qs)                           # warm
+    calls = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: calls.append(a) or real(*a, **k))
+    from repro_torch.serving.batched import ssh_search_batch
+    res = ssh_search_batch(qs, db.index, cfg)
+    assert calls == []
+    st = res.stats
+    assert set(st.stage_seconds) == {"encode", "probe", "lb",
+                                     "lb_improved", "dtw"}
+    for name in ("probe.topc", "encode.sigcache", "dtw"):
+        assert st.span_seconds[name]["device"] >= 0.0, name
+        assert st.span_seconds[name]["host"] >= 0.0, name
+    assert st.span_seconds["probe.topc"]["device"] <= \
+        st.span_seconds["probe"]["device"]
+    assert 0 < st.dtw_cells <= st.dtw_band_cells
+    cpu = TimeSeriesDB.build(series, SMOKE, cfg, device="cpu")
+    want = ssh_search_batch(qs, cpu.index, cfg)
+    np.testing.assert_array_equal(res.ids, want.ids)
+    np.testing.assert_array_equal(res.dists, want.dists)
+    assert want.stats.dtw_band_cells == st.dtw_band_cells
