@@ -57,7 +57,7 @@
       empty signature LRU: 64 hits the second time, the same ids, no
       sketch launch.  The LRU is emptied before the sequential path and
       before the recording run of step 4, which must encode.
-4. Kernels: each of the six against its plain PyTorch version on the
+4. Kernels: each of the seven against its plain PyTorch version on the
    card, on the very tensors its path handed it (recorded on one more
    run of the path): integers and count-sketch tables exact, DTW
    bit-identical, the sketch within the float32 bound of reordering an
@@ -84,7 +84,18 @@
    recorded single-query call checked, and the batched probe stage
    split into its three parts, each timed by CUDA events on batch 0's
    recorded input: the kernel, the max over the multiprobe offsets and
-   ``top_c_by_count``.  The DTW kernels: ptxas's
+   ``top_c_by_count``.  The top-C select (``topc_select``, three
+   launches): ids and counts equal to the composite-key
+   ``torch.topk`` it replaced and to its plain version, at the
+   benchmark's probe shapes (ssh-ecg's (64, 6,291,456) and
+   ssh-randomwalk's (64, 1,572,864), K 40, top 512, counts drawn from the
+   seed with the top spread over many counts and as one mass of ties)
+   and on batch 0's probe counts, with the key and ``torch.topk`` as
+   ``library_ms``; its bound is bytes: every count read once and the
+   outputs written, from the shapes alone (``read_bytes``: what this
+   design reads, the counts again up to the last selected column of
+   each chunk that writes one).
+   The DTW kernels: ptxas's
    registers and spills of every DTW kernel (a spill fails the run) and
    the SASS instructions a DP cell of each schedule
    (``repro_torch.bench.dtw_schedules.cell_costs``); every recorded call
@@ -2544,6 +2555,7 @@ def ssh_paths(args, counted, phases) -> list:
 
     db, results, build_s = counted(
         "batched", ("sketch_conv", "collision_count_batch",
+                    "topc_histogram", "topc_threshold", "topc_scatter",
                     "dtw_wavefront_pairs"), batched_path)
 
     # -- b. sequential path ---------------------------------------------------
@@ -2848,6 +2860,16 @@ def ssh_paths(args, counted, phases) -> list:
         tolerance="exact", library="K - torch.cdist(q, db, p=0)",
         probe_split=probe_split, sass=cc_report["sass"],
         registers=cc_report["registers"]))
+
+    # topc_select: the probe's top-C, at the benchmark's shapes and batch 0's
+    o = cfg.multiprobe_offsets
+    best = ops.collision_count_batch(qk, dbk).reshape(
+        qk.shape[0] // o, o, -1).amax(1)
+    entries.append(topc_select_entry(
+        args.seed, {p: phases["batched"][p] for p in
+                    ("topc_histogram", "topc_threshold", "topc_scatter")},
+        (best, min(cfg.top_c, dbk.shape[0]), qk.shape[1])))
+    del best
 
     # collision_count: one probe row of a sequential query
     cc_calls = rec_s.calls["collision_count"]
@@ -3828,6 +3850,127 @@ def sketch_build_report(_build):
     regs = {k: next((x for x in i if "registers" in x), "")
             for k, i in kernels.items()}
     return dict(sass=sass, registers=regs)
+
+
+#: the probe's (B, N) counts the top-C select is timed at: ssh-ecg's and
+#: ssh-randomwalk's rows at the benchmark's scale (portbench/configs), a
+#: block of 64 queries, K 40, top 512
+TOPC_SHAPES = (("ecg", 64, 6_291_456), ("rw", 64, 1_572_864))
+TOPC_K, TOPC_C = 40, 512
+
+
+def topc_probe_counts(kind, b, n, k, seed, dev):
+    """Counts shaped like a probe's.  ``"spread"``: most rows agree on
+    few of the k hashes (0-11) and one in 5,000 on 12 to k, so a query's
+    top 512 spread over many counts and every chunk; ``"ties"``: counts
+    skewed towards 0 with 0.4 % of the rows at k, so the top is one mass
+    of ties, as on quasi-periodic ECG."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.rand((b, n), generator=g, device=dev)
+    if kind == "ties":
+        return (u ** 6 * (k + 1)).floor().clamp_(max=k).to(torch.int32)
+    counts = (u ** 3 * 12).floor().to(torch.int32)
+    tail = torch.rand((b, n), generator=g, device=dev) < 2e-4
+    counts[tail] = torch.randint(12, k + 1, (int(tail.sum()),),
+                                 generator=g, device=dev, dtype=torch.int32)
+    return counts
+
+
+def topc_read_bytes(counts, ids):
+    """Bytes the select must read for these counts: every count once, and
+    again each chunk that writes a column, up to the scatter's tile (4,096
+    columns) that holds its last one; a chunk stops there."""
+    from repro_torch.kernels import topc_select as tc
+    b, n = counts.shape
+    chunk = tc.chunk_rows(b, n)
+    chunks = -(-n // chunk)
+    last = torch.full((b, chunks), -1, dtype=torch.int64,
+                      device=counts.device)
+    last.scatter_reduce_(1, ids // chunk, ids, "amax")
+    lo = torch.arange(chunks, device=counts.device) * chunk
+    length = (torch.clamp(n - lo, max=chunk))[None, :]
+    tile = tc.CHUNK_MULTIPLE
+    again = torch.where(last >= 0, torch.minimum(
+        ((last - lo) // tile + 1) * tile, length), 0)
+    return 4 * (counts.numel() + int(again.sum()))
+
+
+def composite_topk(counts, top_c):
+    """What ``top_c_by_count`` ran before the kernel: ``torch.topk`` of
+    count·2^32 + (N-1-column), the key written first."""
+    n = counts.shape[1]
+    rev = n - 1 - torch.arange(n, device=counts.device)
+    key = (counts.to(torch.int64) << 32) | rev
+    top = torch.topk(key, top_c, dim=1, sorted=True).values
+    return n - 1 - (top & 0xFFFFFFFF), (top >> 32).to(torch.int32)
+
+
+def topc_select_at(counts, top_c, max_count, tag):
+    """Hold the select to the composite-key ``torch.topk`` and to its
+    plain version (ids and counts), then time it: device and call ms,
+    the composite key and ``torch.topk`` as the library, the plain
+    version's call ms, and the bound: one read of the counts and the
+    outputs written, which any exact select moves.  ``read_bytes`` and
+    ``two_reads_ms`` are what this design reads and two full reads."""
+    from repro_torch.kernels import ops, ref
+    ids, vals = ops.top_c_select(counts, top_c, max_count)
+    want_ids, want_vals = composite_topk(counts, top_c)
+    plain = ref.top_c_select_ref(counts, top_c, max_count)
+    for what, got, want in (("ids", ids, want_ids), ("counts", vals,
+                            want_vals), ("plain ids", ids, plain[0]),
+                            ("plain counts", vals, plain[1])):
+        if not torch.equal(got, want):
+            raise AssertionError(f"topc_select at {tag} "
+                                 f"{tuple(counts.shape)}: {what} differ "
+                                 f"in {int((got != want).sum())} places")
+    del want_ids, want_vals, plain
+    read = topc_read_bytes(counts, ids)
+    bms, bkind = bound_ms(4 * counts.numel() + 12 * ids.numel(), 0)
+    out = dict(max_abs_err=0.0,
+               **kernel_times(lambda: ops.top_c_select(counts, top_c,
+                                                       max_count),
+                              lambda: composite_topk(counts, top_c)),
+               plain_ms=cuda_time_ms(lambda: ref.top_c_select_ref(
+                   counts, top_c, max_count), min_iters=2),
+               bound_ms=bms, bound_by=bkind, read_bytes=read,
+               two_reads_ms=bound_ms(8 * counts.numel(), 0)[0],
+               tie_slots=int((vals == vals[:, -1:]).sum()),
+               shape=f"counts {tuple(counts.shape)}, max {max_count}, "
+                     f"top {top_c}")
+    out["share_of_bound"] = bms / out["ms"]
+    log(f"topc_select at {tag}: device ms {out['ms']:.4f} call ms "
+        f"{out['call_ms']:.4f} composite torch.topk device ms "
+        f"{out['library_ms']} plain call ms {out['plain_ms']:.2f} bound "
+        f"{bms:.4f} ms ({bkind}, {out['share_of_bound']:.3f} of it; "
+        f"this design's reads {bound_ms(read, 0)[0]:.4f} ms, two full "
+        f"reads {out['two_reads_ms']:.4f} ms); tie slots "
+        f"{out['tie_slots']} [{out['shape']}]")
+    return out
+
+
+def topc_select_entry(seed, launches, probe=None):
+    """The top-C select's kernel entry: the ecg and rw shapes with spread
+    counts and with a mass of ties and, given (counts, top_c, max_count),
+    the batched path's own probe."""
+    dev = torch.device("cuda")
+    shapes = {}
+    for kind in ("spread", "ties"):
+        for tag, b, n in TOPC_SHAPES:
+            counts = topc_probe_counts(kind, b, n, TOPC_K, seed, dev)
+            shapes[f"{tag}_{kind}"] = topc_select_at(
+                counts, TOPC_C, TOPC_K, f"{tag}, {kind}")
+            del counts
+            torch.cuda.empty_cache()
+    if probe is not None:
+        shapes["batch0"] = topc_select_at(*probe, "batch 0's probe")
+    return dict(name="topc_select", route="cuda",
+                source="src/repro_torch/csrc/topc_select.cu",
+                replaces="none: the reference's lax.top_k "
+                         "(src/repro/core/index.py, top_c_by_count)",
+                launches=launches, **shapes.pop("ecg_spread"),
+                probe_shapes=shapes, tolerance="exact",
+                library="torch.topk of count*2^32 + (N-1-column), the key "
+                        "included")
 
 
 def probe_split_ms(qk, dbk, cfg):
@@ -6139,7 +6282,7 @@ def main() -> int:
         for extra in ("query_shape", "sequential_shape", "long_shape",
                       "engine_shapes", "stream_shape", "fleet_shapes",
                       "suite_shapes", "train_shapes", "ssh_step_shapes",
-                      "offset_shapes", "paper_api_shapes"):
+                      "offset_shapes", "paper_api_shapes", "probe_shapes"):
             if extra in e:
                 log(f"kernel {e['name']} at the {extra.split('_')[0]} shape: "
                     f"{e[extra]}")

@@ -14,8 +14,9 @@ from typing import Dict, Iterable, Sequence
 import torch
 
 #: the port's kernels (``kernels._build.KERNELS`` grouped where two
-#: counters share device functions: both DTW entry points launch the
-#: rows and the diagonals kernels) -> fragments of their device names
+#: counters share device functions, as both DTW entry points launch the
+#: rows and the diagonals kernels, or one call launches three, as the
+#: top-C select's passes) -> fragments of their device names
 PORT_KERNELS = {
     "sketch_conv": ("sketch_conv_kernel",),
     "collision_count_batch": ("collision_count_batch_kernel",),
@@ -24,6 +25,8 @@ PORT_KERNELS = {
     "cs_tables": ("cs_tables_kernel",),
     "flash_attention": ("flash_attention_tc_kernel",),
     "flash_attention_simt": ("flash_attention_simt_kernel",),
+    "topc_select": ("topc_histogram_kernel", "topc_threshold_kernel",
+                    "topc_scatter_kernel"),
 }
 #: launch counters of each group of :data:`PORT_KERNELS`
 PORT_COUNTERS = {
@@ -34,6 +37,7 @@ PORT_COUNTERS = {
     "cs_tables": ("cs_tables",),
     "flash_attention": ("flash_attention",),
     "flash_attention_simt": ("flash_attention_simt",),
+    "topc_select": ("topc_histogram", "topc_threshold", "topc_scatter"),
 }
 #: fragments of matrix-product kernel names (cuBLAS, CUTLASS)
 _GEMM = ("gemm", "xmma", "cutlass", "matmul", "_mma", "cublas", "nvjet")

@@ -129,17 +129,16 @@ def band_keys(signatures: torch.Tensor, params: SSHParams) -> torch.Tensor:
     return minhash.combine_bands(signatures, params.num_tables)
 
 
-def top_c_by_count(counts: torch.Tensor, top_c: int):
+def top_c_by_count(counts: torch.Tensor, top_c: int,
+                   max_count: int = ops.MAX_COUNT):
     """Each row's ``top_c`` columns by count, highest first, ties to the
-    lowest column — ``lax.top_k``'s order.  ``torch.topk`` promises no
-    tie order on CUDA, so it ranks the unique composite key
-    count·2^32 + (N-1-column).  counts (B, N) int32 -> (ids int64,
-    counts int32), each (B, top_c)."""
-    n = counts.shape[1]
-    rev = n - 1 - torch.arange(n, device=counts.device)
-    key = (counts.to(torch.int64) << 32) | rev
-    top = torch.topk(key, top_c, dim=1, sorted=True).values
-    return n - 1 - (top & 0xFFFFFFFF), (top >> 32).to(torch.int32)
+    lowest column — ``lax.top_k``'s order: counts (B, N) int32 in
+    [0, ``max_count``], the width of the keys they compare -> (ids
+    int64, counts int32), each (B, top_c).  ``ops.top_c_select``: the
+    ``topc_select`` kernels on CUDA (a histogram, a threshold and a
+    stable scatter, two reads of the counts), their plain version on the
+    CPU."""
+    return ops.top_c_select(counts, top_c, max_count)
 
 
 def signature_collisions(query_keys: torch.Tensor, db_keys: torch.Tensor
@@ -153,8 +152,9 @@ def probe_topc(query_keys: torch.Tensor, db_keys: torch.Tensor, top_c: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-C rows by collision count, ties to the lowest id: (ids int64,
     counts int32), each (top_c,)."""
-    ids, vals = top_c_by_count(signature_collisions(query_keys,
-                                                    db_keys)[None], top_c)
+    ids, vals = top_c_by_count(
+        signature_collisions(query_keys, db_keys)[None], top_c,
+        max_count=int(query_keys.shape[-1]))
     return ids[0], vals[0]
 
 
@@ -170,7 +170,7 @@ def probe_topc_batch(query_keys: torch.Tensor, db_keys: torch.Tensor,
     """Per-query top-C by collision count: (B, L) x (N, L) -> (ids,
     counts), each (B, top_c), ties to the lowest id."""
     return top_c_by_count(signature_collisions_batch(query_keys, db_keys),
-                          top_c)
+                          top_c, max_count=int(query_keys.shape[-1]))
 
 _ENV_CHUNK = 65536       # rows per envelope pass (bounds the pooling temps)
 

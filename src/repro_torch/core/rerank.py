@@ -75,6 +75,7 @@ class SearchStats:
     n_windows: int = 0                # subseq: windows; 0 whole-series
     dtw_cells: int = 0                # DP cells the pair DTW computed
     dtw_band_cells: int = 0           # band cells of the same pairs
+    topc_tie_slots: int = 0           # top-C slots the tie order filled
 
     @property
     def lb_pruned(self) -> int:
@@ -298,11 +299,14 @@ def rerank_batch(queries: torch.Tensor, ids: torch.Tensor,
                  valid: torch.Tensor, index: SSHIndex, topk: int,
                  band: Optional[int], *, use_lb_cascade: bool = True,
                  backend: str = "auto", seed_size: Optional[int] = None,
-                 early_abandon: bool = True, timer: StageTimer = DISABLED):
+                 early_abandon: bool = True, timer: StageTimer = DISABLED,
+                 tie_slots: Optional[torch.Tensor] = None):
     """Batched stage 2+3 over per-query candidate blocks.
 
     queries (B, m); ids (B, C) int64 candidate ids; valid (B, C) bool, all
-    on the index's device.  Returns host arrays (out_ids (B, k) int64,
+    on the index's device.  ``tie_slots``, a 0-d device count of the
+    probe's top-C slots filled from each query's threshold count, reaches
+    ``stats.topc_tie_slots`` in the block's one copy to the host.  Returns host arrays (out_ids (B, k) int64,
     out_d (B, k) f32, n_final (B,) int64), n_union and the stats; filler
     slots (fewer survivors than topk) carry id -1 / dist BIG.
     ``backend`` is checked against the index's device, which picks the
@@ -398,10 +402,14 @@ def rerank_batch(queries: torch.Tensor, ids: torch.Tensor,
         out_ids = torch.where(out_d < BIG * 0.5, ids.gather(1, order), -1)
         n_final = ok.sum(1)
         n_union = torch.unique(pair_ids).numel()
+        if tie_slots is not None:
+            counters.append(tie_slots)
         host = [t.cpu() for t in (out_ids, out_d, n_final,
                                   torch.stack(counters))]
     out_ids, out_d, n_final, cnt = host
     cnt = cnt.tolist()
+    if tie_slots is not None:
+        stats.topc_tie_slots = cnt.pop()
     stats.n_in = cnt[0]
     if cascade_on:
         (stats.pruned_kim, stats.pruned_keogh, stats.pruned_keogh2,

@@ -109,7 +109,8 @@ def hash_probe(query: torch.Tensor, index: SSHIndex, top_c: int,
             for row in qk[1:]:
                 counts = torch.maximum(
                     counts, ops.collision_count(row.contiguous(), db))
-            ids, vals = top_c_by_count(counts[None], c)
+            ids, vals = top_c_by_count(counts[None], c,
+                                       max_count=int(qk.shape[-1]))
             cand_ids = ids[0][vals[0] > 0]
     if probe_stats is not None:
         probe_stats["sig_cache_hit"] = int(hit)

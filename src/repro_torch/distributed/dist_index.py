@@ -154,7 +154,7 @@ def local_query(sig: torch.Tensor, q: torch.Tensor, series: torch.Tensor,
     """
     c = min(local_c, int(sigs.shape[0]))
     coll = ops.collision_count(sig, sigs)
-    cand = top_c_by_count(coll[None], c)[0][0]
+    cand = top_c_by_count(coll[None], c, max_count=int(sig.shape[-1]))[0][0]
     cand_series = series.index_select(0, cand)
     thr = None
     if abandon and (c > topk or (seed_always and c == topk)):

@@ -83,12 +83,18 @@ SIGNATURES = {
         "flash_attention_max_v_head_dim": [],
         "flash_attention_tc_smem_bytes": [C_INT, C_INT],
     },
+    "topc_select": {
+        "topc_select_launch": [*[C_PTR] * 7, C_INT, C_I64, C_I64, C_INT,
+                               C_INT, C_INT, C_PTR],
+        "topc_select_max_count": [],
+    },
 }
 
 #: every kernel, by the name its launches are counted under
 KERNELS = ("sketch_conv", "collision_count_batch", "collision_count",
            "dtw_wavefront_pairs", "dtw_wavefront", "cs_tables",
-           "flash_attention", "flash_attention_simt")
+           "flash_attention", "flash_attention_simt", "topc_histogram",
+           "topc_threshold", "topc_scatter")
 
 #: launches per kernel since the last reset (see ``kernels.ops``);
 #: written under :data:`COUNT_LOCK`

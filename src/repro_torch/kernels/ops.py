@@ -22,6 +22,7 @@ from repro_torch.kernels import collision_count as _cc
 from repro_torch.kernels import count_sketch as _cs
 from repro_torch.kernels import dtw_wavefront as _dtw
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import topc_select as _tc
 from repro_torch.kernels import ref
 from repro_torch.kernels.sketch_conv import sketch_conv as _sketch_kernel
 
@@ -161,6 +162,20 @@ def collision_count(query_keys: torch.Tensor, db_keys: torch.Tensor
     if _route(db_keys):
         return _cc.collision_count(query_keys, db_keys)
     return ref.collision_count_ref(query_keys, db_keys)
+
+
+#: widest count :func:`top_c_select` takes
+MAX_COUNT = _tc.MAX_COUNT
+
+
+def top_c_select(counts: torch.Tensor, top_c: int,
+                 max_count: int = MAX_COUNT):
+    """Each row's ``top_c`` columns by count, highest first, ties to the
+    lowest column: counts (B, N) int32 in [0, ``max_count``] -> (ids
+    (B, top_c) int64, counts (B, top_c) int32)."""
+    if _route(counts):
+        return _tc.top_c_select(counts, top_c, max_count)
+    return ref.top_c_select_ref(counts, top_c, max_count)
 
 
 def dtw_rerank(query: torch.Tensor, candidates: torch.Tensor,

@@ -14,6 +14,7 @@ import torch
 from repro_torch.core import dtw as _dtw
 from repro_torch.core.sketch import sketch_projections
 from repro_torch.kernels import collision_count as _cc
+from repro_torch.kernels import topc_select as _tc
 from repro_torch.kernels.dtw_wavefront import ROWS_TILE, band_cells
 from repro_torch.kernels.flash_attention import REORDER
 
@@ -250,6 +251,61 @@ def cs_tables_ref(bucket: torch.Tensor, sign: torch.Tensor, width: int
     tables.scatter_add_(1, tgt.reshape(b * r, s).to(torch.int64),
                         sign.to(torch.float32).reshape(b * r, s))
     return tables[:, :width].reshape(b, r, width)
+
+
+def top_c_select_ref(counts: torch.Tensor, top_c: int,
+                     max_count: int = _tc.MAX_COUNT,
+                     chunk: Optional[int] = None):
+    """The ``topc_select`` kernels' three passes in plain PyTorch: counts
+    (B, N) int32 -> (ids (B, top_c) int64, counts (B, top_c) int32),
+    each row's columns by count, highest first, ties to the lowest
+    column.
+
+    1. a histogram of ``max_count + 1`` bins for each chunk of ``chunk``
+       columns (the kernel's ``chunk_rows`` when None); a count outside
+       [0, max_count] falls in the nearer end bin, as in the kernel;
+    2. the threshold t, the largest count with #(>= t) >= top_c, and
+       the first slot of each (chunk, bin): #(> bin) plus the bin's
+       columns in earlier chunks;
+    3. each column of count >= t to its first slot plus its rank among
+       the chunk's columns of that count, kept where the slot is below
+       top_c.
+    """
+    _tc.check_args(counts, top_c, max_count)
+    b, n = counts.shape
+    dev = counts.device
+    bins = max_count + 1
+    ids = torch.empty((b, top_c), dtype=torch.int64, device=dev)
+    vals = torch.empty((b, top_c), dtype=torch.int32, device=dev)
+    if b == 0 or top_c == 0:
+        return ids, vals
+    chunk = _tc.chunk_rows(b, n) if chunk is None else int(chunk)
+    chunks = -(-n // chunk)
+    v = counts.to(torch.int64).clamp(0, max_count)
+    col = torch.arange(n, device=dev)
+    cell = torch.arange(b, device=dev)[:, None] * chunks + col // chunk
+    hist = torch.bincount((cell * bins + v).reshape(-1),
+                          minlength=b * chunks * bins
+                          ).reshape(b, chunks, bins)
+    total = hist.sum(1)                                        # (B, bins)
+    at_least = total.flip(1).cumsum(1).flip(1)                 # #(>= v)
+    above = at_least - total                                   # #(> v)
+    bin_ids = torch.arange(bins, device=dev)
+    t = torch.where(at_least >= top_c, bin_ids, 0).amax(1)     # (B,)
+    first = above[:, None, :] + hist.cumsum(1) - hist          # (B, K, bins)
+    rows, cols = torch.nonzero(v >= t[:, None], as_tuple=True)  # id order
+    cv = v[rows, cols]
+    group = (cell[rows, cols] * bins + cv)
+    order = torch.sort(group, stable=True).indices
+    sorted_group = group[order]
+    rank = torch.empty_like(order)
+    rank[order] = (torch.arange(order.numel(), device=dev)
+                   - torch.searchsorted(sorted_group, sorted_group))
+    slot = first[rows, cols // chunk, cv] + rank
+    keep = slot < top_c
+    ids[rows[keep], slot[keep]] = cols[keep]
+    vals[rows[keep], slot[keep]] = cv[keep].to(torch.int32)
+    return ids, vals
 
 
 def key_lengths(kv_valid: Optional[torch.Tensor], b: int, t: int,

@@ -276,7 +276,8 @@ def _make_ssh_query(spec, top_c: int, band: int, topk: int) -> Callable:
         sig = _ssh_encoder(spec, params).encode_batch(q[None])[0]
         db_sigs = batch["db_sigs"]
         counts = ops.collision_count(sig.to(db_sigs.device), db_sigs)
-        ids = top_c_by_count(counts[None], min(top_c, counts.shape[0]))[0][0]
+        ids = top_c_by_count(counts[None], min(top_c, counts.shape[0]),
+                             max_count=int(sig.shape[-1]))[0][0]
         cands = batch["db_series"].index_select(0, ids)
         d = ops.dtw_rerank(q.to(cands.device), cands, band)
         order = torch.sort(d, stable=True).indices[:topk]

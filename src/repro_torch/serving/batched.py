@@ -8,7 +8,8 @@ One ``ssh_search_batch`` call serves a (B, m) block of queries:
      row;
   2. **probe** — one (B·O, K) x (N, K) collision count
      (``collision_count_batch``), the max over offsets, and each row's
-     top-C by count with ties to the lowest id;
+     top-C by count with ties to the lowest id (``top_c_by_count``, the
+     ``topc_select`` kernels);
   3. **re-rank** — ``core.rerank.rerank_batch``.
 
 Per-query answers follow the reference's decisions: the same integer
@@ -170,6 +171,8 @@ def ssh_search_batch(queries, index: SSHIndex,
                             timer=timer, probe_stats=probe_stats,
                             contents=contents)
     valid = vals > 0                                           # (B, C)
+    # top-C slots filled from each row's threshold count, its last
+    tie_slots = (vals == vals[:, -1:]).sum()
     empty = ~valid.any(1)
     # degenerate rows: same fallback as the sequential path
     ids = torch.where(empty[:, None],
@@ -180,7 +183,8 @@ def ssh_search_batch(queries, index: SSHIndex,
     out_ids, out_d, n_final, n_union, stats = rr.rerank_batch(
         queries, ids, valid, index, config.topk, config.band,
         use_lb_cascade=config.use_lb_cascade, seed_size=config.seed_size,
-        early_abandon=config.early_abandon, timer=timer)
+        early_abandon=config.early_abandon, timer=timer,
+        tie_slots=tie_slots)
     stats.index_bytes = index.nbytes()
     stats.sig_cache_hit = probe_stats["sig_cache_hit"]
     return BatchSearchResult(

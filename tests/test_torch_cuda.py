@@ -1266,6 +1266,107 @@ def test_paper_api_goes_through_the_kernels(cuda):
     assert torch.equal(one_ids, ids[0]) and torch.equal(one_vals, vals[0])
 
 
+def _composite_topk(counts, top_c):
+    """The oracle of the top-C select: ``torch.topk`` of the unique key
+    count·2^32 + (N-1-column), ties to the lowest column."""
+    n = counts.shape[1]
+    rev = n - 1 - torch.arange(n, device=counts.device)
+    key = (counts.to(torch.int64) << 32) | rev
+    top = torch.topk(key, top_c, dim=1, sorted=True).values
+    return n - 1 - (top & 0xFFFFFFFF), (top >> 32).to(torch.int32)
+
+
+def _topc_counts(kind, b, n, max_count, seed, device):
+    """All 0, all ``max_count`` (every column a tie), uniform, or a few
+    high columns over a mass tied at one count."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if kind == "zero":
+        return torch.zeros((b, n), dtype=torch.int32, device=device)
+    if kind == "max":
+        return torch.full((b, n), max_count, dtype=torch.int32,
+                          device=device)
+    if kind == "uniform":
+        return torch.randint(0, max_count + 1, (b, n), generator=g,
+                             dtype=torch.int32, device=device)
+    x = torch.full((b, n), max_count // 2, dtype=torch.int32, device=device)
+    x[torch.rand((b, n), generator=g, device=device) < 0.002] = max_count
+    x[torch.rand((b, n), generator=g, device=device) < 0.3] = max_count // 4
+    return x
+
+
+TOPC_BIG = 2 ** 20 + 7
+TOPC_NC = sorted({(n, c) for c in (1, 512)
+                  for n in (1, c - 1, c, c + 1, TOPC_BIG) if n >= 1}
+                 | {(n, n) for n in (1, 511, 512, 513, TOPC_BIG)})
+
+
+@pytest.mark.parametrize("max_count", [20, 40, 64])
+@pytest.mark.parametrize("n, c", TOPC_NC)
+@pytest.mark.parametrize("b", [1, 3, 64])
+def test_topc_select_kernel_equals_composite_topk(cuda, b, n, c,
+                                                  max_count):
+    """The three kernels give the composite-key ``torch.topk``'s ids and
+    counts bit for bit, on every kind of counts; each pass launches once
+    a call; C > N raises on the host."""
+    for i, kind in enumerate(("zero", "max", "uniform", "mass")):
+        counts = _topc_counts(kind, b, n, max_count, n + 7 * i + b, cuda)
+        if c > n:
+            with pytest.raises(ValueError):
+                ops.top_c_select(counts, c, max_count)
+            continue
+        ops.reset_launch_counts()
+        ids, vals = ops.top_c_select(counts, c, max_count)
+        launched = ops.launch_counts()
+        torch.cuda.synchronize()
+        assert all(launched[p] == 1 for p in
+                   ("topc_histogram", "topc_threshold", "topc_scatter"))
+        want_ids, want_vals = _composite_topk(counts, c)
+        assert torch.equal(ids, want_ids), kind
+        assert torch.equal(vals, want_vals), kind
+
+
+def test_topc_select_kernel_multiprobe_block_and_limits(cuda):
+    """The (B, O, N) -> max counts of a multiprobe block, rows that start
+    off a 16-byte boundary, a side stream; max_count above 64 raises and
+    the library's limit is the wrapper's; nothing synchronises."""
+    from repro_torch.kernels import topc_select as tc
+    spec = SMOKE.with_params(num_hashes=40, num_tables=20)
+    series = make_benchmark_db("ecg", 3000, 128, seed=21)
+    db = TimeSeriesDB.build(series, spec, SearchConfig(band=6), device=cuda)
+    qs = torch.as_tensor(series[::47][:64], dtype=torch.float32, device=cuda)
+    sigs = db.index.query_signatures_batch_multiprobe(qs, 3)
+    counts = ops.collision_count_batch(sigs.reshape(-1, 40),
+                                       db.index.signatures
+                                       ).reshape(64, 3, -1).amax(1)
+    for c in (1, 64, 512, int(counts.shape[1])):
+        got = ops.top_c_select(counts, c, 40)
+        want = _composite_topk(counts, c)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        plain = ref.top_c_select_ref(counts, c, 40)
+        assert all(torch.equal(a, p) for a, p in zip(got, plain))
+    x = _topc_counts("mass", 5, 70_001, 40, 3, cuda)
+    shifted = torch.empty(5 * 70_001 + 1, dtype=torch.int32,
+                          device=cuda)[1:].view(5, 70_001)
+    shifted.copy_(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    calls = []
+    real = torch.cuda.synchronize
+    with torch.cuda.stream(side):
+        try:
+            torch.cuda.synchronize = lambda *a, **k: calls.append(a)
+            got = ops.top_c_select(shifted, 700, 40)
+        finally:
+            torch.cuda.synchronize = real
+    torch.cuda.synchronize()
+    assert calls == []
+    want = _composite_topk(x, 700)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError):
+        ops.top_c_select(counts, 8, 65)
+    assert _build.load(tc.NAME).topc_select_max_count() == tc.MAX_COUNT
+
+
 @pytest.mark.parametrize("band", [None, 6])
 def test_dtw_family_on_the_card(cuda, band):
     """``dtw_batch`` / ``dtw_banded_batch`` through ``dtw_wavefront`` and
@@ -1412,3 +1513,4 @@ def test_batched_search_timer_never_synchronises(cuda, monkeypatch):
     np.testing.assert_array_equal(res.ids, want.ids)
     np.testing.assert_array_equal(res.dists, want.dists)
     assert want.stats.dtw_band_cells == st.dtw_band_cells
+    assert 0 < st.topc_tie_slots == want.stats.topc_tie_slots

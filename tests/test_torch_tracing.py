@@ -391,6 +391,7 @@ def test_new_readers_on_the_tiny_cpu_cell(tiny_root, cell):
         got["encode_ms"]["value"]
     assert got["rerank.dtw_cell_frac"]["value"] == 1.0
     assert "kernel.dtw_wavefront_pairs.gcell_s" not in got
+    assert 0.0 < got["probe.topc_tie_frac"]["value"] <= 1.0
 
 
 def test_gcell_reader_arithmetic(tiny_root):
@@ -422,6 +423,33 @@ def test_gcell_reader_arithmetic(tiny_root):
     for name in NEW_READERS[:3]:
         mod = spec.load_module(spec.metric_path(tiny_root, name), name)
         assert mod.read(Obs(None, [SearchStats()])) is None
+
+
+def test_tie_frac_reader_arithmetic(tiny_root):
+    """Tie slots over blocks x B x C, C cut to the rows; nothing from a
+    program whose stats lack the counter."""
+    import types
+
+    from portbench import spec
+    from repro_torch.core.rerank import SearchStats
+    name = "probe.topc_tie_frac"
+    reader = spec.load_module(spec.metric_path(tiny_root, name), name)
+    cell = spec.cell("tiny-bulk", tiny_root)
+
+    class Obs:
+        def __init__(self, stats):
+            self.cell, self._stats = cell, stats
+
+        def block_stats(self):
+            return self._stats
+    slots = int(cell.traffic["block"]) * min(int(cell.config["top_c"]),
+                                             cell.n_rows)
+    got = reader.read(Obs([SearchStats(topc_tie_slots=30),
+                           SearchStats(topc_tie_slots=90)]))
+    assert got == pytest.approx(120 / (2 * slots))
+    older = types.SimpleNamespace(n_in=5, n_dtw=3)
+    assert reader.read(Obs([older, None])) is None
+    assert reader.read(Obs([])) is None
 
 
 def test_ranges_are_no_user_annotations(db, series):
